@@ -1,0 +1,56 @@
+"""Scheduler facade: dispatches a solve to the backend selected by the
+provisioner's ``spec.solver`` field — ``tpu`` to the GPU-backed
+``TorchScheduler``, anything else to the host FFD scheduler."""
+
+from __future__ import annotations
+
+import random
+from typing import List, Optional, Sequence
+
+from karpenter_tpu_torch.api.objects import Pod
+from karpenter_tpu_torch.api.provisioner import SOLVER_TPU, Provisioner
+from karpenter_tpu_torch.cloudprovider.requirements import catalog_requirements
+from karpenter_tpu_torch.cloudprovider.types import InstanceType
+from karpenter_tpu_torch.kube.client import Cluster
+from karpenter_tpu_torch.scheduling.ffd import FFDScheduler, VirtualNode
+from karpenter_tpu_torch.utils.device import resolve_device
+
+
+class Scheduler:
+    def __init__(
+        self,
+        cluster: Cluster,
+        rng: Optional[random.Random] = None,
+        device="cuda",
+    ):
+        """``device`` is where the ``solver: tpu`` pack runs: ``cuda`` (the
+        default) needs a card and raises without one; ``cpu`` runs the
+        plain PyTorch version."""
+        from karpenter_tpu_torch.solver.backend import TorchScheduler
+
+        self.cluster = cluster
+        self.device = resolve_device(device)
+        self.ffd = FFDScheduler(cluster, rng=rng)
+        self.torch = TorchScheduler(cluster, rng=rng, device=self.device)
+
+    def last_stage_profile(self) -> dict:
+        """Per-stage timings of the most recent ``solver: tpu`` solve (sort /
+        inject / encode / pack_fetch / decode / validate seconds,
+        pack_dispatches, packer_backend)."""
+        return dict(self.torch.last_profile)
+
+    def solve(
+        self,
+        provisioner: Provisioner,
+        instance_types: Sequence[InstanceType],
+        pods: Sequence[Pod],
+    ) -> List[VirtualNode]:
+        # layer the live catalog's supported values into the constraints;
+        # idempotent, and keeps the facade safe to call standalone
+        constraints = provisioner.spec.constraints.clone()
+        constraints.requirements = constraints.requirements.merge(
+            catalog_requirements(instance_types)
+        )
+        if provisioner.spec.solver == SOLVER_TPU:
+            return self.torch.solve(constraints, instance_types, pods)
+        return self.ffd.solve(constraints, instance_types, pods)
