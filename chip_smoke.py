@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing is swallowed):
 
 1. build   — compile every kernel of the port from the checkout's sources
-             (nvcc, sm_90a) and print what ptxas reports, and the card's
-             name and power limit;
+             (one nvcc per source, sm_90a, all started together) and print
+             what ptxas reports for each, and the card's name and power
+             limit;
 2. parity  — on the headline batch (instance_types(400) x
              diverse_pods(10000, Random(42)), encoded by the port), run
              pack_first_fit on the card and its plain version on CPU copies
@@ -23,7 +24,25 @@ Phases (any failure exits non-zero; nothing is swallowed):
              by kernel and its idle share;
 4. retry   — a batch that opens more than 512 nodes through
              Scheduler.solve: pack_dispatches == 2 and cuda == cpu;
-5. kernels — one JSON line listing every kernel of the port.
+5. v2 parity — pack_first_fit_v2 on the card against its plain version on
+             CPU copies of the same inputs, all five outputs bit-exact: the
+             full-width constraint-diverse batch (instance_types_tradeoff(400)
+             x 10,000 pods with 64 team selectors, Random(9)) at n_max 512,
+             n_max P and a saturating n_max 64; the tradeoff(64) batch at
+             n_max 512; the bench's synthetic shape (P=256, S=256, C=8, F=8,
+             R=4, n_max 128); a synthetic shape with pinned hostnames. Then
+             CUDA-event times of pack_first_fit_v2 and of pack_first_fit on
+             the full-width batch, the plain version's time on the card, and
+             the bound;
+6. diverse — Scheduler.solve on the full-width mix: a warm-up whose plan
+             equals the device="cpu" plan and opens 128 nodes, then 5 rounds
+             (launch counts set to 0 just before) through pack_first_fit_v2
+             with their stage timings, and one profiled round;
+7. multi   — sharded_multi_solve on two stacks of 8 batches of 1,250 pods:
+             diverse_pods x instance_types(400) (route v1) and the team mix
+             x tradeoff(400) (route v2); each equals the CPU result for every
+             batch and for the cheapest types, and is timed;
+8. kernels — one JSON line listing every kernel of the port.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -37,14 +56,20 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor f32 rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 KERNEL_SOURCE = "karpenter_tpu_torch/solver/csrc/pack_first_fit.cu"
 REPLACES = "karpenter_tpu/solver/pallas_kernel.py:51"  # _pack_kernel (pallas_call at :197)
+V2_SOURCE = "karpenter_tpu_torch/solver/csrc/pack_first_fit_v2.cu"
+V2_REPLACES = "karpenter_tpu/solver/pallas_kernel_v2.py:63"  # _pack_kernel_v2 (pallas_call at :243)
 # nodes the JAX package's lax.scan kernel opens on the headline batch
 HEADLINE_NODES = 431
+# ... and on the full-width team mix (64 teams, two 110-pod nodes each)
+DIVERSE_NODES = 128
 
 
 def log(msg: str) -> None:
@@ -59,31 +84,67 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def headline_batch(n_pods: int, n_types: int, seed: int):
+def encode_batch(catalog, pods, topo_seed: int = 1):
     """The main path's host stages up to the kernel, with the port alone:
-    catalog requirements, FFD sort, topology injection (Random(1)), daemon
-    overhead, encode."""
-    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    catalog requirements, FFD sort, topology injection (Random(topo_seed)),
+    daemon overhead, encode."""
     from karpenter_tpu_torch.cloudprovider.requirements import catalog_requirements
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.scheduling.ffd import daemon_overhead, sort_pods_ffd_with_statics
     from karpenter_tpu_torch.scheduling.topology import Topology
     from karpenter_tpu_torch.solver import encode as enc
-    from karpenter_tpu_torch.testing import diverse_pods, make_provisioner
+    from karpenter_tpu_torch.testing import make_provisioner
 
-    catalog = sorted(instance_types(n_types), key=lambda it: it.effective_price())
+    catalog = sorted(catalog, key=lambda it: it.effective_price())
     c = make_provisioner(solver="tpu").spec.constraints.clone()
     c.requirements = c.requirements.merge(catalog_requirements(catalog))
-    pods, sts = sort_pods_ffd_with_statics(diverse_pods(n_pods, random.Random(seed)))
+    pods, sts = sort_pods_ffd_with_statics(pods)
     cluster = Cluster()
-    plan = Topology(cluster, rng=random.Random(1)).inject_plan(c, pods, sts=sts)
+    plan = Topology(cluster, rng=random.Random(topo_seed)).inject_plan(c, pods, sts=sts)
     return enc.encode(c, catalog, pods, daemon_overhead(cluster, c), plan=plan)
+
+
+def headline_batch(n_pods: int, n_types: int, seed: int):
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.testing import diverse_pods
+
+    return encode_batch(instance_types(n_types), diverse_pods(n_pods, random.Random(seed)))
+
+
+def team_pods(n_pods: int, seed: int, k_teams: int = 64):
+    """The constraint-diverse pod mix (bench.py:171-199): cpu requests of
+    0.25, 0.5 or 1 and k distinct nodeSelector team values."""
+    from karpenter_tpu_torch.testing import make_pod
+
+    rng = random.Random(seed)
+    return [
+        make_pod(requests={"cpu": f"{rng.choice([0.25, 0.5, 1])}"},
+                 node_selector={"team": f"t{i % k_teams}"})
+        for i in range(n_pods)
+    ]
+
+
+def v2_inputs(batch, device):
+    """pack_first_fit_v2's inputs exactly as the main path builds them: the
+    compact pod table unpacked on the device, the per-core tables from the
+    invariants cache, the fresh-node fits derived on the device."""
+    import torch
+
+    from karpenter_tpu_torch.solver import fused, pack_kernel_v2
+
+    tab, open_by_core, bhh = fused.pack_pod_table(batch)
+    uniq = fused.pad_uniq_req(batch.uniq_req)
+    pod_side = [torch.tensor(np.ascontiguousarray(a), device=device)
+                for a in (tab, open_by_core, bhh, uniq)]
+    front_j, compat_j, jvals, frontiers, daemon, _, _ = fused.DeviceInvariants(device).get_v2(batch)
+    return pack_kernel_v2.kernel_inputs(
+        *fused._unpack_pods(*pod_side), frontiers, daemon, front_j, compat_j, jvals
+    )
 
 
 def kernel_inputs(batch, device):
     """pack_first_fit's inputs exactly as the main path builds them: the
     compact pod table unpacked on the device, the invariants uploaded."""
-    import numpy as np
     import torch
 
     from karpenter_tpu_torch.solver import fused
@@ -113,42 +174,151 @@ def compare(ref, out) -> float:
     return worst
 
 
-def kernel_ms(args, n_max: int, iters: int) -> float:
+def kernel_ms(args, n_max: int, iters: int, kernel=None, warmup: int = 3, **kw) -> float:
+    """Mean CUDA-event time of ``kernel`` (pack_first_fit by default) over
+    ``iters`` launches, after ``warmup`` launches."""
     import torch
 
     from karpenter_tpu_torch.solver.pack_kernel import pack_first_fit
 
-    for _ in range(3):
-        pack_first_fit(*args, n_max=n_max)
+    kernel = kernel or pack_first_fit
+    for _ in range(warmup):
+        kernel(*args, n_max=n_max, **kw)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        pack_first_fit(*args, n_max=n_max)
+        kernel(*args, n_max=n_max, **kw)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def bound(args, result, n_max: int):
-    """(bound_ms, bound_by, bytes, ops): each input read once and each output
-    written once over HBM bandwidth, against the f32 adds and compares this
-    run's data needs (every valid pod against the nodes open at its turn)
-    over the f32 rate."""
-    n_bytes = sum(a.numel() * a.element_size() for a in args)
-    n_bytes += sum(a.numel() * a.element_size() for a in result)
-    R, F = args[6].shape[1], args[8].shape[1]
-    count, scanned = 0, 0
-    valid = args[0].cpu().tolist()
-    for v, a in zip(valid, result.assignment.cpu().tolist()):
-        if not v:
-            continue
-        scanned += count
-        if a == count:
-            count += 1
-    ops = scanned * (R + F * R) + sum(valid) * (R + F * R)
+def bound(n_bytes: int, ops: int):
+    """(bound_ms, bound_by): the bytes over HBM bandwidth against the
+    operations over the f32 rate, whichever takes longer."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, ops
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def walk(le):
+    """A first-fit frontier walk over ``le`` [k, F, R] (does total r fit
+    row f?) for k nodes: the compares each needs (each row until its first
+    failing axis, rows until the first that fits), the rows each reads, and
+    whether a row fits."""
+    k, F, R = le.shape
+    row_fit = le.all(2)
+    fits = row_fit.any(1)
+    rows = np.where(fits, row_fit.argmax(1) + 1, F)
+    per_row = np.where(row_fit, R, (~le).argmax(2) + 1)
+    return (per_row * (np.arange(F)[None, :] < rows[:, None])).sum(1), rows, fits
+
+
+def replay_work(pods, assignment, joins, limits, shape):
+    """Replay the first-fit recurrence along a kernel's own assignment and
+    count the work this run's data needs. Per valid pod: one joinability
+    compare per open node, one hostname compare per joining node when the
+    pod pins a hostname, and, for the nodes that join and admit it up to
+    the first that fits, R adds and the frontier walk; R adds when it opens
+    a node. ``joins(core, sigs)`` gives (joinable, joined id) and
+    ``limits(core, sigs, ids)`` the [k, F, R] limits. Returns (ops, compat,
+    rows, jv): which (core, sig) joinabilities were read, how many frontier
+    rows each (core, sig) column had read, and which joined ids were read.
+    Raises where the replay's first fit is not the kernel's."""
+    valid, open_sig, core, host, hib, open_host, req, daemon = pods
+    n_cap, C, S = shape
+    R = req.shape[1]
+    node_sig = np.full(n_cap, -1, np.int64)
+    node_host = np.full(n_cap, -1, np.int64)
+    node_req = np.zeros((n_cap, R), np.float32)
+    compat = np.zeros((C, S), bool)
+    rows_read = np.zeros((C, S), np.int64)
+    jv = np.zeros((C, S), bool)
+    count = ops = 0
+    for i in np.flatnonzero(valid):
+        c, h, a = int(core[i]), int(host[i]), int(assignment[i])
+        target, jid = -1, None
+        if count:
+            sigs = node_sig[:count]
+            ok, jid = joins(c, np.maximum(sigs, 0))
+            ok = ok & (sigs >= 0)
+            ops += count
+            compat[c, sigs[sigs >= 0]] = True
+            if h >= 0:
+                ops += int(ok.sum())
+                nh = node_host[:count]
+                ok &= ((nh == -1) & bool(hib[i])) | (nh == h)
+            cand = np.flatnonzero(ok)
+            if cand.size:
+                totals = node_req[cand] + req[i]
+                cmps, rows, fits = walk(totals[:, None, :] <= limits(c, sigs[cand], jid[cand]))
+                stop = int(fits.argmax()) + 1 if fits.any() else cand.size
+                ops += stop * R + int(cmps[:stop].sum())
+                np.maximum.at(rows_read[c], sigs[cand[:stop]], rows[:stop])
+                if fits.any():
+                    target = int(cand[stop - 1])
+        if target >= 0:
+            if a != target:
+                raise AssertionError(f"work replay: pod {i} fits node {target}, kernel gave {a}")
+            jv[c, node_sig[target]] = True
+            node_req[target] += req[i]
+            node_sig[target] = jid[target]
+            if h >= 0:
+                node_host[target] = h
+        elif a == count:
+            node_sig[a], node_host[a] = open_sig[i], open_host[i]
+            node_req[a] = daemon + req[i]
+            ops += R
+            count += 1
+        elif a != -1:
+            raise AssertionError(f"work replay: pod {i} fits no open node, kernel gave {a}")
+    return ops, compat, rows_read, jv
+
+
+def nbytes(tensors) -> int:
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
+def v1_work(args, result):
+    """(bytes, ops) pack_first_fit needs on this run: every input read once
+    (the join table and frontiers whole; they are a few hundred bytes at the
+    headline) and every output written once; the replay's operations plus
+    each valid pod's fresh-node walk (R adds, then its open signature's
+    frontier rows)."""
+    valid, open_sig, core, host, hib, open_host, req, join, frontiers, daemon = (
+        a.cpu().numpy() for a in args)
+    F, R = frontiers.shape[1:]
+    ops, _, _, _ = replay_work(
+        (valid, open_sig, core, host, hib, open_host, req, daemon),
+        result.assignment.cpu().numpy(),
+        lambda c, sigs: (join[sigs, c] >= 0, join[sigs, c]),
+        lambda c, sigs, ids: frontiers[ids],
+        (result.node_sig.shape[-1], join.shape[1], join.shape[0]),
+    )
+    cmps, _, _ = walk((daemon + req)[valid][:, None, :] <= frontiers[open_sig[valid]])
+    ops += int(valid.sum()) * R + int(cmps.sum())
+    return nbytes(args) + nbytes(result), ops
+
+
+def v2_work(args, result, F: int, R: int):
+    """(bytes, ops) pack_first_fit_v2 needs on this run: the pod side read
+    once, of the tables only the joinabilities, the frontier rows and the
+    joined ids that the recurrence reads, and every output written once; the
+    replay's operations (the fresh-node fits are an input)."""
+    pod_scal, pod_req, front_j, compat_j, jvals, open_fits, daemon = (
+        a.cpu().numpy() for a in args)
+    C, _, S_pad = front_j.shape
+    ops, compat, rows_read, jv = replay_work(
+        (pod_scal[0] != 0, *pod_scal[1:4], pod_scal[4] != 0, pod_scal[5],
+         np.ascontiguousarray(pod_req.T), daemon[:, 0]),
+        result.assignment.cpu().numpy(),
+        lambda c, sigs: (compat_j[c, 0, sigs] > 0.5, np.rint(jvals[c, 0, sigs]).astype(np.int64)),
+        lambda c, sigs, ids: front_j[c, : F * R, sigs].reshape(-1, F, R),
+        (result.node_sig.shape[-1], C, S_pad),
+    )
+    n_bytes = nbytes((args[0], args[1], args[5], args[6])) + nbytes(result)
+    n_bytes += 4 * (int(compat.sum()) + int(rows_read.sum()) * R + int(jv.sum()))
+    return n_bytes, ops
 
 
 def profile_round(run, card: str) -> None:
@@ -188,6 +358,249 @@ def plan_of(nodes, pods):
     ]
 
 
+def v2_parity(name: str, gpu, n_max: int, F: int, R: int) -> tuple:
+    """pack_first_fit_v2 on the card against pack_v2_reference on CPU copies
+    of the same inputs; raises unless bit-exact. Returns (result, max |diff|)."""
+    import torch
+
+    from karpenter_tpu_torch.solver import pack_kernel_v2
+    from karpenter_tpu_torch.solver.kernel import pack_v2_reference
+
+    out = pack_kernel_v2.pack_first_fit_v2(*gpu, n_max=n_max, F=F, R=R)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = pack_v2_reference(*(a.cpu() for a in gpu), n_max=n_max, F=F, R=R)
+    cpu_s = time.perf_counter() - t0
+    worst = compare(ref, out)
+    n = int(out.n_nodes)
+    hosts = set(out.node_host[:n].tolist())
+    log(f"[v2 parity] {name} n_max={n_max}: bit-exact, nodes={n} "
+        f"unscheduled={int(((out.assignment < 0) & (gpu[0][0] != 0)).sum())} "
+        f"host states -2:{-2 in hosts} -1:{-1 in hosts} h:{bool(hosts) and max(hosts) >= 0} "
+        f"(plain version on CPU {cpu_s:.2f}s)")
+    return out, worst
+
+
+def synthetic_v2(P: int, S: int, F: int, R: int, C: int, seed: int, n_hosts: int, device):
+    """A seeded synthetic problem in pack_args() form and its v2 inputs.
+    With ``n_hosts`` > 0 half the pods pin a hostname (node states -2, -1
+    and h), a tenth of the signatures have only FRONTIER_PAD rows and the
+    back half of every frontier is PAD; with 0 it is the bench's shape
+    (bench.py:206-220: no hostnames, no daemon)."""
+    import torch
+
+    from karpenter_tpu_torch.solver import pack_kernel_v2
+
+    rng = np.random.default_rng(seed)
+    if n_hosts:
+        host = np.where(rng.random(P) < 0.5, rng.integers(0, n_hosts, P), -1)
+        hib = rng.random(P) < 0.7
+        frontiers = rng.uniform(2.0, 8.0, (S, F, R))
+        frontiers[:, F // 2:, :] = -1.0
+        frontiers[rng.random(S) < 0.1] = -1.0
+        core = rng.integers(0, C, P)
+        open_sig = rng.integers(0, S, C)[core]
+        req = rng.uniform(0.1, 1.5, (P, R))
+        join = rng.integers(-1, S, (S, C))
+        daemon = rng.uniform(0.0, 0.5, R)
+        valid = rng.random(P) < 0.95
+    else:
+        host, hib, valid = np.full(P, -1), np.ones(P, bool), np.ones(P, bool)
+        open_sig = rng.integers(0, S, P)
+        core = rng.integers(0, C, P)
+        req = rng.uniform(0.1, 1.0, (P, R))
+        join = rng.integers(-1, S, (S, C))
+        frontiers = rng.uniform(2.0, 16.0, (S, F, R))
+        daemon = np.zeros(R)
+    i32, f32 = torch.int32, torch.float32
+    pack_args = (
+        torch.tensor(valid, device=device),
+        torch.tensor(open_sig, dtype=i32, device=device),
+        torch.tensor(core, dtype=i32, device=device),
+        torch.tensor(host, dtype=i32, device=device),
+        torch.tensor(hib, device=device),
+        torch.tensor(np.where(host >= 0, np.where(hib, host, -2), -1), dtype=i32, device=device),
+        torch.tensor(req, dtype=f32, device=device),
+        torch.tensor(join, dtype=i32, device=device),
+        torch.tensor(frontiers, dtype=f32, device=device),
+        torch.tensor(daemon, dtype=f32, device=device),
+    )
+    tables = pack_kernel_v2._precompute(join.astype(np.int32), frontiers.astype(np.float32))[:3]
+    return pack_kernel_v2.kernel_inputs(
+        *pack_args[:7], *pack_args[8:], *(torch.tensor(t, device=device) for t in tables)
+    )
+
+
+def multi_stack(batches, catalog):
+    """Stack batches that share their encoded shapes (asserted) for
+    sharded_multi_solve: (arrays, type masks, usable, prices)."""
+    shapes = {tuple(np.asarray(a).shape for a in b.pack_args()) for b in batches}
+    if len(shapes) != 1:
+        raise AssertionError(f"batches of one stack encode to different shapes: {shapes}")
+    arrays = tuple(np.stack([np.asarray(b.pack_args()[i]) for b in batches]) for i in range(10))
+    mask = np.stack([b.type_mask_matrix() for b in batches])
+    prices = np.array(sorted(it.effective_price() for it in catalog), np.float32)
+    return arrays, mask, batches[0].usable, prices
+
+
+def diverse_phases(dev, card: str) -> dict:
+    """Phases 5-7: the v2 kernel against its plain version, the diverse main
+    path, the multi-solve. Returns pack_first_fit_v2's kernels-line numbers."""
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.parallel.sharding import sharded_multi_solve
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.solver.backend import KERNELS
+    from karpenter_tpu_torch.solver.kernel import pack_v2_reference
+    from karpenter_tpu_torch.testing import diverse_pods, make_provisioner
+
+    # -- 5. v2 kernel against its plain version ---------------------------
+    t0 = time.perf_counter()
+    batch = encode_batch(instance_types_tradeoff(400), team_pods(10000, 9))
+    P = len(batch.pod_valid)
+    S, C = batch.join_table.shape
+    F, R = batch.frontiers.shape[1], batch.frontiers.shape[2]
+    route = pack_kernel_v2.fused_route(S, F, R, C)
+    log(f"[v2 parity] full-width batch P={P} S={S} F={F} R={R} C={C} S*F={S * F} "
+        f"tables={pack_kernel_v2.v2_table_bytes(S, F, R, C)} bytes route={route} "
+        f"(encoded in {time.perf_counter() - t0:.2f}s)")
+    if route != "v2":
+        raise AssertionError(f"full-width batch routed {route}")
+    gpu = v2_inputs(batch, dev)
+    worst = 0.0
+    results = {}
+    for n_max in (512, P, 64):
+        results[n_max], err = v2_parity("full width", gpu, n_max, F, R)
+        worst = max(worst, err)
+    if int(results[512].n_nodes) != DIVERSE_NODES or int(results[64].n_nodes) != 64:
+        raise AssertionError(f"full width opened {int(results[512].n_nodes)} nodes at 512 "
+                             f"and {int(results[64].n_nodes)} at 64")
+    b64 = encode_batch(instance_types_tradeoff(64), team_pods(10000, 9))
+    F64 = b64.frontiers.shape[1]
+    worst = max(worst, v2_parity(f"tradeoff(64) F={F64}", v2_inputs(b64, dev), 512, F64, R)[1])
+    worst = max(worst, v2_parity("bench synthetic P=256 S=256 C=8 F=8 R=4",
+                                 synthetic_v2(256, 256, 8, 4, 8, 7, 0, dev), 128, 8, 4)[1])
+    pinned = synthetic_v2(4096, 200, 8, 4, 16, 7, 120, dev)
+    for n_max in (1024, 4096):
+        worst = max(worst, v2_parity("pinned synthetic P=4096 S=200 C=16 F=8 R=4",
+                                     pinned, n_max, 8, 4)[1])
+
+    t0 = time.perf_counter()
+    pack_kernel_v2.pack_first_fit_v2(*gpu, n_max=512, F=F, R=R)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    iters = max(3, min(20, int(2000 / max(first_ms, 1e-3))))
+    ms_v2 = kernel_ms(gpu, 512, iters, pack_kernel_v2.pack_first_fit_v2, 1, F=F, R=R)
+    ms_v2_p = kernel_ms(gpu, P, iters, pack_kernel_v2.pack_first_fit_v2, 1, F=F, R=R)
+    v1 = kernel_inputs(batch, dev)
+    ms_v1 = kernel_ms(v1, 512, iters, warmup=1)
+    same = compare(pack_kernel.pack_first_fit(*v1, n_max=512), results[512])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = pack_v2_reference(*gpu, n_max=512, F=F, R=R)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    worst = max(worst, compare(plain, results[512]), same)
+    n_bytes, n_ops = v2_work(gpu, results[512], F, R)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    log(f"[v2 parity] full width: pack_first_fit_v2 {ms_v2:.4f} ms at n_max=512, "
+        f"{ms_v2_p:.4f} ms at n_max={P}; pack_first_fit on the same batch {ms_v1:.4f} ms "
+        f"(same five outputs); CUDA events, mean of {iters}; plain version on the card "
+        f"{plain_ms:.1f} ms; bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes, "
+        f"{n_ops} ops); card {card}")
+
+    # -- 6. diverse main path ---------------------------------------------
+    catalog = instance_types_tradeoff(400)
+    pods = team_pods(10000, 9)
+    prov = make_provisioner(solver="tpu")
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    t0 = time.perf_counter()
+    warm = sched.solve(prov, catalog, pods)
+    torch.cuda.synchronize()
+    log(f"[diverse] warm-up round {time.perf_counter() - t0:.3f}s, nodes={len(warm)}")
+    t0 = time.perf_counter()
+    cpu_nodes = Scheduler(Cluster(), rng=random.Random(1), device="cpu").solve(prov, catalog, pods)
+    cpu_s = time.perf_counter() - t0
+    if plan_of(warm, pods) != plan_of(cpu_nodes, pods):
+        raise AssertionError("diverse: cuda plan differs from the device='cpu' plan")
+    if len(warm) != DIVERSE_NODES:
+        raise AssertionError(f"diverse path opened {len(warm)} nodes, expected {DIVERSE_NODES}")
+    log(f"[diverse] cuda plan == cpu plan ({len(cpu_nodes)} nodes, "
+        f"{sum(len(n.pods) for n in cpu_nodes)} pods placed; cpu solve {cpu_s:.2f}s)")
+
+    pack_kernel_v2.launches = 0
+    rounds = []
+    for r in range(5):
+        before = pack_kernel_v2.launches
+        t0 = time.perf_counter()
+        nodes = sched.solve(prov, catalog, pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = sched.last_stage_profile()
+        if pack_kernel_v2.launches <= before:
+            raise AssertionError(f"diverse round {r} did not launch pack_first_fit_v2")
+        if prof["packer_backend"] != "pack_first_fit_v2" or len(nodes) != DIVERSE_NODES:
+            raise AssertionError(f"diverse round {r}: {prof['packer_backend']}, {len(nodes)} nodes")
+        rounds.append(wall)
+        stages = " ".join(
+            f"{k}={prof[k] * 1e3:.3f}ms"
+            for k in ("sort_s", "inject_s", "encode_s", "pack_fetch_s", "decode_s", "validate_s")
+        )
+        log(f"[diverse] round {r}: {wall * 1e3:.3f} ms, nodes={len(nodes)}, "
+            f"pods/s={len(pods) / wall:.1f}, dispatches={prof['pack_dispatches']}, {stages}")
+    launches = pack_kernel_v2.launches
+    mean = sum(rounds) / len(rounds)
+    log(f"[diverse] 5 rounds: mean {mean * 1e3:.3f} ms, {len(pods) / mean:.1f} pods/s, "
+        f"pack_first_fit_v2 launches {launches}; kernel alone {ms_v2:.4f} ms (CUDA events); "
+        f"card {card}")
+    profile_round(lambda: sched.solve(prov, catalog, pods), card)
+
+    # -- 7. multi-solve -----------------------------------------------------
+    stacks = {
+        "v1": (instance_types(400), [diverse_pods(1250, random.Random(100 + b)) for b in range(8)]),
+        "v2": (instance_types_tradeoff(400), [team_pods(1250, 100 + b) for b in range(8)]),
+    }
+    for want, (cat, pod_sets) in stacks.items():
+        t0 = time.perf_counter()
+        batches = [encode_batch(cat, ps, topo_seed=b) for b, ps in enumerate(pod_sets)]
+        arrays, mask, usable, prices = multi_stack(batches, cat)
+        encode_s = time.perf_counter() - t0
+        B, Pm = arrays[6].shape[:2]
+        n_max = max(256, Pm // 4)
+        module = pack_kernel_v2 if want == "v2" else pack_kernel
+        ref, ref_cheapest, _ = sharded_multi_solve("cpu", arrays, mask, usable, prices, n_max)
+        before = module.launches
+        out, cheapest, report = sharded_multi_solve(dev, arrays, mask, usable, prices, n_max)
+        torch.cuda.synchronize()
+        if report["route"] != KERNELS[want][0] or module.launches != before + 1:
+            raise AssertionError(f"multi {want}: route {report}, {module.launches - before} launches")
+        compare(ref, out)
+        if not torch.equal(ref_cheapest, cheapest.cpu()):
+            raise AssertionError(f"multi {want}: cheapest types differ from the cpu result")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            sharded_multi_solve(dev, arrays, mask, usable, prices, n_max)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3 / 3
+        log(f"[multi] {want}: B={B} P={Pm} S={report['S']} F={report['F']} n_max={n_max} "
+            f"route={report['route']} nodes={out.n_nodes.tolist()} == cpu for every batch and "
+            f"cheapest; sharded_multi_solve {solve_ms:.3f} ms (host clock, mean of 3, "
+            f"stack encoded in {encode_s:.2f}s); card {card}")
+
+    return {
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": ms_v2,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -213,11 +626,12 @@ def main() -> int:
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    pack_kernel.build()
-    log(f"[build] pack_first_fit built in {time.perf_counter() - t0:.2f}s")
-    for line in pack_kernel.build_log().splitlines():
-        if "ptxas info" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    libs = pack_kernel.build()
+    log(f"[build] {', '.join(sorted(libs))} built in {time.perf_counter() - t0:.2f}s")
+    for name in sorted(libs):
+        for line in pack_kernel.build_log(name).splitlines():
+            if "ptxas info" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     # -- 2. kernel against its plain version ------------------------------
     t0 = time.perf_counter()
@@ -245,8 +659,6 @@ def main() -> int:
             f"(plain version on CPU {cpu_s:.2f}s)")
     if int(results[64].n_nodes) != 64:
         raise AssertionError("n_max=64 did not saturate the node table")
-
-    import numpy as np
 
     rng = np.random.default_rng(7)
     Ps, Ss, Fs, Rs, Cs, H = 4096, 200, 8, 4, 16, 120
@@ -285,8 +697,9 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     worst = max(worst, compare(plain, results[512]))
-    bound_ms, bound_by, n_bytes, n_ops = bound(gpu, results[512], 512)
-    bound_p, _, _, _ = bound(gpu, results[P], P)
+    n_bytes, n_ops = v1_work(gpu, results[512])
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_p, _ = bound(*v1_work(gpu, results[P]))
     log(f"[parity] kernel {ms_512:.4f} ms at n_max=512, {ms_p:.4f} ms at n_max={P} "
         f"(CUDA events, mean of 20); plain version on the card {plain_ms:.1f} ms; "
         f"bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes, {n_ops} ops), "
@@ -358,7 +771,9 @@ def main() -> int:
     log(f"[retry] 600 one-per-node pods: {len(retry_nodes)} nodes, dispatches=2, "
         f"cuda == cpu")
 
-    # -- 5. kernels -------------------------------------------------------
+    v2 = diverse_phases(dev, card)
+
+    # -- 8. kernels -------------------------------------------------------
     kernels = [{
         "name": "pack_first_fit",
         "route": "cuda",
@@ -372,9 +787,19 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "parity": "bit-exact",
+    }, {
+        "name": "pack_first_fit_v2",
+        "route": "cuda",
+        "source": V2_SOURCE,
+        "replaces": V2_REPLACES,
+        **v2,
+        "library_ms": None,
+        "parity": "bit-exact",
     }]
     if main_launches < 5:
         raise AssertionError(f"main path launched pack_first_fit {main_launches} times")
+    if v2["launches"] < 5:
+        raise AssertionError(f"diverse path launched pack_first_fit_v2 {v2['launches']} times")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,7 @@
 """Synthetic instance-type catalogs (reference: pkg/cloudprovider/fake).
 
-Only the catalog constructors live here; the fake provider's create/delete
+Only the catalog constructors live here (the linear benchmark catalog and
+the anti-correlated tradeoff catalog); the fake provider's create/delete
 surface is not on the solve path.
 """
 
@@ -57,6 +58,25 @@ def instance_types(total: int) -> List[InstanceType]:
                 res.CPU: float(i + 1),
                 res.MEMORY: res.parse_quantity(f"{(i + 1) * 2}Gi"),
                 res.PODS: float((i + 1) * 10),
+            },
+        )
+        for i in range(total)
+    ]
+
+
+def instance_types_tradeoff(total: int) -> List[InstanceType]:
+    """n types with ANTI-correlated cpu/mem (cpu-heavy ↔ mem-heavy ends of
+    the range): every type is Pareto-optimal, so the encoded capacity
+    frontier is ``total`` wide. The linear/assorted catalogs are
+    Pareto-degenerate (F=1 — each type dominates the previous), which never
+    exercises the solver's multi-frontier (v2) region."""
+    return [
+        new_instance_type(
+            f"trade-it-{i}",
+            resources={
+                res.CPU: float(2 + i),
+                res.MEMORY: res.parse_quantity(f"{2 * (total - i)}Gi"),
+                res.PODS: 110.0,
             },
         )
         for i in range(total)

@@ -7,15 +7,19 @@ backend:
 
     sort → inject → encode → pack (begin) → fetch → split_fused → decode → validate
 
-The pack runs through ``fused.fused_solve`` (one compact upload, the
-``pack_first_fit`` kernel, one flat buffer back). The node table starts at
-``min(P, 512)`` slots and, when it saturates with pods left unscheduled, the
-solve retries once at ``P`` slots.
+The pack runs through one fused dispatch (one compact upload, one kernel,
+one flat buffer back), routed by the batch's shapes: ``fused.fused_solve``
+over ``pack_first_fit`` (route ``v1``), or, for constraint-diverse batches
+whose per-core join tables fit the card's budget, ``fused.fused_solve_v2``
+over ``pack_first_fit_v2`` (route ``v2``; ``pack_kernel_v2.fused_route``).
+The node table starts at ``min(P, 512)`` slots and, when it saturates with
+pods left unscheduled, the solve retries once at ``P`` slots.
 
 Begin launches the work, queues a ``non_blocking`` copy of the result
 buffer into pinned host memory and records a CUDA event; finish waits on
 that event. A constraint diversity past the signature closure cap
-(``SignatureOverflow``) and a plan that fails validation both raise.
+(``SignatureOverflow``), a kernel failure and a plan that fails validation
+all raise; nothing falls back to another kernel or to the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from karpenter_tpu_torch.scheduling.ffd import (
 from karpenter_tpu_torch.scheduling.topology import Topology
 from karpenter_tpu_torch.solver import encode as enc
 from karpenter_tpu_torch.solver import fused
+from karpenter_tpu_torch.solver import pack_kernel_v2
 from karpenter_tpu_torch.solver.signature import SignatureOverflow
 from karpenter_tpu_torch.utils import resources as res
 from karpenter_tpu_torch.utils.device import resolve_device
@@ -49,6 +54,19 @@ logger = logging.getLogger("karpenter.solver")
 
 # first node-table size; a saturated table retries at P slots
 N_MAX_FIRST = 512
+
+# kernel name per route: (on the card, plain version on the CPU)
+KERNELS = {
+    "v1": ("pack_first_fit", "pack_reference"),
+    "v2": ("pack_first_fit_v2", "pack_v2_reference"),
+}
+
+
+def kernel_name(route: str, device: torch.device) -> str:
+    """The kernel a route runs on ``device``: the CUDA kernel on the card,
+    its plain version on the CPU."""
+    on_card, plain = KERNELS[route]
+    return on_card if device.type == "cuda" else plain
 
 
 class InvalidPackError(RuntimeError):
@@ -109,10 +127,6 @@ class TorchScheduler:
         # per-stage timings of the most recent solve
         self.last_profile: Dict[str, float] = {}
 
-    @property
-    def backend_name(self) -> str:
-        return "pack_first_fit" if self.device.type == "cuda" else "pack_reference"
-
     def solve(
         self,
         constraints: Constraints,
@@ -151,7 +165,9 @@ class TorchScheduler:
         violation = self._validate_pack(nodes, pods, daemon)
         prof["validate_s"] = time.perf_counter() - t0
         if violation:
-            raise InvalidPackError(f"{self.backend_name} produced an invalid plan: {violation}")
+            raise InvalidPackError(
+                f"{prof['packer_backend']} produced an invalid plan: {violation}"
+            )
         return nodes
 
     def _encode_retry(self, constraints, instance_types, pods, daemon, plan) -> enc.EncodedBatch:
@@ -182,10 +198,11 @@ class TorchScheduler:
         p = len(batch.pod_valid)
         n_max = min(p, N_MAX_FIRST)
         prof["pack_dispatches"] = 0
-        prof["packer_backend"] = self.backend_name
         while True:
+            route = self._fused_route(batch)  # re-derived for the retry
             prof["pack_dispatches"] += 1
-            finish = self._pack_begin(batch, n_max)
+            prof["packer_backend"] = kernel_name(route, self.device)
+            finish = self._pack_begin(batch, n_max, route)
             result, typemask = finish()
             saturated = int(result.n_nodes) == n_max and bool(
                 (np.asarray(result.assignment)[: batch.n_pods] < 0).any()
@@ -194,9 +211,18 @@ class TorchScheduler:
                 return result, typemask
             n_max = p
 
-    def _pack_begin(self, batch: enc.EncodedBatch, n_max: int):
-        """Launch one fused solve and return ``finish()``, which blocks
-        until its buffer is on the host and splits it."""
+    @staticmethod
+    def _fused_route(batch: enc.EncodedBatch) -> str:
+        """``"v1"`` or ``"v2"`` for this batch. The reference's gate also
+        weighs the node-table size (its v2 kernel keeps a one-hot
+        ``[S, n_max]`` state in VMEM); the card's weighs only the per-core
+        tables, so both table sizes of one batch take the same route."""
+        S, F, R = batch.frontiers.shape
+        return pack_kernel_v2.fused_route(S, F, R, batch.join_table.shape[1])
+
+    def _pack_begin(self, batch: enc.EncodedBatch, n_max: int, route: str):
+        """Launch one fused solve on ``route`` and return ``finish()``,
+        which blocks until its buffer is on the host and splits it."""
         dev = self.device
         tab, open_by_core, bhh = fused.pack_pod_table(batch)
         uniq = fused.pad_uniq_req(batch.uniq_req)
@@ -204,7 +230,13 @@ class TorchScheduler:
             torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
             for a in (tab, open_by_core, bhh, uniq)
         )
-        buf = fused.fused_solve(*pod_side, *self._invariants.get(batch), n_max=n_max)
+        if route == "v2":
+            F, R = batch.frontiers.shape[1], batch.frontiers.shape[2]
+            buf = fused.fused_solve_v2(
+                *pod_side, *self._invariants.get_v2(batch), n_max=n_max, F=F, R=R
+            )
+        else:
+            buf = fused.fused_solve(*pod_side, *self._invariants.get(batch), n_max=n_max)
         if dev.type == "cuda":
             host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
             host.copy_(buf, non_blocking=True)

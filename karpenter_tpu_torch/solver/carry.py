@@ -11,7 +11,9 @@ Expected keys: the ``pack_args()`` ten (``pod_valid``, ``pod_open_sig``,
 ``pod_core``, ``pod_host``, ``pod_host_in_base``, ``pod_open_host``,
 ``pod_req``, ``join_table``, ``frontiers``, ``daemon``), plus ``usable``,
 ``type_mask`` (``type_mask_matrix()``), ``pod_req_id``, ``uniq_req``,
-``open_sig_by_core`` and ``base_has_hostname``.
+``open_sig_by_core``, ``base_has_hostname``, and the v2 kernel's per-core
+tables ``front_j``, ``compat_j`` and ``jvals`` as the reference package's
+``_precompute`` returns them.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.solver import fused
+from karpenter_tpu_torch.solver import fused, pack_kernel_v2
 
 PACK_ARG_DTYPES = (
     ("pod_valid", torch.bool),
@@ -40,7 +42,8 @@ PACK_ARG_DTYPES = (
 
 def tensors_from_reference(fields: Dict[str, object], device) -> Dict[str, tuple]:
     """``{"pack_args": the ten kernel inputs, "fused": the nine fused_solve
-    inputs}`` as tensors on ``device``."""
+    inputs, "pack_v2_args": the seven pack_first_fit_v2 inputs, "fused_v2":
+    the eleven fused_solve_v2 inputs}`` as tensors on ``device``."""
     device = torch.device(device)
     pack_args = tuple(
         torch.tensor(np.asarray(fields[name]), dtype=dtype, device=device)
@@ -71,4 +74,15 @@ def tensors_from_reference(fields: Dict[str, object], device) -> Dict[str, tuple
             np.asarray(fields["usable"], np.float32),
         )
     )
-    return {"pack_args": pack_args, "fused": fused_args}
+    tables = tuple(
+        torch.tensor(np.asarray(fields[k], np.float32), device=device)
+        for k in ("front_j", "compat_j", "jvals")
+    )
+    pack_v2_args = pack_kernel_v2.kernel_inputs(*pack_args[:7], *pack_args[8:], *tables)
+    fused_v2 = fused_args[:4] + tables + fused_args[5:]
+    return {
+        "pack_args": pack_args,
+        "fused": fused_args,
+        "pack_v2_args": pack_v2_args,
+        "fused_v2": fused_v2,
+    }

@@ -13,8 +13,13 @@ device:
 3. compute each node's surviving-type bitmask and flatten everything —
    the f32 totals bitcast — into ONE int32 buffer for a single fetch.
 
-The buffer is byte-for-byte the one ``karpenter_tpu``'s fused solve
-returns, so ``split_fused`` reads either.
+``fused_solve_v2`` is the same dispatch for constraint-diverse batches: it
+derives each pod's fresh-node fit on the device and runs
+``pack_kernel_v2.pack_first_fit_v2`` over the per-core join tables, which
+``DeviceInvariants.get_v2`` keeps resident.
+
+The buffers are byte-for-byte the ones ``karpenter_tpu``'s fused solves
+return, so ``split_fused`` reads either.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.solver import pack_kernel_v2
 from karpenter_tpu_torch.solver.kernel import PackResult
 from karpenter_tpu_torch.solver.pack_kernel import pack_first_fit
 
@@ -94,13 +100,16 @@ class DeviceInvariants:
     catalog): re-uploading the join table, frontiers, type masks and usable
     capacities per solve moves bytes that did not change. Keyed by a
     blake2b digest of their content, so a changed catalog or closure simply
-    misses."""
+    misses. ``get_v2`` additionally holds the v2 kernel's per-core join
+    tables (by far the largest arrays of a constraint-diverse solve) under
+    the same digest, evicted with the rest."""
 
     MAX_ENTRIES = 4
 
     def __init__(self, device):
         self.device = torch.device(device)
         self._cache: "Dict[bytes, tuple]" = {}  # guarded-by: self._lock
+        self._cache_v2: "Dict[bytes, tuple]" = {}  # guarded-by: self._lock
         self._order: list = []  # guarded-by: self._lock
         self._lock = threading.Lock()
 
@@ -111,15 +120,29 @@ class DeviceInvariants:
             h.update(a.tobytes())
         return h.digest()
 
-    def get(self, batch) -> tuple:
-        """(join, frontiers, daemon, mask, usable) tensors on the device."""
-        arrays = (
+    def _touch_locked(self, key: bytes) -> None:
+        # LRU over both caches: one order, one eviction per digest
+        if key in self._order:
+            self._order.remove(key)
+        self._order.append(key)
+        while len(self._order) > self.MAX_ENTRIES:
+            dead = self._order.pop(0)
+            self._cache.pop(dead, None)
+            self._cache_v2.pop(dead, None)
+
+    @staticmethod
+    def _arrays(batch) -> tuple:
+        return (
             np.ascontiguousarray(batch.join_table, np.int32),
             np.ascontiguousarray(batch.frontiers, np.float32),
             np.ascontiguousarray(batch.daemon, np.float32),
             np.ascontiguousarray(batch.type_mask_matrix(), bool),
             np.ascontiguousarray(batch.usable, np.float32),
         )
+
+    def get(self, batch) -> tuple:
+        """(join, frontiers, daemon, mask, usable) tensors on the device."""
+        arrays = self._arrays(batch)
         key = self._digest(arrays)
         with self._lock:
             hit = self._cache.get(key)
@@ -127,11 +150,27 @@ class DeviceInvariants:
             hit = tuple(torch.tensor(a, device=self.device) for a in arrays)
         with self._lock:
             self._cache[key] = hit
-            if key in self._order:
-                self._order.remove(key)
-            self._order.append(key)
-            while len(self._order) > self.MAX_ENTRIES:
-                self._cache.pop(self._order.pop(0), None)
+            self._touch_locked(key)
+        return hit
+
+    def get_v2(self, batch) -> tuple:
+        """(front_j, compat_j, jvals, frontiers, daemon, mask, usable)
+        tensors on the device: the v2 route's per-core tables, computed
+        once per closure under the same digest as ``get``."""
+        arrays = self._arrays(batch)
+        key = self._digest(arrays)
+        with self._lock:
+            hit = self._cache_v2.get(key)
+        if hit is None:
+            join, frontiers = arrays[0], arrays[1]
+            front_j, compat_j, jvals, _ = pack_kernel_v2._precompute(join, frontiers)
+            hit = tuple(
+                torch.tensor(a, device=self.device)
+                for a in (front_j, compat_j, jvals) + arrays[1:]
+            )
+        with self._lock:
+            self._cache_v2[key] = hit
+            self._touch_locked(key)
         return hit
 
 
@@ -216,6 +255,34 @@ def fused_solve(
         join_table, frontiers, daemon,
     )
     result = pack_first_fit(*args, n_max=n_max)
+    return _finalize(result, sig_type_mask, usable)
+
+
+def fused_solve_v2(
+    pod_tab,  # [4, P] i16
+    open_by_core,  # [C] i16
+    bhh,  # [1] i32
+    uniq_req,  # [U, R] f32
+    front_j,  # [C, FRp, S_pad] f32 (device-resident; pack_kernel_v2._precompute)
+    compat_j,  # [C, 8, S_pad] f32 (device-resident)
+    jvals,  # [C, 8, S_pad] f32 (device-resident)
+    frontiers,  # [S, F, R] f32 (device-resident; the fresh-node fit)
+    daemon,  # [R] f32 (device-resident)
+    sig_type_mask,  # [S, T] bool (device-resident)
+    usable,  # [T, R] f32 (device-resident)
+    n_max: int,
+    F: int,
+    R: int,
+) -> torch.Tensor:
+    """The fused solve through ``pack_first_fit_v2``, the route for
+    constraint-diverse batches: unpack → each pod's fresh-node fit and the
+    kernel's layouts (``pack_kernel_v2.kernel_inputs``) → the v2 kernel →
+    finalize. Returns the buffer ``fused_solve`` returns."""
+    args = pack_kernel_v2.kernel_inputs(
+        *_unpack_pods(pod_tab, open_by_core, bhh, uniq_req),
+        frontiers, daemon, front_j, compat_j, jvals,
+    )
+    result = pack_kernel_v2.pack_first_fit_v2(*args, n_max=n_max, F=F, R=R)
     return _finalize(result, sig_type_mask, usable)
 
 

@@ -78,6 +78,8 @@ def scenario(pkg: str, name: str, n_pods: int = 0, seed: int = 42, n_types: int 
             pods.append(f.make_pod(labels=sel, requests={"cpu": "0.5"},
                                    topology=[f.zone_spread(max_skew=1, labels=sel)]))
         return f.make_provisioner(solver="tpu"), catalog, pods
+    if name == "teams":  # constraint-diverse: tradeoff catalog x 64 team selectors
+        return team_mix(pkg, n_pods, seed, n_types)
     if name == "one_per_node":  # required hostname anti-affinity on a shared label
         O = M.objects
         sel = {"app": "solo"}
@@ -91,6 +93,24 @@ def scenario(pkg: str, name: str, n_pods: int = 0, seed: int = 42, n_types: int 
         ]
         return f.make_provisioner(solver="tpu"), catalog, pods
     raise ValueError(name)
+
+
+def team_mix(pkg: str, n_pods: int, seed: int = 9, n_types: int = 16, k_teams: int = 64):
+    """The constraint-diverse batch of ``bench.py:171-199`` and
+    ``__graft_entry__._example_batch``: the anti-correlated tradeoff catalog
+    (capacity frontier ``n_types`` wide) and pods with ``k_teams`` distinct
+    ``nodeSelector {"team": ...}`` values, so S·F passes the v1 budget."""
+    M = mods(pkg)
+    f = M.factories
+    rng = random.Random(seed)
+    pods = [
+        f.make_pod(
+            requests={"cpu": f"{rng.choice([0.25, 0.5, 1])}"},
+            node_selector={"team": f"t{i % k_teams}"},
+        )
+        for i in range(n_pods)
+    ]
+    return f.make_provisioner(solver="tpu"), M.fake.instance_types_tradeoff(n_types), pods
 
 
 def populated_cluster(pkg: str):
@@ -128,9 +148,21 @@ def encode_scenario(pkg: str, prov, catalog, pods, cluster=None):
     return M.encode.encode(c, catalog, pods, daemon, plan=plan)
 
 
+def with_v2_tables(f: dict, pkg: str) -> dict:
+    """``f`` plus the v2 kernel's per-core tables (``front_j``, ``compat_j``,
+    ``jvals``), computed by ``pkg``'s own ``_precompute``."""
+    module = "pallas_kernel_v2" if pkg == "karpenter_tpu" else "pack_kernel_v2"
+    precompute = importlib.import_module(f"{pkg}.solver.{module}")._precompute
+    front_j, compat_j, jvals, _ = precompute(
+        np.asarray(f["join_table"]), np.asarray(f["frontiers"], np.float32)
+    )
+    f.update(front_j=front_j, compat_j=compat_j, jvals=jvals)
+    return f
+
+
 def fields(batch) -> dict:
     """An EncodedBatch as the plain dict ``carry.tensors_from_reference``
-    takes."""
+    takes; the v2 tables come from the package that encoded the batch."""
     out = dict(zip(
         ("pod_valid", "pod_open_sig", "pod_core", "pod_host", "pod_host_in_base",
          "pod_open_host", "pod_req", "join_table", "frontiers", "daemon"),
@@ -144,12 +176,13 @@ def fields(batch) -> dict:
         open_sig_by_core=np.asarray(batch.open_sig_by_core),
         base_has_hostname=bool(batch.base_has_hostname),
     )
-    return out
+    return with_v2_tables(out, type(batch).__module__.split(".")[0])
 
 
-def synth_fields(P, S, F, R, C, n_hosts, seed=0) -> dict:
+def synth_fields(P, S, F, R, C, n_hosts, seed=0, pkg="karpenter_tpu_torch") -> dict:
     """A seeded synthetic batch with controlled table sizes: node hostname
-    states take -1 (unset), h >= 0 (joinable) and -2 (poisoned)."""
+    states take -1 (unset), h >= 0 (joinable) and -2 (poisoned). The v2
+    tables come from ``pkg``'s ``_precompute``."""
     rng = np.random.default_rng(seed)
     host = np.where(rng.random(P) < 0.5, rng.integers(0, n_hosts, P), -1).astype(np.int32)
     hib = rng.random(P) < 0.7
@@ -165,7 +198,7 @@ def synth_fields(P, S, F, R, C, n_hosts, seed=0) -> dict:
     open_sig_by_core = rng.integers(0, S, C).astype(np.int32)
     core = rng.integers(0, C, P).astype(np.int32)
     valid = rng.random(P) < 0.95
-    return dict(
+    return with_v2_tables(dict(
         pod_valid=valid,
         pod_open_sig=open_sig_by_core[core],
         pod_core=core,
@@ -182,4 +215,4 @@ def synth_fields(P, S, F, R, C, n_hosts, seed=0) -> dict:
         uniq_req=uniq_req,
         open_sig_by_core=open_sig_by_core,
         base_has_hostname=True,
-    )
+    ), pkg)
