@@ -5,16 +5,17 @@
 Phases (any failure exits non-zero; nothing is swallowed):
 
 1. build   — compile every kernel of the port from the checkout's sources
-             (one nvcc per source, sm_90a, all started together) and print
-             what ptxas reports for each, and the card's name and power
-             limit;
+             (one nvcc per kernel source, sm_90a, all started together) and
+             print what ptxas reports for each, and the card's name and
+             power limit;
 2. parity  — on the headline batch (instance_types(400) x
              diverse_pods(10000, Random(42)), encoded by the port), run
              pack_first_fit on the card and its plain version on CPU copies
              of the same inputs; all five outputs must be bit-exact at
              n_max 512, n_max P and a saturating n_max 64, and on a seeded
              synthetic problem with large tables; time the kernel (CUDA
-             events) and the plain version;
+             events, and per pod step) and the plain version; time it at
+             each block size (bit-exact at each) beside the launch plan's;
 3. main    — Scheduler.solve(solver: tpu) on cuda: one warm-up round whose
              plan must equal the device="cpu" plan of the same solve and
              open the reference's 431 nodes, then
@@ -32,8 +33,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
              n_max 512; the bench's synthetic shape (P=256, S=256, C=8, F=8,
              R=4, n_max 128); a synthetic shape with pinned hostnames. Then
              CUDA-event times of pack_first_fit_v2 and of pack_first_fit on
-             the full-width batch, the plain version's time on the card, and
-             the bound;
+             the full-width batch (and per pod step), the plain version's
+             time on the card, and the bound; v2 with its cached
+             signature-major copy against the wrapper making it per call,
+             the copy itself, and both kernels at each block size;
 6. diverse — Scheduler.solve on the full-width mix: a warm-up whose plan
              equals the device="cpu" plan and opens 128 nodes, then 5 rounds
              (launch counts set to 0 just before) through pack_first_fit_v2
@@ -125,9 +128,10 @@ def team_pods(n_pods: int, seed: int, k_teams: int = 64):
 
 
 def v2_inputs(batch, device):
-    """pack_first_fit_v2's inputs exactly as the main path builds them: the
+    """pack_first_fit_v2's inputs exactly as the main path builds them (the
     compact pod table unpacked on the device, the per-core tables from the
-    invariants cache, the fresh-node fits derived on the device."""
+    invariants cache, the fresh-node fits derived on the device) and the
+    cached signature-major copy the kernel walks: (inputs, front_s)."""
     import torch
 
     from karpenter_tpu_torch.solver import fused, pack_kernel_v2
@@ -136,10 +140,11 @@ def v2_inputs(batch, device):
     uniq = fused.pad_uniq_req(batch.uniq_req)
     pod_side = [torch.tensor(np.ascontiguousarray(a), device=device)
                 for a in (tab, open_by_core, bhh, uniq)]
-    front_j, compat_j, jvals, frontiers, daemon, _, _ = fused.DeviceInvariants(device).get_v2(batch)
+    front_j, compat_j, jvals, frontiers, daemon, _, _, front_s = (
+        fused.DeviceInvariants(device).get_v2(batch))
     return pack_kernel_v2.kernel_inputs(
         *fused._unpack_pods(*pod_side), frontiers, daemon, front_j, compat_j, jvals
-    )
+    ), front_s
 
 
 def kernel_inputs(batch, device):
@@ -174,24 +179,51 @@ def compare(ref, out) -> float:
     return worst
 
 
-def kernel_ms(args, n_max: int, iters: int, kernel=None, warmup: int = 3, **kw) -> float:
-    """Mean CUDA-event time of ``kernel`` (pack_first_fit by default) over
-    ``iters`` launches, after ``warmup`` launches."""
+def events_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean CUDA-event time of ``fn()`` over ``iters`` calls, after
+    ``warmup`` calls."""
     import torch
 
-    from karpenter_tpu_torch.solver.pack_kernel import pack_first_fit
-
-    kernel = kernel or pack_first_fit
     for _ in range(warmup):
-        kernel(*args, n_max=n_max, **kw)
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        kernel(*args, n_max=n_max, **kw)
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(args, n_max: int, iters: int, kernel=None, warmup: int = 3, **kw) -> float:
+    """Mean CUDA-event time of ``kernel`` (pack_first_fit by default) over
+    ``iters`` launches, after ``warmup`` launches."""
+    from karpenter_tpu_torch.solver.pack_kernel import pack_first_fit
+
+    kernel = kernel or pack_first_fit
+    return events_ms(lambda: kernel(*args, n_max=n_max, **kw), iters, warmup)
+
+
+def sweep(name: str, args, n_max: int, shape, ref, iters: int, card: str,
+          kernel=None, **kw) -> None:
+    """The kernel at each block size (G and the node table's place from the
+    launch plan for ``shape`` = (F, R)), each result bit-exact with ``ref``;
+    CUDA-event times."""
+    from karpenter_tpu_torch.solver import pack_kernel
+
+    kernel = kernel or pack_kernel.pack_first_fit
+    F, R = shape
+    default = pack_kernel.launch_plan(F, R, n_max)
+    parts = []
+    for threads in (t for t in (128, 256, 512, 1024) if t <= pack_kernel.max_threads(default.G)):
+        plan = pack_kernel.launch_plan(F, R, n_max, threads=threads)
+        compare(ref, kernel(*args, n_max=n_max, plan=plan, **kw))
+        ms = kernel_ms(args, n_max, iters, kernel, 1, plan=plan, **kw)
+        mark = " (the plan's)" if plan == default else ""
+        parts.append(f"{threads} threads {ms:.4f} ms{mark}")
+    log(f"[sweep] {name} n_max={n_max} G={default.G} smem nodes={default.node_state_in_smem}: "
+        + ", ".join(parts) + f"; CUDA events, mean of {iters}; card {card}")
 
 
 def bound(n_bytes: int, ops: int):
@@ -358,7 +390,7 @@ def plan_of(nodes, pods):
     ]
 
 
-def v2_parity(name: str, gpu, n_max: int, F: int, R: int) -> tuple:
+def v2_parity(name: str, gpu, n_max: int, F: int, R: int, front_s=None) -> tuple:
     """pack_first_fit_v2 on the card against pack_v2_reference on CPU copies
     of the same inputs; raises unless bit-exact. Returns (result, max |diff|)."""
     import torch
@@ -366,7 +398,7 @@ def v2_parity(name: str, gpu, n_max: int, F: int, R: int) -> tuple:
     from karpenter_tpu_torch.solver import pack_kernel_v2
     from karpenter_tpu_torch.solver.kernel import pack_v2_reference
 
-    out = pack_kernel_v2.pack_first_fit_v2(*gpu, n_max=n_max, F=F, R=R)
+    out = pack_kernel_v2.pack_first_fit_v2(*gpu, n_max=n_max, F=F, R=R, front_s=front_s)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = pack_v2_reference(*(a.cpu() for a in gpu), n_max=n_max, F=F, R=R)
@@ -469,18 +501,19 @@ def diverse_phases(dev, card: str) -> dict:
         f"(encoded in {time.perf_counter() - t0:.2f}s)")
     if route != "v2":
         raise AssertionError(f"full-width batch routed {route}")
-    gpu = v2_inputs(batch, dev)
+    gpu, front_s = v2_inputs(batch, dev)
     worst = 0.0
     results = {}
     for n_max in (512, P, 64):
-        results[n_max], err = v2_parity("full width", gpu, n_max, F, R)
+        results[n_max], err = v2_parity("full width", gpu, n_max, F, R, front_s)
         worst = max(worst, err)
     if int(results[512].n_nodes) != DIVERSE_NODES or int(results[64].n_nodes) != 64:
         raise AssertionError(f"full width opened {int(results[512].n_nodes)} nodes at 512 "
                              f"and {int(results[64].n_nodes)} at 64")
     b64 = encode_batch(instance_types_tradeoff(64), team_pods(10000, 9))
     F64 = b64.frontiers.shape[1]
-    worst = max(worst, v2_parity(f"tradeoff(64) F={F64}", v2_inputs(b64, dev), 512, F64, R)[1])
+    gpu64, front_s64 = v2_inputs(b64, dev)
+    worst = max(worst, v2_parity(f"tradeoff(64) F={F64}", gpu64, 512, F64, R, front_s64)[1])
     worst = max(worst, v2_parity("bench synthetic P=256 S=256 C=8 F=8 R=4",
                                  synthetic_v2(256, 256, 8, 4, 8, 7, 0, dev), 128, 8, 4)[1])
     pinned = synthetic_v2(4096, 200, 8, 4, 16, 7, 120, dev)
@@ -489,15 +522,27 @@ def diverse_phases(dev, card: str) -> dict:
                                      pinned, n_max, 8, 4)[1])
 
     t0 = time.perf_counter()
-    pack_kernel_v2.pack_first_fit_v2(*gpu, n_max=512, F=F, R=R)
+    pack_kernel_v2.pack_first_fit_v2(*gpu, n_max=512, F=F, R=R, front_s=front_s)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     iters = max(3, min(20, int(2000 / max(first_ms, 1e-3))))
-    ms_v2 = kernel_ms(gpu, 512, iters, pack_kernel_v2.pack_first_fit_v2, 1, F=F, R=R)
-    ms_v2_p = kernel_ms(gpu, P, iters, pack_kernel_v2.pack_first_fit_v2, 1, F=F, R=R)
+    v2_kw = dict(F=F, R=R, front_s=front_s)
+    ms_v2 = kernel_ms(gpu, 512, iters, pack_kernel_v2.pack_first_fit_v2, 1, **v2_kw)
+    ms_v2_p = kernel_ms(gpu, P, iters, pack_kernel_v2.pack_first_fit_v2, 1, **v2_kw)
     v1 = kernel_inputs(batch, dev)
     ms_v1 = kernel_ms(v1, 512, iters, warmup=1)
     same = compare(pack_kernel.pack_first_fit(*v1, n_max=512), results[512])
+
+    # the signature-major copy the walk reads: cached per closure on the main
+    # path, made per call by the wrapper on the multi-solve; and the copy alone
+    ms_copy = events_ms(lambda: pack_kernel_v2.signature_major(gpu[2]), 20)
+    ms_per_call = kernel_ms(gpu, 512, iters, pack_kernel_v2.pack_first_fit_v2, 1, F=F, R=R)
+    log(f"[v2 layout] full width n_max=512: with the cached signature-major copy "
+        f"{ms_v2:.4f} ms; the wrapper copying per call {ms_per_call:.4f} ms; the copy "
+        f"{ms_copy:.4f} ms; CUDA events, mean of {iters}; card {card}")
+    sweep("pack_first_fit_v2 diverse", gpu, 512, (F, R), results[512], iters, card,
+          pack_kernel_v2.pack_first_fit_v2, **v2_kw)
+    sweep("pack_first_fit diverse", v1, 512, (F, R), results[512], iters, card)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = pack_v2_reference(*gpu, n_max=512, F=F, R=R)
@@ -506,9 +551,10 @@ def diverse_phases(dev, card: str) -> dict:
     worst = max(worst, compare(plain, results[512]), same)
     n_bytes, n_ops = v2_work(gpu, results[512], F, R)
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    log(f"[v2 parity] full width: pack_first_fit_v2 {ms_v2:.4f} ms at n_max=512, "
-        f"{ms_v2_p:.4f} ms at n_max={P}; pack_first_fit on the same batch {ms_v1:.4f} ms "
-        f"(same five outputs); CUDA events, mean of {iters}; plain version on the card "
+    log(f"[v2 parity] full width: pack_first_fit_v2 {ms_v2:.4f} ms at n_max=512 "
+        f"({ms_v2 * 1e6 / P:.1f} ns per pod step), {ms_v2_p:.4f} ms at n_max={P}; "
+        f"pack_first_fit on the same batch {ms_v1:.4f} ms ({ms_v1 * 1e6 / P:.1f} ns per pod "
+        f"step; same five outputs); CUDA events, mean of {iters}; plain version on the card "
         f"{plain_ms:.1f} ms; bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes, "
         f"{n_ops} ops); card {card}")
 
@@ -598,6 +644,7 @@ def diverse_phases(dev, card: str) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "ns_per_pod": ms_v2 * 1e6 / P,
     }
 
 
@@ -700,10 +747,12 @@ def main() -> int:
     n_bytes, n_ops = v1_work(gpu, results[512])
     bound_ms, bound_by = bound(n_bytes, n_ops)
     bound_p, _ = bound(*v1_work(gpu, results[P]))
-    log(f"[parity] kernel {ms_512:.4f} ms at n_max=512, {ms_p:.4f} ms at n_max={P} "
-        f"(CUDA events, mean of 20); plain version on the card {plain_ms:.1f} ms; "
+    log(f"[parity] kernel {ms_512:.4f} ms at n_max=512 ({ms_512 * 1e6 / P:.1f} ns per pod "
+        f"step), {ms_p:.4f} ms at n_max={P} (CUDA events, mean of 20); plain version on "
+        f"the card {plain_ms:.1f} ms; "
         f"bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes, {n_ops} ops), "
         f"{bound_p:.6f} ms at n_max={P}; card {card}")
+    sweep("pack_first_fit headline", gpu, 512, (F, R), results[512], 20, card)
 
     # -- 3. main path -----------------------------------------------------
     catalog = instance_types(400)
@@ -787,6 +836,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "parity": "bit-exact",
+        "ns_per_pod": ms_512 * 1e6 / P,
     }, {
         "name": "pack_first_fit_v2",
         "route": "cuda",

@@ -5,57 +5,96 @@
 // kernel behind pack_pallas). It computes the same recurrence as that kernel
 // and as the plain version karpenter_tpu_torch/solver/kernel.py::pack_reference,
 // assignment for assignment: per pod, the lowest-index open node whose
-// signature joins the pod's core, whose hostname state admits the pod's
-// hostname, and whose new f32 total fits some frontier row of the joined
-// signature takes the pod; otherwise the pod opens node `count` when
-// daemon + req fits a frontier row of its open signature and count < n_cap.
+// signature joins the pod's core (join_table[sig, core] >= 0), whose hostname
+// state admits the pod's hostname, and whose new f32 total fits some frontier
+// row of the joined signature (frontiers[j], [F, R] contiguous) takes the pod;
+// otherwise the pod opens node `count` when daemon + req fits a frontier row
+// of its open signature and count < n_cap.
 //
 // What bounds it on this card: not bytes and not arithmetic. The inputs and
 // outputs are a few hundred KB (microseconds at 3.35 TB/s) and the fit tests
 // are a few flops per (pod, open node). The bound is the serial P-step chain:
-// pod i+1 sees the node table pod i left behind, so every pod costs one
-// block-wide minimum and two block barriers, one after another, on one SM.
+// pod i+1 sees the node table pod i left behind.
 //
-// What the design does about it: it keeps each step short rather than wide.
-// - One block owns the whole recurrence (a leading batch axis gives each
-//   independent problem its own block; one problem launches one block).
-//   Thread t owns node slots t, t + blockDim, ... and scans only the slots
-//   below the open count, so an idle table costs nothing.
-// - Pod scalars and requests are staged into shared memory a chunk of
-//   blockDim pods at a time, together with each pod's fresh-node request
-//   (daemon + req) and whether it fits a frontier of its open signature, all
-//   computed in parallel, so the serial loop reads only shared memory for
-//   the pod side.
-// - The lowest passing slot is found with __reduce_min_sync inside each warp
-//   and one pass over the per-warp minima in shared memory; ties go to the
-//   lowest index because each thread stops at its first passing slot and the
-//   block takes the minimum.
-// - The thread that owns the winning slot (or thread 0 when a node opens)
-//   makes the update, so no value crosses threads beyond the minimum.
-// - The node table (node_sig, node_host, node_req) lives in the output
-//   tensors in device memory, where it stays resident in L2; one code path
-//   serves the small table and the full-size retry alike. The join table and
-//   frontiers are read through the read-only path. Nothing is unrolled over
-//   signatures or frontier rows, so any S and F are served.
-// Totals are f32 sums in pod order compared with <= against the exact
-// milli-unit frontiers; nothing here contracts into an FMA, and the build
-// does not use fast math, so the results are bit-exact with the plain version.
+// The previous design (PR 1) spent two block barriers per pod, one for the
+// minimum and one after thread 0 or the winner updated a shared count and the
+// node table in device memory, and walked a node's frontier rows one after
+// another in one thread: 10.75-10.87 ms on the headline batch (10,240 pods,
+// F = 1, about 1.06 us per pod) and 261-263 ms on the 400-row diverse batch
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//
+// What the design does about it: the shared skeleton in first_fit.cuh. One
+// barrier per pod (double-buffered warp minima, the open count carried by
+// every thread), node state in shared memory when it fits, and a node's
+// frontier rows split over a group of G lanes that the host sizes to F
+// (G = 1 at F = 1, compiled without ballots). This file keeps only the pod
+// staging, which also walks each pod's open-signature frontier for its
+// fresh-node fit, in parallel, and the fit test over join_table and
+// frontiers. Now: 7.96 ms on the headline batch (777 ns per pod step) and
+// 20.9 ms on the diverse batch (same card; PERF.md, PR 3).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "first_fit.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNone = 0x7fffffff;
+using first_fit::kHostInBase;
+using first_fit::kOpenFits;
+using first_fit::kValid;
 
-// flag bits of a staged pod
-constexpr int kValid = 1;
-constexpr int kHostInBase = 2;
-constexpr int kOpenFits = 4;
+struct Problem {
+  const uint8_t* pod_valid;         // [P]
+  const int32_t* pod_open_sig;      // [P]
+  const int32_t* pod_core;          // [P]
+  const int32_t* pod_host;          // [P]
+  const uint8_t* pod_host_in_base;  // [P]
+  const int32_t* pod_open_host;     // [P]
+  const float* pod_req;             // [P, R]
+  const int32_t* join_table;        // [S, C]
+  const float* frontiers;           // [S, F, R]
+  const float* daemon;              // [R]
+  int C, F, R;
 
-__global__ void __launch_bounds__(kThreads)
+  __device__ void stage(int i, int t, const first_fit::Stage& s) const {
+    int flags = pod_valid[i] ? kValid : 0;
+    if (pod_host_in_base[i]) flags |= kHostInBase;
+    const int open_sig = pod_open_sig[i];
+    s.core[t] = pod_core[i];
+    s.host[t] = pod_host[i];
+    s.open_sig[t] = open_sig;
+    s.open_host[t] = pod_open_host[i];
+    for (int r = 0; r < R; ++r) {
+      const float v = pod_req[(size_t)i * R + r];
+      s.req[t * R + r] = v;
+      s.open_req[t * R + r] = __ldg(&daemon[r]) + v;
+    }
+    const float* fr = frontiers + (size_t)open_sig * F * R;
+    for (int f = 0; f < F; ++f) {
+      bool all = true;
+      for (int r = 0; r < R; ++r) {
+        if (!(s.open_req[t * R + r] <= __ldg(&fr[f * R + r]))) {
+          all = false;
+          break;
+        }
+      }
+      if (all) {
+        flags |= kOpenFits;
+        break;
+      }
+    }
+    s.flags[t] = flags;
+  }
+
+  __device__ int key(int core, int sig) const {
+    return __ldg(&join_table[(size_t)sig * C + core]);
+  }
+  __device__ const float* rows(int, int, int key) const {
+    return frontiers + (size_t)key * F * R;
+  }
+  __device__ int joined(int core, int sig) const { return key(core, sig); }
+};
+
+template <bool kSmemNodes, bool kSplit>
+__global__ void __launch_bounds__(first_fit::max_threads<kSplit>(), 1)
 pack_first_fit_kernel(
     const uint8_t* __restrict__ pod_valid,         // [B, P]
     const int32_t* __restrict__ pod_open_sig,      // [B, P]
@@ -67,196 +106,46 @@ pack_first_fit_kernel(
     const int32_t* __restrict__ join_table,        // [B, S, C]
     const float* __restrict__ frontiers,           // [B, S, F, R]
     const float* __restrict__ daemon,              // [B, R]
-    int32_t* __restrict__ assignment,              // [B, P] out
-    int32_t* node_sig,                             // [B, N] out, read back
-    int32_t* node_host,                            // [B, N] out, read back
-    float* node_req,                               // [B, N, R] out, read back
-    int32_t* __restrict__ n_nodes,                 // [B] out
-    int P, int S, int C, int F, int R, int n_cap) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_core = smem;
-  int32_t* s_host = s_core + kThreads;
-  int32_t* s_open_sig = s_host + kThreads;
-  int32_t* s_open_host = s_open_sig + kThreads;
-  int32_t* s_flags = s_open_host + kThreads;
-  float* s_req = reinterpret_cast<float*>(s_flags + kThreads);  // [kThreads, R]
-  float* s_open_req = s_req + kThreads * R;                       // [kThreads, R]
-  __shared__ int32_t s_warp_min[kWarps];
-  __shared__ int32_t s_count;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  pod_valid += (size_t)b * P;
-  pod_open_sig += (size_t)b * P;
-  pod_core += (size_t)b * P;
-  pod_host += (size_t)b * P;
-  pod_host_in_base += (size_t)b * P;
-  pod_open_host += (size_t)b * P;
-  pod_req += (size_t)b * P * R;
-  join_table += (size_t)b * S * C;
-  frontiers += (size_t)b * S * F * R;
-  daemon += (size_t)b * R;
-  assignment += (size_t)b * P;
-  node_sig += (size_t)b * n_cap;
-  node_host += (size_t)b * n_cap;
-  node_req += (size_t)b * n_cap * R;
-
-  for (int n = tid; n < n_cap; n += kThreads) {
-    node_sig[n] = -1;
-    node_host[n] = -1;
-    for (int r = 0; r < R; ++r) node_req[(size_t)n * R + r] = 0.0f;
-  }
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-
-  for (int base = 0; base < P; base += kThreads) {
-    // stage one chunk of pods: thread t loads pod base + t
-    const int i = base + tid;
-    if (i < P) {
-      int flags = pod_valid[i] ? kValid : 0;
-      if (pod_host_in_base[i]) flags |= kHostInBase;
-      const int open_sig = pod_open_sig[i];
-      s_core[tid] = pod_core[i];
-      s_host[tid] = pod_host[i];
-      s_open_sig[tid] = open_sig;
-      s_open_host[tid] = pod_open_host[i];
-      for (int r = 0; r < R; ++r) {
-        const float v = pod_req[(size_t)i * R + r];
-        s_req[tid * R + r] = v;
-        s_open_req[tid * R + r] = __ldg(&daemon[r]) + v;
-      }
-      const float* fr = frontiers + (size_t)open_sig * F * R;
-      for (int f = 0; f < F; ++f) {
-        bool all = true;
-        for (int r = 0; r < R; ++r) {
-          if (!(s_open_req[tid * R + r] <= __ldg(&fr[f * R + r]))) {
-            all = false;
-            break;
-          }
-        }
-        if (all) {
-          flags |= kOpenFits;
-          break;
-        }
-      }
-      s_flags[tid] = flags;
-    }
-    __syncthreads();
-
-    const int m = min(kThreads, P - base);
-    for (int k = 0; k < m; ++k) {
-      const int flags = s_flags[k];
-      if (!(flags & kValid)) {  // uniform across the block: no barrier skipped unevenly
-        if (tid == 0) assignment[base + k] = -1;
-        continue;
-      }
-      const int count = s_count;
-      const int core = s_core[k];
-      const int host = s_host[k];
-      const bool host_in_base = (flags & kHostInBase) != 0;
-      const float* req = s_req + k * R;
-
-      // 1. each thread's lowest passing slot among the open ones it owns
-      int first = kNone;
-      for (int n = tid; n < count; n += kThreads) {
-        const int sig = node_sig[n];
-        if (sig < 0) continue;
-        const int j = __ldg(&join_table[(size_t)sig * C + core]);
-        if (j < 0) continue;
-        if (host >= 0) {
-          const int nh = node_host[n];
-          if (!((nh == -1 && host_in_base) || nh == host)) continue;
-        }
-        const float* nr = node_req + (size_t)n * R;
-        const float* fr = frontiers + (size_t)j * F * R;
-        bool fits = false;
-        for (int f = 0; f < F && !fits; ++f) {
-          bool all = true;
-          for (int r = 0; r < R; ++r) {
-            if (!(nr[r] + req[r] <= __ldg(&fr[f * R + r]))) {
-              all = false;
-              break;
-            }
-          }
-          fits = all;
-        }
-        if (fits) {
-          first = n;
-          break;
-        }
-      }
-
-      // 2. block-wide minimum: warp reduction, then the per-warp minima
-      const int wmin = __reduce_min_sync(0xffffffffu, first);
-      if (lane == 0) s_warp_min[warp] = wmin;
-      __syncthreads();
-      int best = s_warp_min[0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) best = min(best, s_warp_min[w]);
-
-      // 3. one thread decides and writes: the owner of the winning slot,
-      //    or thread 0 when the pod opens a node or stays unscheduled
-      const int decider = best != kNone ? best % kThreads : 0;
-      if (tid == decider) {
-        int target = -1;
-        if (best != kNone) {
-          target = best;
-          const int j = __ldg(&join_table[(size_t)node_sig[best] * C + core]);
-          node_sig[best] = j;
-          if (host >= 0) node_host[best] = host;
-          float* nr = node_req + (size_t)best * R;
-          for (int r = 0; r < R; ++r) nr[r] = nr[r] + req[r];
-        } else if ((flags & kOpenFits) && count < n_cap) {
-          target = count;
-          node_sig[count] = s_open_sig[k];
-          node_host[count] = s_open_host[k];
-          float* nr = node_req + (size_t)count * R;
-          for (int r = 0; r < R; ++r) nr[r] = s_open_req[k * R + r];
-          s_count = count + 1;
-        }
-        assignment[base + k] = target;
-      }
-      // 4. the next pod sees this pod's writes
-      __syncthreads();
-    }
-    // the staged chunk is dead only once every thread has left the pod loop
-    __syncthreads();
-  }
-  if (tid == 0) n_nodes[b] = s_count;
+    int32_t* assignment,                           // [B, P] out
+    int32_t* node_sig,                             // [B, N] out
+    int32_t* node_host,                            // [B, N] out
+    float* node_req,                               // [B, N, R] out
+    int32_t* n_nodes,                              // [B] out
+    int P, int S, int C, int F, int R, int n_cap, int G) {
+  const size_t b = blockIdx.x;
+  const Problem pb{
+      pod_valid + b * P, pod_open_sig + b * P, pod_core + b * P, pod_host + b * P,
+      pod_host_in_base + b * P, pod_open_host + b * P, pod_req + b * P * R,
+      join_table + b * S * C, frontiers + b * S * F * R, daemon + b * R, C, F, R};
+  const first_fit::Out out{assignment + b * P, node_sig + b * n_cap, node_host + b * n_cap,
+                           node_req + b * n_cap * R, n_nodes + b};
+  first_fit::run<Problem, kSmemNodes, kSplit>(pb, out, P, F, R, n_cap, G);
 }
 
 }  // namespace
 
-extern "C" int pack_first_fit_smem_bytes(int R) {
-  return (5 * kThreads + 2 * kThreads * R) * (int)sizeof(int32_t);
-}
-
-// Launches B independent problems, one block each, on `stream`. Returns
-// cudaGetLastError() after the launch (0 on success).
+// Launches B independent problems, one block each, on `stream`, with the
+// host's launch plan (threads, G, node state in shared memory, dynamic shared
+// bytes; pack_kernel.launch_plan). Returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for a plan that does not
+// match this kernel's layout.
 extern "C" int pack_first_fit_launch(
     const void* pod_valid, const void* pod_open_sig, const void* pod_core,
     const void* pod_host, const void* pod_host_in_base,
     const void* pod_open_host, const void* pod_req, const void* join_table,
     const void* frontiers, const void* daemon, void* assignment,
     void* node_sig, void* node_host, void* node_req, void* n_nodes, int B,
-    int P, int S, int C, int F, int R, int n_cap, void* stream) {
-  const int smem = pack_first_fit_smem_bytes(R);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pack_first_fit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  pack_first_fit_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+    int P, int S, int C, int F, int R, int n_cap, int threads, int G,
+    int smem_nodes, int smem, void* stream) {
+  auto kernel = smem_nodes ? (G > 1 ? pack_first_fit_kernel<true, true> : pack_first_fit_kernel<true, false>)
+                          : (G > 1 ? pack_first_fit_kernel<false, true> : pack_first_fit_kernel<false, false>);
+  return first_fit::launch(
+      kernel, B, threads, G, smem_nodes != 0, smem, R, n_cap, (cudaStream_t)stream,
       (const uint8_t*)pod_valid, (const int32_t*)pod_open_sig,
       (const int32_t*)pod_core, (const int32_t*)pod_host,
       (const uint8_t*)pod_host_in_base, (const int32_t*)pod_open_host,
       (const float*)pod_req, (const int32_t*)join_table,
       (const float*)frontiers, (const float*)daemon, (int32_t*)assignment,
       (int32_t*)node_sig, (int32_t*)node_host, (float*)node_req,
-      (int32_t*)n_nodes, P, S, C, F, R, n_cap);
-  return (int)cudaGetLastError();
+      (int32_t*)n_nodes, P, S, C, F, R, n_cap, G);
 }

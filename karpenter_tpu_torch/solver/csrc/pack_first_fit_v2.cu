@@ -18,56 +18,49 @@
 //   front_j  [C, FRp, S_pad] f32, rows F*R..FRp-1 hold NEG and are never read;
 //   compat_j [C, 8, S_pad]   f32, row 0 is 1.0 where join[s, c] >= 0;
 //   jvals    [C, 8, S_pad]   f32, row 0 is join[s, c] as f32 (exact below 2^24).
+// The walk reads a signature-major copy of front_j, front_s [C, S_pad, FRp]
+// (pack_kernel_v2.signature_major, made once per closure), so the rows of one
+// (core, signature) column are contiguous.
 //
 // What the TPU kernel did, and what changes here: it kept each node's
 // signature as a one-hot column of an [S_pad, N] f32 scratch and gathered the
 // limits, the joinability and the joined id with three HIGHEST-precision MXU
 // matmuls per pod, because VMEM has no cheap dynamic gather. Hopper has one:
-// each node keeps its signature as an index, and a thread reads
-// front_j[core, f*R + r, node_sig] straight from the table. The one-hot state
-// and the matmuls are gone, and so is the VMEM budget they needed.
+// each node keeps its signature as an index and the kernel reads the table at
+// it. The one-hot state and the matmuls are gone.
 //
 // What bounds it on this card: not bytes and not arithmetic. The node table
 // and the pod side are a few hundred KB, and the fit tests are a few f32 adds
 // and compares per (pod, open node, frontier row). The bound is the serial
-// P-step chain, as in pack_first_fit: pod i+1 sees the node table pod i left
-// behind, so every pod costs one block-wide minimum and two block barriers on
-// one SM, plus, inside the step, the longest per-thread walk over frontier
-// rows, whose loads are dependent on the previous row's outcome (the walk stops
-// at the first row that fits) and come from L2: front_j for one problem at
-// the 400-type catalog is 26.7 MB, which is far more than shared memory holds
-// and fits the 50 MB L2. Nothing here assumes the tables fit on-chip.
+// P-step chain: pod i+1 sees the node table pod i left behind. On the
+// 400-type team mix about 2,900 pods find their team's first node full and
+// must walk all 400 frontier rows of it before the second node takes them;
+// front_j for one problem there is 26.7 MB, which shared memory cannot hold,
+// so those rows come from L2.
 //
-// What the design does about it (pack_first_fit's skeleton):
-// - One block owns the whole recurrence; a leading batch axis gives each
-//   independent problem its own block (the multi-solve launches B blocks).
-//   Thread t owns node slots t, t + blockDim, ... and scans only the slots
-//   below the open count.
-// - Pod scalars, requests (with daemon + req) and open_fits are staged into
-//   shared memory a chunk of blockDim pods at a time, in parallel.
-// - A warp's threads own neighbouring slots and, for one pod, read one table
-//   row (the pod's core, frontier row f, axis r) at their nodes' signature
-//   columns, so a warp's loads fall in one S_pad row.
-// - jvals is read once, by the winning thread, at the winning slot.
-// - The lowest passing slot is found with __reduce_min_sync inside each warp
-//   and one pass over the per-warp minima in shared memory; ties go to the
-//   lowest index because each thread stops at its first passing slot.
-// - The thread that owns the winning slot (thread 0 when a node opens) makes
-//   the update, so no value crosses threads beyond the minimum.
-// Totals are f32 sums in pod order compared with <= against the tables' f32
-// limits, the joined id is rounded to nearest and compatibility is > 0.5, as
-// the TPU kernel converts them; nothing here contracts into an FMA and the
-// build uses no fast math, so the results are bit-exact with the plain
-// version.
+// The previous design (PR 2) walked those rows one after another in one
+// thread, each load depending on the last, at a column stride of
+// S_pad * 4 = 512 bytes, with two block barriers per pod: 539.8-548.4 ms on
+// the full-width diverse batch (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//
+// What the design does about it: the shared skeleton in first_fit.cuh. A
+// group of G = 32 lanes splits the walk, each lane two rows per ballot, 64
+// independent loads from contiguous rows per ballot; one barrier per pod;
+// node state in shared memory when it fits. jvals is read once, by the
+// writing lane, at the winning slot. This file keeps only the pod staging and
+// the fit test over compat_j, front_s and jvals. Now: 21.96 ms on the
+// full-width diverse batch, 2,145 ns per pod step (same card; PERF.md, PR 3);
+// reading front_j in place instead of the copy took 36.59 ms against
+// 25.17 ms with it in the first measuring run.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "first_fit.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNone = 0x7fffffff;
+using first_fit::kHostInBase;
+using first_fit::kOpenFits;
+using first_fit::kValid;
+
 constexpr int kTableRows = 8;  // rows of compat_j and jvals; row 0 is read
 
 // rows of the [6, P] pod scalar table (the TPU kernel's order)
@@ -79,189 +72,93 @@ constexpr int kRowHostInBase = 4;
 constexpr int kRowOpenHost = 5;
 constexpr int kScalRows = 6;
 
-// flag bits of a staged pod
-constexpr int kValid = 1;
-constexpr int kHostInBase = 2;
-constexpr int kOpenFits = 4;
+struct Problem {
+  const int32_t* pod_scal;   // [6, P]
+  const float* pod_req;      // [R, P]
+  const float* front_s;      // [C, S_pad, FRp]
+  const float* compat_j;     // [C, 8, S_pad]
+  const float* jvals;        // [C, 8, S_pad]
+  const int32_t* open_fits;  // [1, P]
+  const float* daemon;       // [R, 1]
+  int P, S_pad, FRp, R;
 
-__global__ void __launch_bounds__(kThreads)
+  __device__ void stage(int i, int t, const first_fit::Stage& s) const {
+    int flags = pod_scal[kRowValid * P + i] != 0 ? kValid : 0;
+    if (pod_scal[kRowHostInBase * P + i] != 0) flags |= kHostInBase;
+    if (open_fits[i] != 0) flags |= kOpenFits;
+    s.core[t] = pod_scal[kRowCore * P + i];
+    s.host[t] = pod_scal[kRowHost * P + i];
+    s.open_sig[t] = pod_scal[kRowOpenSig * P + i];
+    s.open_host[t] = pod_scal[kRowOpenHost * P + i];
+    for (int r = 0; r < R; ++r) {
+      const float v = pod_req[(size_t)r * P + i];
+      s.req[t * R + r] = v;
+      s.open_req[t * R + r] = __ldg(&daemon[r]) + v;
+    }
+    s.flags[t] = flags;
+  }
+
+  __device__ int key(int core, int sig) const {
+    return __ldg(&compat_j[(size_t)core * kTableRows * S_pad + sig]) > 0.5f ? sig : -1;
+  }
+  __device__ const float* rows(int core, int sig, int) const {
+    return front_s + ((size_t)core * S_pad + sig) * FRp;
+  }
+  __device__ int joined(int core, int sig) const {
+    return __float2int_rn(__ldg(&jvals[(size_t)core * kTableRows * S_pad + sig]));
+  }
+};
+
+template <bool kSmemNodes, bool kSplit>
+__global__ void __launch_bounds__(first_fit::max_threads<kSplit>(), 1)
 pack_first_fit_v2_kernel(
     const int32_t* __restrict__ pod_scal,   // [B, 6, P]
     const float* __restrict__ pod_req,      // [B, R, P]
-    const float* __restrict__ front_j,      // [B, C, FRp, S_pad]
+    const float* __restrict__ front_s,      // [B, C, S_pad, FRp]
     const float* __restrict__ compat_j,     // [B, C, 8, S_pad]
     const float* __restrict__ jvals,        // [B, C, 8, S_pad]
     const int32_t* __restrict__ open_fits,  // [B, 1, P]
     const float* __restrict__ daemon,       // [B, R, 1]
-    int32_t* __restrict__ assignment,       // [B, P] out
-    int32_t* node_sig,                      // [B, N] out, read back
-    int32_t* node_host,                     // [B, N] out, read back
-    float* node_req,                        // [B, N, R] out, read back
-    int32_t* __restrict__ n_nodes,          // [B] out
-    int P, int C, int FRp, int S_pad, int F, int R, int n_cap) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_core = smem;
-  int32_t* s_host = s_core + kThreads;
-  int32_t* s_open_sig = s_host + kThreads;
-  int32_t* s_open_host = s_open_sig + kThreads;
-  int32_t* s_flags = s_open_host + kThreads;
-  float* s_req = reinterpret_cast<float*>(s_flags + kThreads);  // [kThreads, R]
-  float* s_open_req = s_req + kThreads * R;                       // [kThreads, R]
-  __shared__ int32_t s_warp_min[kWarps];
-  __shared__ int32_t s_count;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  const size_t core_stride_front = (size_t)FRp * S_pad;
-  const size_t core_stride_row = (size_t)kTableRows * S_pad;
-  pod_scal += (size_t)b * kScalRows * P;
-  pod_req += (size_t)b * R * P;
-  front_j += (size_t)b * C * core_stride_front;
-  compat_j += (size_t)b * C * core_stride_row;
-  jvals += (size_t)b * C * core_stride_row;
-  open_fits += (size_t)b * P;
-  daemon += (size_t)b * R;
-  assignment += (size_t)b * P;
-  node_sig += (size_t)b * n_cap;
-  node_host += (size_t)b * n_cap;
-  node_req += (size_t)b * n_cap * R;
-
-  for (int n = tid; n < n_cap; n += kThreads) {
-    node_sig[n] = -1;
-    node_host[n] = -1;
-    for (int r = 0; r < R; ++r) node_req[(size_t)n * R + r] = 0.0f;
-  }
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-
-  for (int base = 0; base < P; base += kThreads) {
-    // stage one chunk of pods: thread t loads pod base + t
-    const int i = base + tid;
-    if (i < P) {
-      int flags = pod_scal[kRowValid * P + i] != 0 ? kValid : 0;
-      if (pod_scal[kRowHostInBase * P + i] != 0) flags |= kHostInBase;
-      if (open_fits[i] != 0) flags |= kOpenFits;
-      s_core[tid] = pod_scal[kRowCore * P + i];
-      s_host[tid] = pod_scal[kRowHost * P + i];
-      s_open_sig[tid] = pod_scal[kRowOpenSig * P + i];
-      s_open_host[tid] = pod_scal[kRowOpenHost * P + i];
-      for (int r = 0; r < R; ++r) {
-        const float v = pod_req[(size_t)r * P + i];
-        s_req[tid * R + r] = v;
-        s_open_req[tid * R + r] = __ldg(&daemon[r]) + v;
-      }
-      s_flags[tid] = flags;
-    }
-    __syncthreads();
-
-    const int m = min(kThreads, P - base);
-    for (int k = 0; k < m; ++k) {
-      const int flags = s_flags[k];
-      if (!(flags & kValid)) {  // uniform across the block: no barrier skipped unevenly
-        if (tid == 0) assignment[base + k] = -1;
-        continue;
-      }
-      const int count = s_count;
-      const int core = s_core[k];
-      const int host = s_host[k];
-      const bool host_in_base = (flags & kHostInBase) != 0;
-      const float* req = s_req + k * R;
-      const float* front_c = front_j + (size_t)core * core_stride_front;
-      const float* compat_c = compat_j + (size_t)core * core_stride_row;  // row 0
-
-      // 1. each thread's lowest passing slot among the open ones it owns
-      int first = kNone;
-      for (int n = tid; n < count; n += kThreads) {
-        const int sig = node_sig[n];
-        if (sig < 0) continue;
-        if (!(__ldg(&compat_c[sig]) > 0.5f)) continue;
-        if (host >= 0) {
-          const int nh = node_host[n];
-          if (!((nh == -1 && host_in_base) || nh == host)) continue;
-        }
-        const float* nr = node_req + (size_t)n * R;
-        const float* col = front_c + sig;  // front_j[core, :, sig], stride S_pad
-        bool fits = false;
-        for (int f = 0; f < F && !fits; ++f) {
-          bool all = true;
-          for (int r = 0; r < R; ++r) {
-            if (!(nr[r] + req[r] <= __ldg(&col[(size_t)(f * R + r) * S_pad]))) {
-              all = false;
-              break;
-            }
-          }
-          fits = all;
-        }
-        if (fits) {
-          first = n;
-          break;
-        }
-      }
-
-      // 2. block-wide minimum: warp reduction, then the per-warp minima
-      const int wmin = __reduce_min_sync(0xffffffffu, first);
-      if (lane == 0) s_warp_min[warp] = wmin;
-      __syncthreads();
-      int best = s_warp_min[0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) best = min(best, s_warp_min[w]);
-
-      // 3. one thread decides and writes: the owner of the winning slot,
-      //    or thread 0 when the pod opens a node or stays unscheduled
-      const int decider = best != kNone ? best % kThreads : 0;
-      if (tid == decider) {
-        int target = -1;
-        if (best != kNone) {
-          target = best;
-          const float* jv = jvals + (size_t)core * core_stride_row;  // row 0
-          node_sig[best] = __float2int_rn(__ldg(&jv[node_sig[best]]));
-          if (host >= 0) node_host[best] = host;
-          float* nr = node_req + (size_t)best * R;
-          for (int r = 0; r < R; ++r) nr[r] = nr[r] + req[r];
-        } else if ((flags & kOpenFits) && count < n_cap) {
-          target = count;
-          node_sig[count] = s_open_sig[k];
-          node_host[count] = s_open_host[k];
-          float* nr = node_req + (size_t)count * R;
-          for (int r = 0; r < R; ++r) nr[r] = s_open_req[k * R + r];
-          s_count = count + 1;
-        }
-        assignment[base + k] = target;
-      }
-      // 4. the next pod sees this pod's writes
-      __syncthreads();
-    }
-    // the staged chunk is dead only once every thread has left the pod loop
-    __syncthreads();
-  }
-  if (tid == 0) n_nodes[b] = s_count;
+    int32_t* assignment,                    // [B, P] out
+    int32_t* node_sig,                      // [B, N] out
+    int32_t* node_host,                     // [B, N] out
+    float* node_req,                        // [B, N, R] out
+    int32_t* n_nodes,                       // [B] out
+    int P, int C, int FRp, int S_pad, int F, int R, int n_cap, int G) {
+  const size_t b = blockIdx.x;
+  const size_t table = (size_t)C * FRp * S_pad;
+  const size_t rows8 = (size_t)C * kTableRows * S_pad;
+  const Problem pb{
+      pod_scal + b * kScalRows * P, pod_req + b * R * P, front_s + b * table,
+      compat_j + b * rows8, jvals + b * rows8, open_fits + b * P, daemon + b * R,
+      P, S_pad, FRp, R};
+  const first_fit::Out out{assignment + b * P, node_sig + b * n_cap, node_host + b * n_cap,
+                           node_req + b * n_cap * R, n_nodes + b};
+  first_fit::run<Problem, kSmemNodes, kSplit>(pb, out, P, F, R, n_cap, G);
 }
 
 }  // namespace
 
-// Launches B independent problems, one block each, on `stream`. Returns
-// cudaGetLastError() after the launch (0 on success).
+// Launches B independent problems, one block each, on `stream`, with the
+// host's launch plan (threads, G, node state in shared memory, dynamic shared
+// bytes; pack_kernel.launch_plan). The walk reads front_s, the signature-major
+// copy of front_j. Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for a plan that does not match this
+// kernel's layout.
 extern "C" int pack_first_fit_v2_launch(
-    const void* pod_scal, const void* pod_req, const void* front_j,
+    const void* pod_scal, const void* pod_req, const void* front_s,
     const void* compat_j, const void* jvals, const void* open_fits,
     const void* daemon, void* assignment, void* node_sig, void* node_host,
     void* node_req, void* n_nodes, int B, int P, int C, int FRp, int S_pad,
-    int F, int R, int n_cap, void* stream) {
-  const int smem = (5 * kThreads + 2 * kThreads * R) * (int)sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pack_first_fit_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  pack_first_fit_v2_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)pod_scal, (const float*)pod_req, (const float*)front_j,
+    int F, int R, int n_cap, int threads, int G, int smem_nodes,
+    int smem, void* stream) {
+  auto kernel = smem_nodes ? (G > 1 ? pack_first_fit_v2_kernel<true, true> : pack_first_fit_v2_kernel<true, false>)
+                          : (G > 1 ? pack_first_fit_v2_kernel<false, true> : pack_first_fit_v2_kernel<false, false>);
+  return first_fit::launch(
+      kernel, B, threads, G, smem_nodes != 0, smem, R, n_cap, (cudaStream_t)stream,
+      (const int32_t*)pod_scal, (const float*)pod_req, (const float*)front_s,
       (const float*)compat_j, (const float*)jvals, (const int32_t*)open_fits,
       (const float*)daemon, (int32_t*)assignment, (int32_t*)node_sig,
       (int32_t*)node_host, (float*)node_req, (int32_t*)n_nodes, P, C, FRp,
-      S_pad, F, R, n_cap);
-  return (int)cudaGetLastError();
+      S_pad, F, R, n_cap, G);
 }

@@ -154,8 +154,9 @@ class DeviceInvariants:
         return hit
 
     def get_v2(self, batch) -> tuple:
-        """(front_j, compat_j, jvals, frontiers, daemon, mask, usable)
-        tensors on the device: the v2 route's per-core tables, computed
+        """(front_j, compat_j, jvals, frontiers, daemon, mask, usable,
+        front_s) tensors on the device: the v2 route's per-core tables and
+        the signature-major copy of the limits the kernel walks, computed
         once per closure under the same digest as ``get``."""
         arrays = self._arrays(batch)
         key = self._digest(arrays)
@@ -168,6 +169,7 @@ class DeviceInvariants:
                 torch.tensor(a, device=self.device)
                 for a in (front_j, compat_j, jvals) + arrays[1:]
             )
+            hit += (pack_kernel_v2.signature_major(hit[0]),)
         with self._lock:
             self._cache_v2[key] = hit
             self._touch_locked(key)
@@ -270,6 +272,8 @@ def fused_solve_v2(
     daemon,  # [R] f32 (device-resident)
     sig_type_mask,  # [S, T] bool (device-resident)
     usable,  # [T, R] f32 (device-resident)
+    front_s=None,  # [C, S_pad, FRp] f32 (device-resident; signature_major(front_j))
+    *,
     n_max: int,
     F: int,
     R: int,
@@ -282,7 +286,7 @@ def fused_solve_v2(
         *_unpack_pods(pod_tab, open_by_core, bhh, uniq_req),
         frontiers, daemon, front_j, compat_j, jvals,
     )
-    result = pack_kernel_v2.pack_first_fit_v2(*args, n_max=n_max, F=F, R=R)
+    result = pack_kernel_v2.pack_first_fit_v2(*args, n_max=n_max, F=F, R=R, front_s=front_s)
     return _finalize(result, sig_type_mask, usable)
 
 

@@ -1,19 +1,25 @@
 """``pack_first_fit``: the first-fit packing recurrence on the card, and the
-build of every CUDA kernel of the port.
+build and launch plan of every CUDA kernel of the port.
 
 The CUDA sources live in ``csrc/``: ``pack_first_fit.cu`` replaces
 ``karpenter_tpu/solver/pallas_kernel.py::_pack_kernel`` and
 ``pack_first_fit_v2.cu`` (wrapped by ``pack_kernel_v2``) replaces
-``pallas_kernel_v2.py::_pack_kernel_v2``; each carries the note on what
-bounds it and how its design answers that. ``build()`` compiles them at
-first use, one ``nvcc`` per source, all started together, into shared
-libraries with a plain C interface, and loads them with ``ctypes``. Kernels
-launch on PyTorch's current stream.
+``pallas_kernel_v2.py::_pack_kernel_v2``. Both include the shared skeleton
+``first_fit.cuh``; each carries the note on what bounds it and how its
+design answers that. ``build()`` compiles them at first use, one ``nvcc``
+per kernel source, all started together, into shared libraries with a plain
+C interface, and loads them with ``ctypes``. Kernels launch on PyTorch's
+current stream.
 
-The build lands in ``build/karpenter_tpu_torch/<sources hash>/`` at the
-root of the checkout (listed in ``.gitignore``), keyed on the content of
-every source and the flags, so a fresh checkout builds everything it runs
-and an edited source never loads a stale library.
+The build lands in ``build/karpenter_tpu_torch/<hash>/`` at the root of the
+checkout (listed in ``.gitignore``), keyed on the content of every file
+under ``csrc/`` (sources and headers) and the flags, so a fresh checkout
+builds everything it runs and an edited source or header never loads a
+stale library.
+
+``launch_plan`` is the host's choice of block size, lanes per node slot and
+where the node table lives, shared by both wrappers; the kernels check it
+against their own layout.
 
 ``pack_first_fit`` has ``kernel.pack``'s contract. Its inputs may carry
 one shared leading batch axis B: the kernel then solves B independent
@@ -32,7 +38,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,12 +56,20 @@ NVCC_FLAGS = (
 )
 MAX_R = 64  # resource axes the kernels' shared-memory staging takes
 
+# Shared memory one block may use on sm_90 (227 KB), and the kernels'
+# static part of it: the per-warp minima, double-buffered, for 32 warps.
+SMEM_LIMIT = 232_448
+STATIC_SMEM = 2 * 32 * 4
+MAX_THREADS = 1024
+MAX_THREADS_PER_SLOT = 512  # G = 1: the kernel's launch bound leaves more registers
+MIN_THREADS = 128
+
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # argtypes of each library's `<name>_launch` (pointers, ints, the stream);
 # it returns cudaGetLastError() as an int
 _LAUNCH_ARGTYPES = {
-    "pack_first_fit": [_vp] * 15 + [_ci] * 7 + [_vp],
-    "pack_first_fit_v2": [_vp] * 12 + [_ci] * 8 + [_vp],
+    "pack_first_fit": [_vp] * 15 + [_ci] * 11 + [_vp],
+    "pack_first_fit_v2": [_vp] * 12 + [_ci] * 12 + [_vp],
 }
 
 # kernel launches made by pack_first_fit (CPU calls do not count)
@@ -64,6 +78,53 @@ launches = 0
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _build_lock
 _build_logs: Dict[str, str] = {}  # guarded-by: _build_lock
 _build_lock = threading.Lock()
+
+
+class LaunchPlan(NamedTuple):
+    threads: int  # threads per block, a power of two
+    G: int  # lanes per node slot, a power of two, 1..32
+    node_state_in_smem: bool  # node table in shared memory (else device memory)
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def _stage_bytes(threads: int, R: int) -> int:
+    # five i32 rows and two [threads, R] f32 tables of staged pods
+    return (5 + 2 * R) * threads * 4
+
+
+def max_threads(G: int) -> int:
+    """The largest block the kernel variant for G lanes per slot takes."""
+    return MAX_THREADS if G > 1 else MAX_THREADS_PER_SLOT
+
+
+def launch_plan(F: int, R: int, n_cap: int, threads: Optional[int] = None) -> LaunchPlan:
+    """The launch of either first-fit kernel for F frontier rows, R axes and
+    ``n_cap`` node slots. G, the lanes that walk one slot's frontier rows
+    together, is the least power of two at least F, at most 32 (G = 1 at
+    F = 1 is thread-per-slot). Unless ``threads`` is given, the block holds
+    one group per slot up to ``max_threads(G)`` (at least ``MIN_THREADS``),
+    halved while the staged pods do not fit. The node table takes shared
+    memory when ``n_cap · (2 + R) · 4`` bytes fit beside the staging."""
+    if not all(isinstance(v, int) and v >= 1 for v in (F, R, n_cap)):
+        raise ValueError(f"F, R and n_cap must be positive ints, got {F!r}, {R!r}, {n_cap!r}")
+    G = min(32, _pow2_at_least(F))
+    cap = max_threads(G)
+    if threads is None:
+        threads = min(cap, max(MIN_THREADS, G * _pow2_at_least(n_cap)))
+        while threads > 32 and STATIC_SMEM + _stage_bytes(threads, R) > SMEM_LIMIT:
+            threads //= 2
+    if threads != _pow2_at_least(threads) or not 32 <= threads <= cap:
+        raise ValueError(f"threads must be a power of two in [32, {cap}] at G={G}, got {threads}")
+    stage = _stage_bytes(threads, R)
+    if STATIC_SMEM + stage > SMEM_LIMIT:
+        raise ValueError(f"{threads} threads stage {stage} bytes of pods at R={R}: too many")
+    nodes = n_cap * (2 + R) * 4
+    in_smem = STATIC_SMEM + stage + nodes <= SMEM_LIMIT
+    return LaunchPlan(threads, G, in_smem, stage + (nodes if in_smem else 0))
 
 
 def _nvcc() -> str:
@@ -77,16 +138,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
 
 
+def build_dir(csrc: Path = CSRC) -> Path:
+    """Where the libraries built from ``csrc`` live: a hash of the flags and
+    of every ``.cu`` and ``.cuh`` file there, by name and content."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in Path(csrc).iterdir() if p.suffix in (".cu", ".cuh")):
+        data = path.read_bytes()
+        digest.update(f"{path.name}\0{len(data)}\0".encode() + data)
+    return BUILD_ROOT / digest.hexdigest()[:16]
+
+
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile (once per content of the sources) and load every kernel
     library; returns them by kernel name. A failed build raises."""
     with _build_lock:
         if _libs:
             return _libs
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for name, src in sorted(SOURCES.items()):
-            digest.update(name.encode() + b"\0" + src.read_bytes())
-        out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+        out_dir = build_dir()
         missing = [n for n in SOURCES if not (out_dir / f"lib{n}.so").exists()]
         if missing:
             out_dir.mkdir(parents=True, exist_ok=True)
@@ -217,13 +285,28 @@ def _check(args, n_max: int) -> Tuple[torch.device, Optional[int]]:
         raise ValueError(f"daemon has {shapes[9][0]} axes, pod_req has {R}")
     if not isinstance(n_max, int) or n_max < 1:
         raise ValueError(f"n_max must be a positive int, got {n_max!r}")
+    # The kernel indexes frontiers with every pod's open signature and the
+    # join table with the pods' cores and the joined ids, unchecked; one host
+    # sync holds them to S and C. Negative join entries mean "does not join".
+    open_sig, core, join = args[1], args[2], args[7]
+    open_lo, open_hi, core_lo, core_hi, joined_hi = torch.stack([
+        open_sig.min(), open_sig.max(), core.min(), core.max(), join.max(),
+    ]).tolist()
+    if not (0 <= open_lo and open_hi < S):
+        raise ValueError(f"open signatures span [{open_lo}, {open_hi}], outside [0, {S})")
+    if not (0 <= core_lo and core_hi < C):
+        raise ValueError(f"pod cores span [{core_lo}, {core_hi}], outside [0, {C})")
+    if not joined_hi < S:
+        raise ValueError(f"join_table holds signature id {joined_hi}, past S={S}")
     return dev, batch
 
 
-def pack_first_fit(*args, n_max: int) -> PackResult:
+def pack_first_fit(*args, n_max: int, plan: Optional[LaunchPlan] = None) -> PackResult:
     """``kernel.pack``'s contract over torch tensors: ``args`` in
     ``EncodedBatch.pack_args()`` order, each optionally with a shared
-    leading batch axis, and ``n_max`` node slots per problem."""
+    leading batch axis, and ``n_max`` node slots per problem. Open
+    signatures and joined ids must be below S and cores below C (checked).
+    ``plan`` overrides ``launch_plan(F, R, n_max)`` on the card."""
     global launches
     dev, batch = _check(args, n_max)
     if dev.type == "cpu":
@@ -233,13 +316,15 @@ def pack_first_fit(*args, n_max: int) -> PackResult:
     F = args[8].shape[-2]
     if R > MAX_R:
         raise ValueError(f"pack_first_fit takes at most {MAX_R} resource axes, got {R}")
+    plan = plan or launch_plan(F, R, n_max)
     lib = build()["pack_first_fit"]
     out = new_result(batch, P, n_max, R, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pack_first_fit_launch(
             *(a.data_ptr() for a in args), *(o.data_ptr() for o in out),
-            batch or 1, P, S, C, F, R, n_max, stream,
+            batch or 1, P, S, C, F, R, n_max,
+            plan.threads, plan.G, int(plan.node_state_in_smem), plan.smem_bytes, stream,
         )
     check_launch("pack_first_fit", err)
     launches += 1

@@ -6,10 +6,13 @@ frontier F) take this kernel. The host folds the join table and the
 frontiers into three per-core tables once per closure (``_precompute``,
 byte for byte the reference package's): the joined-frontier limits
 ``front_j[c, f·R + r, s]``, the joinability ``compat_j[c, 0, s]`` and the
-joined id ``jvals[c, 0, s]``. The CUDA source ``csrc/pack_first_fit_v2.cu``
-replaces ``karpenter_tpu/solver/pallas_kernel_v2.py::_pack_kernel_v2`` and
-carries the note on what bounds it; ``pack_kernel.build()`` builds it with
-the port's other kernel.
+joined id ``jvals[c, 0, s]``. The kernel walks a signature-major copy of
+the limits, ``front_s = signature_major(front_j)`` (``[C, S_pad, FRp]``, the
+rows of one column contiguous), which ``fused.DeviceInvariants`` keeps
+beside the tables. The CUDA source ``csrc/pack_first_fit_v2.cu`` replaces
+``karpenter_tpu/solver/pallas_kernel_v2.py::_pack_kernel_v2`` and carries
+the note on what bounds it; ``pack_kernel.build()`` builds it with the
+port's other kernel.
 
 ``pack_first_fit_v2`` takes the TPU kernel's inputs, each optionally with
 a shared leading batch axis B (one thread block per problem). For CUDA
@@ -22,6 +25,8 @@ function of the tables' shapes.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,7 +41,8 @@ NEG = -1e30  # "incompatible" frontier limit: nothing fits
 PALLAS_UNROLL_BUDGET = 1024
 
 # Bytes of one problem's three v2 tables that the v2 route takes. The kernel
-# reads front_j[core, :, node_sig] from device memory on every fit test, so
+# reads front_s[core, node_sig, :] (front_j's signature-major copy, as large)
+# from device memory on every fit test, so
 # the tables should stay resident in the H100's 50 MB L2; 32 MiB of it leaves
 # room for the node table, the pod side and the surrounding torch ops. The
 # 400-type team mix (S=65, C=64, F·R=800) needs 26.7 MB and fits; 256 teams
@@ -73,6 +79,14 @@ def _precompute(join_table: np.ndarray, frontiers: np.ndarray):
         gathered = np.where(ok[:, None], flat[np.clip(j, 0, S - 1)], NEG)  # [S, FR]
         front_j[c, :FR, :S] = gathered.T
     return front_j, compat_j, jvals, S_pad
+
+
+def signature_major(front_j: torch.Tensor) -> torch.Tensor:
+    """``front_j [..., C, FRp, S_pad]`` as ``front_s [..., C, S_pad, FRp]``:
+    ``front_s[c, s, f·R + r] == front_j[c, f·R + r, s]``, so the frontier
+    rows of one (core, signature) column are contiguous. A copy on
+    ``front_j``'s device."""
+    return front_j.transpose(-1, -2).contiguous()
 
 
 def v2_table_bytes(S: int, F: int, R: int, C: int) -> int:
@@ -172,15 +186,35 @@ def _check(args, n_max: int, F: int, R: int):
     return dev, batch
 
 
-def pack_first_fit_v2(*args, n_max: int, F: int, R: int) -> PackResult:
+def _check_front_s(front_j: torch.Tensor, front_s: torch.Tensor) -> None:
+    want = front_j.shape[:-2] + (front_j.shape[-1], front_j.shape[-2])
+    if not isinstance(front_s, torch.Tensor) or front_s.dtype != torch.float32:
+        raise TypeError("front_s must be a float32 torch.Tensor")
+    if front_s.shape != want or not front_s.is_contiguous() or front_s.device != front_j.device:
+        raise ValueError(
+            f"front_s must be a contiguous {tuple(want)} tensor on {front_j.device} "
+            f"(signature_major(front_j)), got {tuple(front_s.shape)} on {front_s.device}"
+        )
+
+
+def pack_first_fit_v2(
+    *args, n_max: int, F: int, R: int,
+    front_s: Optional[torch.Tensor] = None, plan: Optional[pack_kernel.LaunchPlan] = None,
+) -> PackResult:
     """The first-fit recurrence over the v2 tables: ``args`` are
     ``(pod_scal [6, P] i32, pod_req [R, P] f32, front_j [C, FRp, S_pad] f32,
     compat_j [C, 8, S_pad] f32, jvals [C, 8, S_pad] f32, open_fits [1, P]
     i32, daemon [R, 1] f32)``, each optionally with a shared leading batch
     axis. Signature ids in ``pod_scal`` and ``jvals`` must be below S_pad
-    and cores below C (checked). Returns ``kernel.pack``'s PackResult with ``n_max`` node slots."""
+    and cores below C (checked). On the card the kernel walks ``front_s``,
+    which must be ``signature_major(front_j)`` (its shape is checked, not
+    its content); without it the call makes that copy. ``plan`` overrides
+    ``pack_kernel.launch_plan(F, R, n_max)``. Returns ``kernel.pack``'s
+    PackResult with ``n_max`` node slots."""
     global launches
     dev, batch = _check(args, n_max, F, R)
+    if front_s is not None:
+        _check_front_s(args[2], front_s)
     if dev.type == "cpu":
         return pack_kernel.per_problem(pack_v2_reference, args, batch, n_max=n_max, F=F, R=R)
     if R > pack_kernel.MAX_R:
@@ -190,13 +224,19 @@ def pack_first_fit_v2(*args, n_max: int, F: int, R: int) -> PackResult:
     rows = args[3].shape[-2]
     if rows != 8 or args[4].shape[-2] != 8:
         raise ValueError(f"the kernel reads compat_j and jvals as [C, 8, S_pad], got {rows} rows")
+    if front_s is None:
+        front_s = signature_major(args[2])
+    plan = plan or pack_kernel.launch_plan(F, R, n_max)
     lib = pack_kernel.build()["pack_first_fit_v2"]
     out = pack_kernel.new_result(batch, P, n_max, R, dev)
+    ptrs = [a.data_ptr() for a in args]
+    ptrs[2] = front_s.data_ptr()  # the walk reads the copy, never front_j
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pack_first_fit_v2_launch(
-            *(a.data_ptr() for a in args), *(o.data_ptr() for o in out),
-            batch or 1, P, C, FRp, S_pad, F, R, n_max, stream,
+            *ptrs, *(o.data_ptr() for o in out),
+            batch or 1, P, C, FRp, S_pad, F, R, n_max,
+            plan.threads, plan.G, int(plan.node_state_in_smem), plan.smem_bytes, stream,
         )
     pack_kernel.check_launch("pack_first_fit_v2", err)
     launches += 1

@@ -18,7 +18,7 @@ import torch
 from karpenter_tpu_torch.solver import carry, fused, pack_kernel, pack_kernel_v2
 from karpenter_tpu_torch.solver.backend import kernel_name
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_reference, pack_v2_reference
-from torch_parity import encode_scenario, fields, scenario, synth_fields, team_mix
+from torch_parity import encode_scenario, fields, scenario, synth_fields, team_mix, with_v2_tables
 
 pytestmark = pytest.mark.cuda
 
@@ -185,3 +185,147 @@ def test_multi_solve_cuda_matches_cpu(cuda, tradeoff, kernel):
     assert module.launches == before + 1 and route["route"] == kernel
     assert_same(ref, out)
     np.testing.assert_array_equal(ref_cheapest.numpy(), cheapest.cpu().numpy())
+
+
+# -- the redesigned kernels' edges: lanes per slot, one barrier per pod -----
+
+
+def walk_fields(P, S, F, R, C, seed, n_hosts=0):
+    """A synthetic problem whose nodes walk long frontiers: every row of a
+    signature is small except one large row at a random index (the last
+    row for a third of the signatures, the first for a sixth), so a node
+    past its first few pods fits only that row; a tenth of the signatures
+    have only PAD rows."""
+    f = synth_fields(P=P, S=S, F=F, R=R, C=C, n_hosts=max(n_hosts, 1), seed=seed)
+    rng = np.random.default_rng(seed + 1000)
+    frontiers = rng.uniform(0.5, 1.5, (S, F, R)).astype(np.float32)
+    big = rng.integers(0, F, S)
+    big[: S // 3] = F - 1
+    big[S // 3 : S // 2] = 0
+    frontiers[np.arange(S), big] = rng.uniform(6.0, 9.0, (S, R))
+    frontiers[rng.random(S) < 0.1] = -1.0
+    f["frontiers"] = frontiers
+    if not n_hosts:
+        f["pod_host"] = np.full(P, -1, np.int32)
+        f["pod_open_host"] = np.full(P, -1, np.int32)
+    return with_v2_tables(f, "karpenter_tpu_torch")
+
+
+def both_kernels(f, dev, n_max, plan=None):
+    """(plain, kernel) results of v1 and v2 on one problem: [(ref, out), ...]."""
+    F, R = f["frontiers"].shape[1:]
+    v1 = pack_kernel.pack_first_fit(
+        *carry.tensors_from_reference(f, dev)["pack_args"], n_max=n_max, plan=plan)
+    v2 = pack_kernel_v2.pack_first_fit_v2(*v2_args(f, dev), n_max=n_max, F=F, R=R, plan=plan)
+    torch.cuda.synchronize()
+    ref1 = pack_reference(*carry.tensors_from_reference(f, "cpu")["pack_args"], n_max=n_max)
+    ref2 = pack_v2_reference(*v2_args(f, "cpu"), n_max=n_max, F=F, R=R)
+    return [(ref1, v1), (ref2, v2)]
+
+
+@pytest.mark.parametrize("F", [1, 31, 32, 33, 400])
+def test_split_walk_matches_reference(cuda, F):
+    # a stride partial (31), exactly full (32), one past full (33), 13 strides (400)
+    f = walk_fields(P=1024, S=24, F=F, R=2, C=6, seed=F, n_hosts=7)
+    assert pack_kernel.launch_plan(F, 2, 256).G == min(32, 1 << (F - 1).bit_length())
+    for ref, out in both_kernels(f, cuda, 256):
+        assert_same(ref, out)
+        assert int(out.n_nodes) > 8
+
+
+def _fields(valid, core, req, join, frontiers, host=None, hib=None):
+    """A problem in carry's field form from its arrays (no daemon)."""
+    P, R = req.shape
+    host = np.full(P, -1, np.int32) if host is None else host.astype(np.int32)
+    hib = np.ones(P, bool) if hib is None else hib
+    uniq, req_id = np.unique(req, axis=0, return_inverse=True)
+    open_sig_by_core = np.zeros(join.shape[1], np.int32)
+    return with_v2_tables(dict(
+        pod_valid=valid, pod_open_sig=open_sig_by_core[core], pod_core=core.astype(np.int32),
+        pod_host=host, pod_host_in_base=hib,
+        pod_open_host=np.where(host >= 0, np.where(hib, host, -2), -1).astype(np.int32),
+        pod_req=req.astype(np.float32), join_table=join.astype(np.int32),
+        frontiers=frontiers.astype(np.float32), daemon=np.zeros(R, np.float32),
+        usable=np.full((8, R), 100.0, np.float32), type_mask=np.ones((join.shape[0], 8), bool),
+        pod_req_id=req_id.reshape(-1).astype(np.int32), uniq_req=uniq.astype(np.float32),
+        open_sig_by_core=open_sig_by_core, base_has_hostname=False,
+    ), "karpenter_tpu_torch")
+
+
+@pytest.mark.parametrize("F", [1, 33])
+def test_tie_between_groups_goes_to_the_lowest_slot(cuda, F):
+    # 40 large pods open 40 nodes; then every node fits the next small pod
+    # at the same step (at F = 33 only in its last row), so every group
+    # finds its first slot at once and the lowest slot must win
+    frontiers = np.full((1, F, 1), 0.1)
+    frontiers[0, F - 1, 0] = 10.0
+    req = np.concatenate([np.full(40, 6.0), np.full(200, 0.5)])[:, None]
+    f = _fields(np.ones(240, bool), np.zeros(240, np.int32), req, np.zeros((1, 1)), frontiers)
+    for plan in (None, pack_kernel.launch_plan(F, 1, 64, threads=256)):
+        for ref, out in both_kernels(f, cuda, 64, plan):
+            assert_same(ref, out)
+            a = out.assignment.cpu().numpy()
+            assert (a[:40] == np.arange(40)).all() and a[40] == 0
+            assert (a[40:48] == 0).all() and a[48] == 1  # node 0 fills at 6 + 8 x 0.5
+
+
+def test_invalid_pods_between_valid_ones(cuda):
+    f = walk_fields(P=768, S=16, F=33, R=3, C=5, seed=3, n_hosts=5)
+    f["pod_valid"] = (np.arange(768) % 3 != 1) & (np.arange(768) % 7 != 0)
+    for ref, out in both_kernels(f, cuda, 512):
+        assert_same(ref, out)
+        assert (out.assignment.cpu().numpy()[1::3] == -1).all()
+
+
+@pytest.mark.parametrize("F,threads", [(33, 64), (1, 32), (8, 32)])
+def test_count_crosses_group_multiples(cuda, F, threads):
+    # few groups (2, 32 and 4), many nodes: the open count passes every
+    # multiple of the group count and each group owns many slots
+    f = walk_fields(P=2048, S=30, F=F, R=2, C=12, seed=21, n_hosts=40)
+    plan = pack_kernel.launch_plan(F, 2, 512, threads=threads)
+    for ref, out in both_kernels(f, cuda, 512, plan):
+        assert_same(ref, out)
+        assert int(out.n_nodes) > 4 * (threads // plan.G)
+
+
+@pytest.mark.parametrize("F", [1, 33])
+def test_node_state_in_device_memory(cuda, F):
+    f = walk_fields(P=2048, S=20, F=F, R=4, C=8, seed=5, n_hosts=200)
+    P = len(f["pod_valid"])
+    smem = pack_kernel.launch_plan(F, 4, P)
+    assert smem.node_state_in_smem  # 2048 slots fit beside the staging
+    stage = smem.smem_bytes - P * (2 + 4) * 4
+    forced = smem._replace(node_state_in_smem=False, smem_bytes=stage)
+    results = [both_kernels(f, cuda, P, plan) for plan in (smem, forced)]
+    for (ref, a), (_, b) in zip(*results):
+        assert_same(ref, a)
+        assert_same(ref, b)
+
+
+def test_node_state_in_device_memory_at_full_size(cuda):
+    # n_max = P = 10,240 at R = 4: the node table cannot take shared memory
+    f = walk_fields(P=10_240, S=12, F=1, R=4, C=4, seed=9, n_hosts=3000)
+    plan = pack_kernel.launch_plan(1, 4, 10_240)
+    assert not plan.node_state_in_smem
+    ref = pack_reference(*carry.tensors_from_reference(f, "cpu")["pack_args"], n_max=10_240)
+    out = pack_kernel.pack_first_fit(*carry.tensors_from_reference(f, cuda)["pack_args"], n_max=10_240)
+    assert_same(ref, out)
+    assert int(out.n_nodes) > 1000
+
+
+@pytest.mark.parametrize("F", [1, 33])
+def test_three_problems_in_one_launch(cuda, F):
+    fs = [walk_fields(P=512, S=16, F=F, R=2, C=4, seed=s, n_hosts=9) for s in (1, 2, 3)]
+    v1 = tuple(torch.stack(c) for c in zip(
+        *(carry.tensors_from_reference(f, cuda)["pack_args"] for f in fs)))
+    v2 = tuple(torch.stack(c) for c in zip(*(v2_args(f, cuda) for f in fs)))
+    before = pack_kernel.launches, pack_kernel_v2.launches
+    out1 = pack_kernel.pack_first_fit(*v1, n_max=128)
+    out2 = pack_kernel_v2.pack_first_fit_v2(*v2, n_max=128, F=F, R=2)
+    torch.cuda.synchronize()
+    assert (pack_kernel.launches, pack_kernel_v2.launches) == (before[0] + 1, before[1] + 1)
+    for b, f in enumerate(fs):
+        ref1 = pack_reference(*carry.tensors_from_reference(f, "cpu")["pack_args"], n_max=128)
+        ref2 = pack_v2_reference(*v2_args(f, "cpu"), n_max=128, F=F, R=2)
+        assert_same(ref1, PackResult(*(x[b] for x in out1)))
+        assert_same(ref2, PackResult(*(x[b] for x in out2)))

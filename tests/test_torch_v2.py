@@ -243,7 +243,8 @@ def test_device_invariants_share_one_lru():
         for s, k in ((1, 8), (2, 9), (3, 10), (4, 11), (5, 12))
     ]
     first = inv.get_v2(batches[0])
-    assert len(first) == 7 and first[0].shape[1] == 32  # pad8(F·R) rows
+    assert len(first) == 8 and first[0].shape[1] == 32  # pad8(F·R) rows
+    assert torch.equal(first[7], pack_kernel_v2.signature_major(first[0]))  # front_s beside them
     assert inv.get_v2(batches[0]) is first  # resident
     inv.get(batches[0])
     for b in batches[1:]:
