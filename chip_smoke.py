@@ -45,7 +45,24 @@ Phases (any failure exits non-zero; nothing is swallowed):
              diverse_pods x instance_types(400) (route v1) and the team mix
              x tradeoff(400) (route v2); each equals the CPU result for every
              batch and for the cheapest types, and is timed;
-8. kernels — one JSON line listing every kernel of the port.
+8. resident — the resident delta path (Scheduler(solver_delta=True)) at
+             full width. (a) headline: a warm-up whose plan equals the
+             knob-off device="cpu" plan (431 nodes), then 5 steady rounds
+             (launch counts set to 0 just before) that must each serve
+             sort, inject, encode, decode and validate from resident state
+             (*_delta_s keys), reuse PodResidency's upload, launch
+             pack_first_fit once and return the warm-up's plan; one
+             profiled steady round; then a cluster create + bind, after
+             which the round must re-inject and encode in full and equal a
+             device="cpu" resident scheduler taken through the same
+             rounds. (b) team mix: 5 churn rounds (100 pods leave, 100
+             arrive) and one one-pod swap that patches the resident pod
+             table in place, each through pack_first_fit_v2 on the row
+             delta encode rung and equal to a knob-off cuda scheduler's
+             plan (first and last also to the device="cpu" plan);
+9. kernels — one JSON line listing every kernel of the port, with its
+             launches on the main paths (phases 3 and 8 for pack_first_fit,
+             6 and 8 for pack_first_fit_v2).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -648,6 +665,189 @@ def diverse_phases(dev, card: str) -> dict:
     }
 
 
+DELTA_KEYS = ("sort_delta_s", "inject_delta_s", "encode_delta_s", "decode_delta_s",
+              "validate_delta_s")
+
+
+def stage_line(prof) -> str:
+    """Every ``*_s`` stage of a round's profile, in the order it ran."""
+    order = ("sort", "inject", "encode", "pack_fetch", "decode", "validate")
+    keys = [k for st in order for k in (f"{st}_s", f"{st}_delta_s") if k in prof]
+    return " ".join(f"{k}={prof[k] * 1e3:.3f}ms" for k in keys)
+
+
+def resident_phase(dev, card: str) -> dict:
+    """Phase 8: the resident delta path at full width on both routes.
+    Returns each kernel's launches in the phase's measured rounds."""
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.testing import diverse_pods, make_pod, make_provisioner
+
+    prov = make_provisioner(solver="tpu")
+
+    # -- (a) headline, steady state ----------------------------------------
+    catalog = instance_types(400)
+    pods = diverse_pods(10000, random.Random(42))
+    cluster = Cluster()
+    sched = Scheduler(cluster, rng=random.Random(1), solver_delta=True)
+    residency = sched.torch._pod_residency
+    t0 = time.perf_counter()
+    warm = sched.solve(prov, catalog, pods)
+    torch.cuda.synchronize()
+    log(f"[resident] headline warm-up round {time.perf_counter() - t0:.3f}s, nodes={len(warm)}, "
+        f"{stage_line(sched.last_stage_profile())}")
+    warm_plan = plan_of(warm, pods)
+    off_cpu = Scheduler(Cluster(), rng=random.Random(1), device="cpu", solver_delta=False)
+    if warm_plan != plan_of(off_cpu.solve(prov, catalog, pods), pods):
+        raise AssertionError("resident headline: warm-up plan differs from the knob-off cpu plan")
+    if len(warm) != HEADLINE_NODES:
+        raise AssertionError(f"resident headline opened {len(warm)} nodes, expected {HEADLINE_NODES}")
+    # the cpu twin takes the warm-up and, later, the same mutation; the
+    # steady rounds in between reuse the plan and draw no hostname
+    twin_cluster = Cluster()
+    twin = Scheduler(twin_cluster, rng=random.Random(1), device="cpu", solver_delta=True)
+    if plan_of(twin.solve(prov, catalog, pods), pods) != warm_plan:
+        raise AssertionError("resident headline: the cpu twin's warm-up plan differs")
+    log(f"[resident] headline warm-up plan == knob-off cpu plan == cpu twin ({len(warm)} nodes)")
+
+    pack_kernel.launches = 0
+    rounds = []
+    for r in range(5):
+        before, reused = pack_kernel.launches, residency.stats["reused"]
+        t0 = time.perf_counter()
+        nodes = sched.solve(prov, catalog, pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = sched.last_stage_profile()
+        missing = [k for k in DELTA_KEYS if k not in prof]
+        if missing:
+            raise AssertionError(f"resident headline round {r}: no {missing} in {sorted(prof)}")
+        if pack_kernel.launches != before + 1 or prof["packer_backend"] != "pack_first_fit":
+            raise AssertionError(f"resident headline round {r}: {pack_kernel.launches - before} "
+                                 f"launches of {prof['packer_backend']}")
+        if residency.stats["reused"] != reused + 1:
+            raise AssertionError(f"resident headline round {r}: PodResidency {residency.stats}")
+        if plan_of(nodes, pods) != warm_plan:
+            raise AssertionError(f"resident headline round {r}: plan differs from the warm-up's")
+        rounds.append(wall)
+        log(f"[resident] headline round {r}: {wall * 1e3:.3f} ms, nodes={len(nodes)}, "
+            f"pods/s={len(pods) / wall:.1f}, {stage_line(prof)}")
+    launches_v1 = pack_kernel.launches
+    mean = sum(rounds) / len(rounds)
+    log(f"[resident] headline 5 steady rounds: mean {mean * 1e3:.3f} ms, "
+        f"{len(pods) / mean:.1f} pods/s, pack_first_fit launches {launches_v1}, "
+        f"PodResidency {residency.stats}; card {card}")
+    profile_round(lambda: sched.solve(prov, catalog, pods), card)
+
+    for c in (cluster, twin_cluster):
+        late = c.create("pods", make_pod(name="resident-late", requests={"cpu": "0.5"}))
+        c.bind(late, "resident-node-0")
+    t0 = time.perf_counter()
+    nodes = sched.solve(prov, catalog, pods)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = sched.last_stage_profile()
+    if "inject_s" not in prof or "encode_s" not in prof:
+        raise AssertionError(f"resident headline: the round after a bind kept {sorted(prof)}")
+    if plan_of(nodes, pods) != plan_of(twin.solve(prov, catalog, pods), pods):
+        raise AssertionError("resident headline: the post-bind plan differs from the cpu twin's")
+    log(f"[resident] headline after create + bind: {wall * 1e3:.3f} ms, re-injected and "
+        f"encoded in full, plan == cpu twin ({len(nodes)} nodes), {stage_line(prof)}")
+
+    # -- (b) team mix, churn -------------------------------------------------
+    catalog = instance_types_tradeoff(400)
+    pods = team_pods(10000, 9)
+    sched = Scheduler(Cluster(), rng=random.Random(1), solver_delta=True)
+    residency = sched.torch._pod_residency
+    off = Scheduler(Cluster(), rng=random.Random(1), solver_delta=False)
+    off_cpu = Scheduler(Cluster(), rng=random.Random(1), device="cpu", solver_delta=False)
+    t0 = time.perf_counter()
+    warm = sched.solve(prov, catalog, pods)
+    torch.cuda.synchronize()
+    log(f"[resident] team mix warm-up round {time.perf_counter() - t0:.3f}s, nodes={len(warm)}")
+    if plan_of(warm, pods) != plan_of(off.solve(prov, catalog, pods), pods):
+        raise AssertionError("resident team mix: warm-up plan differs from the knob-off plan")
+
+    rng = random.Random(11)
+    churn = []
+    for r in range(5):
+        leave = set(rng.sample(range(len(pods)), 100))
+        arrive = [make_pod(requests={"cpu": f"{rng.choice([0.25, 0.5, 1])}"},
+                           node_selector={"team": f"t{rng.randrange(64)}"}) for _ in range(100)]
+        pods = [p for i, p in enumerate(pods) if i not in leave] + arrive
+        churn.append(("churn", pods))
+    # the last pod swapped for one with its cpu request and another team
+    # that has pods earlier in the batch: same sorted position, one column
+    last = pods[-1]
+    team = last.spec.node_selector["team"]
+    other = next(p.spec.node_selector["team"] for p in pods
+                 if p.spec.node_selector["team"] != team)
+    swap = make_pod(requests={"cpu": str(last.spec.containers[0].requests["cpu"])},
+                    node_selector={"team": other})
+    churn.append(("swap", pods[:-1] + [swap]))
+
+    def timed(scheduler, batch_pods):
+        t0 = time.perf_counter()
+        nodes = scheduler.solve(prov, catalog, batch_pods)
+        torch.cuda.synchronize()
+        return nodes, time.perf_counter() - t0, scheduler.last_stage_profile()
+
+    # the knob-off comparisons launch the kernel too: only the resident
+    # scheduler's launches are summed. The knob-off round on the same pods
+    # runs beside each resident round, first on odd rounds, so the two are
+    # timed in turns on one host
+    pack_kernel_v2.launches = 0
+    launches_v2 = 0
+    off_walls, res_walls = [], []
+    for r, (kind, batch_pods) in enumerate(churn):
+        if r % 2:
+            off_nodes, off_wall, off_prof = timed(off, batch_pods)
+        before, stats = pack_kernel_v2.launches, dict(residency.stats)
+        table = residency._entry[1][0]
+        ptr = table.data_ptr()
+        nodes, wall, prof = timed(sched, batch_pods)
+        launched = pack_kernel_v2.launches - before
+        launches_v2 += launched
+        if launched != 1 or prof["packer_backend"] != "pack_first_fit_v2":
+            raise AssertionError(f"resident team mix round {r}: {launched} "
+                                 f"launches of {prof['packer_backend']}")
+        if "encode_delta_s" not in prof:
+            raise AssertionError(f"resident team mix round {r}: not the row delta, {sorted(prof)}")
+        if not r % 2:
+            off_nodes, off_wall, off_prof = timed(off, batch_pods)
+        off_walls.append(off_wall)
+        res_walls.append(wall)
+        plan = plan_of(nodes, batch_pods)
+        if plan != plan_of(off_nodes, batch_pods):
+            raise AssertionError(f"resident team mix round {r}: plan differs from knob off")
+        checked = "knob-off cuda plan"
+        if r in (0, len(churn) - 1):
+            if plan != plan_of(off_cpu.solve(prov, catalog, batch_pods), batch_pods):
+                raise AssertionError(f"resident team mix round {r}: plan differs from the cpu plan")
+            checked += " and cpu plan"
+        if kind == "swap":
+            patched_in_place = (residency.stats["patched"] == stats["patched"] + 1
+                                and residency._entry[1][0] is table and table.data_ptr() == ptr)
+            if not patched_in_place:
+                raise AssertionError(f"resident team mix swap round: not patched in place, "
+                                     f"{stats} -> {residency.stats}")
+        log(f"[resident] team mix round {r} ({kind}): {wall * 1e3:.3f} ms, nodes={len(nodes)}, "
+            f"pods/s={len(batch_pods) / wall:.1f}, == {checked}, {stage_line(prof)}, "
+            f"PodResidency {residency.stats}")
+        log(f"[resident] team mix round {r} knob off ({'first' if r % 2 else 'second'}): "
+            f"{off_wall * 1e3:.3f} ms, {stage_line(off_prof)}")
+    log(f"[resident] team mix: mean {sum(res_walls) / len(res_walls) * 1e3:.3f} ms resident, "
+        f"{sum(off_walls) / len(off_walls) * 1e3:.3f} ms knob off over the same {len(churn)} "
+        f"rounds; card {card}")
+    log(f"[resident] team mix: {len(churn)} rounds, pack_first_fit_v2 launches {launches_v2}, "
+        f"PodResidency {residency.stats}; card {card}")
+    return {"pack_first_fit": launches_v1, "pack_first_fit_v2": launches_v2}
+
+
 def main() -> int:
     import torch
 
@@ -821,14 +1021,16 @@ def main() -> int:
         f"cuda == cpu")
 
     v2 = diverse_phases(dev, card)
+    resident = resident_phase(dev, card)
 
-    # -- 8. kernels -------------------------------------------------------
+    # -- 9. kernels -------------------------------------------------------
     kernels = [{
         "name": "pack_first_fit",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": main_launches,
+        "launches": main_launches + resident["pack_first_fit"],
+        "launches_by_path": {"main": main_launches, "resident": resident["pack_first_fit"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -843,6 +1045,8 @@ def main() -> int:
         "source": V2_SOURCE,
         "replaces": V2_REPLACES,
         **v2,
+        "launches": v2["launches"] + resident["pack_first_fit_v2"],
+        "launches_by_path": {"diverse": v2["launches"], "resident": resident["pack_first_fit_v2"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]
@@ -850,6 +1054,8 @@ def main() -> int:
         raise AssertionError(f"main path launched pack_first_fit {main_launches} times")
     if v2["launches"] < 5:
         raise AssertionError(f"diverse path launched pack_first_fit_v2 {v2['launches']} times")
+    if resident["pack_first_fit"] < 5 or resident["pack_first_fit_v2"] < 6:
+        raise AssertionError(f"resident path launches {resident}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,20 +22,25 @@ class Scheduler:
         cluster: Cluster,
         rng: Optional[random.Random] = None,
         device="cuda",
+        solver_delta: Optional[bool] = None,
     ):
         """``device`` is where the ``solver: tpu`` pack runs: ``cuda`` (the
         default) needs a card and raises without one; ``cpu`` runs the
-        plain PyTorch version."""
+        plain PyTorch version. ``solver_delta`` turns on the resident delta
+        path (None = the ``KARPENTER_SOLVER_DELTA`` env twin)."""
         from karpenter_tpu_torch.solver.backend import TorchScheduler
 
         self.cluster = cluster
         self.device = resolve_device(device)
         self.ffd = FFDScheduler(cluster, rng=rng)
-        self.torch = TorchScheduler(cluster, rng=rng, device=self.device)
+        self.torch = TorchScheduler(
+            cluster, rng=rng, device=self.device, solver_delta=solver_delta
+        )
 
     def last_stage_profile(self) -> dict:
         """Per-stage timings of the most recent ``solver: tpu`` solve (sort /
-        inject / encode / pack_fetch / decode / validate seconds,
+        inject / encode / pack_fetch / decode / validate seconds, each stage
+        served from resident state under its ``*_delta_s`` key;
         pack_dispatches, packer_backend)."""
         return dict(self.torch.last_profile)
 

@@ -20,11 +20,30 @@ buffer into pinned host memory and records a CUDA event; finish waits on
 that event. A constraint diversity past the signature closure cap
 (``SignatureOverflow``), a kernel failure and a plan that fails validation
 all raise; nothing falls back to another kernel or to the CPU.
+
+The resident delta path (``solver_delta``, env ``KARPENTER_SOLVER_DELTA``)
+keeps each stage's work across rounds, and a stage served from resident
+state records its ``*_delta_s`` profile key in place of the full one:
+
+- sort: ``ResidentEncoder.sort`` returns the cached order for the same pod
+  objects (``sort_delta_s``);
+- inject: a topology-free batch takes the empty plan, a topology batch
+  reuses the cached injected plan while the pods, the pre-inject
+  requirements and ``Cluster.version()`` stand still (``inject_delta_s``);
+- encode: ``ResidentEncoder.encode``'s reuse and row-delta rungs
+  (``encode_delta_s``);
+- upload: ``fused.PodResidency`` reuses or column-patches the device pod
+  table;
+- decode: a bit-identical result for the same resident batch rebuilds the
+  nodes from the previous decode's rows (``decode_delta_s``);
+- validate: skipped after such a decode when the memoized plan passed
+  (``validate_delta_s``).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import random
 import time
 from typing import Dict, List, Optional, Sequence
@@ -46,6 +65,7 @@ from karpenter_tpu_torch.scheduling.topology import Topology
 from karpenter_tpu_torch.solver import encode as enc
 from karpenter_tpu_torch.solver import fused
 from karpenter_tpu_torch.solver import pack_kernel_v2
+from karpenter_tpu_torch.solver.delta import ResidentEncoder
 from karpenter_tpu_torch.solver.signature import SignatureOverflow
 from karpenter_tpu_torch.utils import resources as res
 from karpenter_tpu_torch.utils.device import resolve_device
@@ -60,6 +80,12 @@ KERNELS = {
     "v1": ("pack_first_fit", "pack_reference"),
     "v2": ("pack_first_fit_v2", "pack_v2_reference"),
 }
+
+
+def _env_bool(key: str, default: bool = False) -> bool:
+    """The boolean env contract: only the literal ``true`` (any case,
+    surrounding space ignored) turns a knob on."""
+    return os.environ.get(key, "true" if default else "false").strip().lower() == "true"
 
 
 def kernel_name(route: str, device: torch.device) -> str:
@@ -116,6 +142,7 @@ class TorchScheduler:
         cluster: Cluster,
         rng: Optional[random.Random] = None,
         device="cuda",
+        solver_delta: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self.cluster = cluster
@@ -124,6 +151,34 @@ class TorchScheduler:
         # reused across this scheduler's batches
         self._encode_cache = enc.EncodeCache()
         self._invariants = fused.DeviceInvariants(self.device)
+        # resident delta path (module docstring); None = the env twin
+        self.solver_delta = (
+            bool(solver_delta) if solver_delta is not None
+            else _env_bool("KARPENTER_SOLVER_DELTA")
+        )
+        self._resident: Optional[ResidentEncoder] = None
+        self._pod_residency: Optional[fused.PodResidency] = None
+        if self.solver_delta:
+            self._resident = ResidentEncoder(self._encode_cache)
+            self._pod_residency = fused.PodResidency(self.device)
+        # per-axis-vocabulary scale vectors for decode: axis_names is
+        # identity-stable across steady-state solves (the trim memo), so
+        # the AXIS_SCALES gather runs once per vocabulary, not per decode
+        self._scales_memo: Dict[int, tuple] = {}
+        # decode residency: when the SAME resident batch solves to a
+        # bit-identical result under compatible constraints, the
+        # VirtualNodes are rebuilt from the previous decode's derived
+        # per-node rows. One tuple snapshot; the hit flag is a plain
+        # attribute because this scheduler runs one solve at a time (no
+        # solve lock, no decode off a lock, no thread-local state)
+        self._dec_memo: Optional[tuple] = None
+        self._dec_hit = False
+        # validation memo: (decode memo generation, pods list, daemon) of
+        # the last PASSED _validate_pack. A decode served from the memo is
+        # bit-identical to the plan that passed; a FAILED validation never
+        # arms it, so a bad result is re-checked every round no matter how
+        # often the device repeats it bit for bit
+        self._validate_memo: Optional[tuple] = None
         # per-stage timings of the most recent solve
         self.last_profile: Dict[str, float] = {}
 
@@ -137,21 +192,61 @@ class TorchScheduler:
             return []
         prof: Dict[str, float] = {}
         self.last_profile = prof
+        resident = self._resident
         t0 = time.perf_counter()
         constraints = constraints.clone()
-        pods, sts = sort_pods_ffd_with_statics(pods)
+        if resident is not None:
+            pods, sts, sort_hit = resident.sort(pods)
+        else:
+            pods, sts = sort_pods_ffd_with_statics(pods)
+            sort_hit = False
         instance_types = sorted(instance_types, key=lambda it: it.effective_price())
-        prof["sort_s"] = time.perf_counter() - t0
+        prof["sort_delta_s" if sort_hit else "sort_s"] = time.perf_counter() - t0
 
         # topology decisions land in the plan, never in the pods' selectors
         t0 = time.perf_counter()
-        plan = self.topology.inject_plan(constraints, pods, sts=sts)
-        daemon = daemon_overhead(self.cluster, constraints)
-        prof["inject_s"] = time.perf_counter() - t0
+        topo = True
+        plan_reused = False
+        if resident is not None and resident.eligible(sts):
+            # topology-free batch: the injected plan is empty by
+            # construction, so the per-pod discovery sweep is skipped
+            topo = False
+            plan = resident.empty_plan(pods, sts)
+            daemon = daemon_overhead(self.cluster, constraints)
+        elif resident is not None:
+            # topology batch: the injected round is a deterministic function
+            # of (sorted batch, pre-inject constraints content, cluster
+            # state); when none moved, reuse the cached post-inject
+            # constraints + plan + daemon. The key is built BEFORE inject
+            # mutates the constraints clone.
+            pkey = resident.plan_key(constraints, self.cluster.version())
+            hit = resident.plan_reuse(pkey, sts)
+            if hit is not None:
+                constraints, plan, daemon = hit
+                plan_reused = True
+            else:
+                plan = self.topology.inject_plan(constraints, pods, sts=sts)
+                daemon = daemon_overhead(self.cluster, constraints)
+                resident.remember_plan(pkey, sts, constraints, plan, daemon)
+        else:
+            plan = self.topology.inject_plan(constraints, pods, sts=sts)
+            daemon = daemon_overhead(self.cluster, constraints)
+        prof[
+            "inject_delta_s" if (not topo or plan_reused) else "inject_s"
+        ] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        batch = self._encode_retry(constraints, instance_types, pods, daemon, plan)
-        prof["encode_s"] = time.perf_counter() - t0
+        if resident is not None:
+            batch, enc_kind = self._resident_encode(
+                constraints, instance_types, pods, sts, daemon, plan,
+                topo=topo, plan_reused=plan_reused,
+            )
+        else:
+            batch = self._encode_retry(constraints, instance_types, pods, daemon, plan)
+            enc_kind = "full"
+        prof["encode_delta_s" if enc_kind != "full" else "encode_s"] = (
+            time.perf_counter() - t0
+        )
 
         t0 = time.perf_counter()
         result, typemask = self._pack(batch, prof)
@@ -159,16 +254,55 @@ class TorchScheduler:
 
         t0 = time.perf_counter()
         nodes = self._decode(batch, result, typemask, constraints, instance_types)
-        prof["decode_s"] = time.perf_counter() - t0
+        prof["decode_delta_s" if self._dec_hit else "decode_s"] = time.perf_counter() - t0
 
+        # a decode-memo hit is bit-identical to a previously decoded plan;
+        # when THAT plan passed this guard (the memo is only armed on a
+        # pass, and is keyed to the decode memo generation), the verdict is
+        # a pure function of inputs proved unchanged — skip the re-check
         t0 = time.perf_counter()
-        violation = self._validate_pack(nodes, pods, daemon)
-        prof["validate_s"] = time.perf_counter() - t0
+        vmemo = self._validate_memo
+        if (
+            self._dec_hit
+            and vmemo is not None
+            and vmemo[0] is self._dec_memo
+            and vmemo[1] is pods
+            and vmemo[2] == daemon
+        ):
+            violation = None
+            prof["validate_delta_s"] = time.perf_counter() - t0
+        else:
+            violation = self._validate_pack(nodes, pods, daemon)
+            if violation is None:
+                self._validate_memo = (self._dec_memo, pods, dict(daemon))
+            prof["validate_s"] = time.perf_counter() - t0
         if violation:
             raise InvalidPackError(
                 f"{prof['packer_backend']} produced an invalid plan: {violation}"
             )
         return nodes
+
+    def _resident_encode(
+        self, constraints, instance_types, pods, sts, daemon, plan,
+        topo=False, plan_reused=False,
+    ):
+        """The resident path with the same overflow-retry contract as
+        ``_encode_retry``: a cached table accumulates signatures across
+        batches, so an overflow may be an accumulation artifact — drop the
+        cache AND the resident state (its stable vocab belongs to the
+        dropped table) and retry from cold."""
+        try:
+            return self._resident.encode(
+                constraints, instance_types, pods, sts, daemon, plan,
+                topo=topo, plan_reused=plan_reused,
+            )
+        except SignatureOverflow:
+            self._encode_cache.clear()
+            self._resident.reset()
+            return self._resident.encode(
+                constraints, instance_types, pods, sts, daemon, plan,
+                topo=topo, plan_reused=plan_reused,
+            )
 
     def _encode_retry(self, constraints, instance_types, pods, daemon, plan) -> enc.EncodedBatch:
         """Encode with the reusable cache; a cached table accumulates
@@ -224,12 +358,18 @@ class TorchScheduler:
         """Launch one fused solve on ``route`` and return ``finish()``,
         which blocks until its buffer is on the host and splits it."""
         dev = self.device
-        tab, open_by_core, bhh = fused.pack_pod_table(batch)
-        uniq = fused.pad_uniq_req(batch.uniq_req)
-        pod_side = tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
-            for a in (tab, open_by_core, bhh, uniq)
-        )
+        if self._pod_residency is not None:
+            # a no-churn round reuses the resident upload by batch identity
+            # (the saturation retry's second call too), a small-churn round
+            # patches it in place on the device
+            pod_side = self._pod_residency.get(batch)
+        else:
+            tab, open_by_core, bhh = fused.pack_pod_table(batch)
+            uniq = fused.pad_uniq_req(batch.uniq_req)
+            pod_side = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
+                for a in (tab, open_by_core, bhh, uniq)
+            )
         if route == "v2":
             F, R = batch.frontiers.shape[1], batch.frontiers.shape[2]
             buf = fused.fused_solve_v2(
@@ -302,6 +442,21 @@ class TorchScheduler:
         if unschedulable:
             logger.error("Failed to schedule %d pods", unschedulable)
 
+        # decode residency: a bit-identical result for the SAME resident
+        # batch under compatible constraints rebuilds the nodes from the
+        # previous decode's derived rows. Gated with the rest of the
+        # resident machinery, so the knob-off path measures the full decode.
+        self._dec_hit = False
+        memo_on = self._resident is not None
+        if memo_on:
+            nodes = self._decode_from_memo(
+                batch, assignment, node_sig, node_host, node_req, n_nodes,
+                typemask, constraints, instance_types,
+            )
+            if nodes is not None:
+                self._dec_hit = True
+                return nodes
+
         # group pods per node (order-preserving, like FFD append order);
         # indices ≥ n_nodes are outside the kernel contract and skipped
         a = np.asarray(assignment)
@@ -320,9 +475,18 @@ class TorchScheduler:
         if not live:
             return nodes
 
-        scales = np.array(
-            [res.AXIS_SCALES.get(nm, res._DEFAULT_SCALE) for nm in batch.axis_names]
-        )
+        axis_names = batch.axis_names
+        # the value holds the list so the id cannot be recycled under the memo
+        hit = self._scales_memo.get(id(axis_names))
+        if hit is not None and hit[0] is axis_names:
+            scales = hit[1]
+        else:
+            scales = np.array(
+                [res.AXIS_SCALES.get(nm, res._DEFAULT_SCALE) for nm in axis_names]
+            )
+            if len(self._scales_memo) >= 8:
+                self._scales_memo.clear()
+            self._scales_memo[id(axis_names)] = (axis_names, scales)
         live_idx = np.asarray(live, np.int64)
         ok_all = typemask[live_idx]
         types_arr = np.array(instance_types, dtype=object)
@@ -342,26 +506,103 @@ class TorchScheduler:
         sig_l = np.asarray(node_sig)[live_idx].tolist()
         host_l = np.asarray(node_host)[live_idx].tolist()
         sig_host_cache: Dict[int, tuple] = {}
+        memo_rows = []
         for row, n in enumerate(live):
             sig = batch.signatures[sig_l[row]]
             total = totals_l[row]
             scaled = scaled_l[row]
+            surviving = uniq_lists[row_of_l[row]]
             node_constraints = constraints.clone()
             reqs = sig.requirements
             h = host_l[row]
             if h >= 0:
                 reqs = _with_hostname(reqs, batch.hostnames[h], sig_host_cache)
             node_constraints.requirements = reqs
+            requests = {
+                name: scaled[i]
+                for i, name in enumerate(axis_names)
+                if total[i]
+            }
+            pods_list = pods_by_node[n]
+            if memo_on:
+                # the memo holds its OWN copies of the mutable per-node state
+                # (a consumer appending to node.pods must not poison it); the
+                # requirements object and the surviving list are shared under
+                # the replace-never-mutate convention, as uniq_lists shares
+                # them across this round's nodes
+                memo_rows.append((reqs, dict(requests), surviving, list(pods_list)))
             nodes.append(
                 VirtualNode(
                     constraints=node_constraints,
-                    instance_type_options=uniq_lists[row_of_l[row]],
-                    pods=pods_by_node[n],
-                    requests={
-                        name: scaled[i]
-                        for i, name in enumerate(batch.axis_names)
-                        if total[i]
-                    },
+                    instance_type_options=surviving,
+                    pods=pods_list,
+                    requests=requests,
+                )
+            )
+        if memo_on:
+            # the copies decouple the memo from the result buffers
+            self._dec_memo = (
+                batch,
+                list(instance_types),
+                constraints,
+                np.asarray(assignment).copy(),
+                np.asarray(node_sig)[:n_nodes].copy(),
+                np.asarray(node_host)[:n_nodes].copy(),
+                np.asarray(node_req)[:n_nodes].copy(),
+                n_nodes,
+                np.asarray(typemask).copy(),
+                memo_rows,
+            )
+        return nodes
+
+    def _decode_from_memo(
+        self, batch, assignment, node_sig, node_host, node_req, n_nodes,
+        typemask, constraints, instance_types,
+    ) -> Optional[List[VirtualNode]]:
+        """The decode-side reuse rung: None unless every input the decoded
+        nodes are a function of matches the memo — the resident batch by
+        identity, the raw result and typemask bit for bit, the catalog by
+        element identity, and the constraints by content (the requirements
+        object itself rides the resident plan cache, so identity holds in
+        steady state). On a hit the nodes are rebuilt from the memoized
+        per-node rows: fresh clones/copies for everything a consumer may
+        mutate, shared objects for everything replace-never-mutate."""
+        memo = self._dec_memo
+        if memo is None or memo[0] is not batch:
+            return None
+        (_, mits, mcon, mass, msig, mhost, mreq, mn, mmask, rows) = memo
+        if n_nodes != mn:
+            return None
+        if len(instance_types) != len(mits) or any(
+            a is not b for a, b in zip(instance_types, mits)
+        ):
+            return None
+        if not (
+            constraints.requirements is mcon.requirements
+            and constraints.kubelet_configuration is mcon.kubelet_configuration
+            and constraints.provider is mcon.provider
+            and constraints.labels == mcon.labels
+            and constraints.taints == mcon.taints
+        ):
+            return None
+        if not (
+            np.array_equal(np.asarray(assignment), mass)
+            and np.array_equal(np.asarray(node_sig)[:n_nodes], msig)
+            and np.array_equal(np.asarray(node_host)[:n_nodes], mhost)
+            and np.array_equal(np.asarray(node_req)[:n_nodes], mreq)
+            and np.array_equal(np.asarray(typemask), mmask)
+        ):
+            return None
+        nodes: List[VirtualNode] = []
+        for reqs, requests, surviving, pods_list in rows:
+            node_constraints = constraints.clone()
+            node_constraints.requirements = reqs
+            nodes.append(
+                VirtualNode(
+                    constraints=node_constraints,
+                    instance_type_options=surviving,
+                    pods=list(pods_list),
+                    requests=dict(requests),
                 )
             )
         return nodes

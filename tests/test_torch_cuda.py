@@ -329,3 +329,68 @@ def test_three_problems_in_one_launch(cuda, F):
         ref2 = pack_v2_reference(*v2_args(f, "cpu"), n_max=128, F=F, R=2)
         assert_same(ref1, PackResult(*(x[b] for x in out1)))
         assert_same(ref2, PackResult(*(x[b] for x in out2)))
+
+
+def residency_batches(n_pods=300, seed=11):
+    """Two encoded team-mix batches: the second swaps the input's last pod
+    for one with its cpu request and another team, which keeps its sorted
+    position and changes one column of the pod table."""
+    from karpenter_tpu_torch.testing import make_pod
+
+    pkg = "karpenter_tpu_torch"
+    prov, catalog, pods = team_mix(pkg, n_pods, seed, 16)
+    last = pods[-1]
+    team = last.spec.node_selector["team"]
+    other = next(p.spec.node_selector["team"] for p in pods if p.spec.node_selector["team"] != team)
+    swap = make_pod(requests={"cpu": str(last.spec.containers[0].requests["cpu"])},
+                    node_selector={"team": other})
+    return (encode_scenario(pkg, prov, catalog, pods),
+            encode_scenario(pkg, prov, catalog, pods[:-1] + [swap]))
+
+
+def test_pod_residency_patches_in_place_on_card(cuda):
+    b1, b2 = residency_batches()
+    t1, t2 = fused.pack_pod_table(b1)[0], fused.pack_pod_table(b2)[0]
+    assert t1.shape == t2.shape and int((t1 != t2).any(axis=0).sum()) == 1
+    res = fused.PodResidency(cuda)
+    devs1 = res.get(b1)
+    ptr = devs1[0].data_ptr()
+    uploads = []
+    real = res._upload
+    res._upload = lambda a: uploads.append(a.shape) or real(a)
+    assert res.get(b1) is devs1 and uploads == []  # reuse: no host-to-device copy
+    devs2 = res.get(b2)
+    torch.cuda.synchronize()
+    assert res.stats == {"reused": 1, "patched": 1, "uploaded": 1}
+    assert devs2[0] is devs1[0] and devs2[0].data_ptr() == ptr  # patched in place
+    assert len(uploads) == 2  # the column index and the one changed column
+    fresh = fused.PodResidency(cuda).get(b2)
+    for got, want in zip(devs2, fresh):
+        assert got.device.type == "cuda"
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,n_pods,n_types", [("diverse", 700, 50), ("teams", 2000, 64)])
+def test_resident_steady_state_on_card_matches_cpu(cuda, name, n_pods, n_types):
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+
+    prov, catalog, pods = scenario("karpenter_tpu_torch", name, n_pods, 42, n_types)
+    index = {id(p): i for i, p in enumerate(pods)}
+    plans, keys = {}, {}
+    for device in ("cpu", "cuda"):
+        sched = Scheduler(Cluster(), rng=random.Random(1), device=device, solver_delta=True)
+        plans[device], keys[device] = [], []
+        for _ in range(3):
+            nodes = sched.solve(prov, catalog, pods)
+            plans[device].append([
+                ([index[id(p)] for p in n.pods], [it.name for it in n.instance_type_options],
+                 n.requests, n.constraints.requirements.requirements)
+                for n in nodes
+            ])
+            keys[device].append(sorted(k for k in sched.last_stage_profile() if k.endswith("_s")))
+        if device == "cuda":
+            assert sched.torch._pod_residency.stats == {"reused": 2, "patched": 0, "uploaded": 1}
+    assert plans["cpu"] == plans["cuda"]
+    assert keys["cpu"] == keys["cuda"]
+    assert "encode_delta_s" in keys["cuda"][2] and "sort_delta_s" in keys["cuda"][2]
