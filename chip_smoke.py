@@ -60,9 +60,38 @@ Phases (any failure exits non-zero; nothing is swallowed):
              table in place, each through pack_first_fit_v2 on the row
              delta encode rung and equal to a knob-off cuda scheduler's
              plan (first and last also to the device="cpu" plan);
-9. kernels — one JSON line listing every kernel of the port, with its
+9. route   — the native packer and the unfused ladder beside the kernels.
+             (a) build the native packer (printing the build time) and hold
+             its five outputs bit-exact against pack_first_fit (headline) and
+             the unfused v2 caller (team mix) at the backend's n_max; host
+             clock of native over 5 calls beside the kernels' CUDA-event
+             times and the unfused callers' host times. (b) 3 headline
+             rounds under KARPENTER_PACKER=pallas: pack_first_fit on the
+             unfused route, one launch a round, the plan equal to phase 3's
+             fused and cpu plans. (d) pack_best on the card on synthetic
+             problems whose hostname ids pass 32,767 (v1 and v2 rungs), bit-
+             exact against the plain version. (e) 3 headline and 3 team-mix
+             rounds under auto with a fresh router: every round launches its
+             kernel on the fused route, the plan equals the cpu plan, and the
+             router stays empty with no native call (only a device="cpu"
+             scheduler routes); pack_fetch_s is printed against (a)'s native
+             time. (f) 4 resident headline rounds under
+             KARPENTER_PACKER=native: from round 1 the decode and validation
+             memos hit with typemask None. (c), run last: a team-mix round
+             with its fused shape in the failed-fused memo takes
+             pack_first_fit_v2 through pack_best (one launch, the plan equal
+             to phase 6's), and pack_best on the team mix's pack_args() on
+             the card is bit-exact with the plain version; at the end both
+             failed-shape memos hold only what (c) put there;
+10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
-             6 and 8 for pack_first_fit_v2).
+             6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
+             and the native packer's time on the same batches.
+
+Every phase runs the default KARPENTER_PACKER (unset) unless it names a
+value: on the card that is the device path, routed by shape. The
+device="cpu" schedulers that give the reference plans route between their
+plain versions and the native packer, as the default does on the CPU.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -71,10 +100,12 @@ The last line of standard output is
 from __future__ import annotations
 
 import json
+import os
 import random
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -430,19 +461,18 @@ def v2_parity(name: str, gpu, n_max: int, F: int, R: int, front_s=None) -> tuple
     return out, worst
 
 
-def synthetic_v2(P: int, S: int, F: int, R: int, C: int, seed: int, n_hosts: int, device):
-    """A seeded synthetic problem in pack_args() form and its v2 inputs.
-    With ``n_hosts`` > 0 half the pods pin a hostname (node states -2, -1
-    and h), a tenth of the signatures have only FRONTIER_PAD rows and the
-    back half of every frontier is PAD; with 0 it is the bench's shape
-    (bench.py:206-220: no hostnames, no daemon)."""
+def synthetic_args(P: int, S: int, F: int, R: int, C: int, seed: int, n_hosts: int, device,
+                   host_base: int = 0):
+    """A seeded synthetic problem in pack_args() form. With ``n_hosts`` > 0
+    half the pods pin a hostname id in [host_base, host_base + n_hosts)
+    (node states -2, -1 and h), a tenth of the signatures have only
+    FRONTIER_PAD rows and the back half of every frontier is PAD; with 0 it
+    is the bench's shape (bench.py:206-220: no hostnames, no daemon)."""
     import torch
-
-    from karpenter_tpu_torch.solver import pack_kernel_v2
 
     rng = np.random.default_rng(seed)
     if n_hosts:
-        host = np.where(rng.random(P) < 0.5, rng.integers(0, n_hosts, P), -1)
+        host = np.where(rng.random(P) < 0.5, host_base + rng.integers(0, n_hosts, P), -1)
         hib = rng.random(P) < 0.7
         frontiers = rng.uniform(2.0, 8.0, (S, F, R))
         frontiers[:, F // 2:, :] = -1.0
@@ -462,7 +492,7 @@ def synthetic_v2(P: int, S: int, F: int, R: int, C: int, seed: int, n_hosts: int
         frontiers = rng.uniform(2.0, 16.0, (S, F, R))
         daemon = np.zeros(R)
     i32, f32 = torch.int32, torch.float32
-    pack_args = (
+    return (
         torch.tensor(valid, device=device),
         torch.tensor(open_sig, dtype=i32, device=device),
         torch.tensor(core, dtype=i32, device=device),
@@ -474,10 +504,13 @@ def synthetic_v2(P: int, S: int, F: int, R: int, C: int, seed: int, n_hosts: int
         torch.tensor(frontiers, dtype=f32, device=device),
         torch.tensor(daemon, dtype=f32, device=device),
     )
-    tables = pack_kernel_v2._precompute(join.astype(np.int32), frontiers.astype(np.float32))[:3]
-    return pack_kernel_v2.kernel_inputs(
-        *pack_args[:7], *pack_args[8:], *(torch.tensor(t, device=device) for t in tables)
-    )
+
+
+def synthetic_v2(P: int, S: int, F: int, R: int, C: int, seed: int, n_hosts: int, device):
+    """``synthetic_args``' problem as pack_first_fit_v2's inputs."""
+    from karpenter_tpu_torch.solver import pack_kernel_v2
+
+    return pack_kernel_v2.v2_args(*synthetic_args(P, S, F, R, C, seed, n_hosts, device))
 
 
 def multi_stack(batches, catalog):
@@ -492,9 +525,10 @@ def multi_stack(batches, catalog):
     return arrays, mask, batches[0].usable, prices
 
 
-def diverse_phases(dev, card: str) -> dict:
+def diverse_phases(dev, card: str) -> tuple:
     """Phases 5-7: the v2 kernel against its plain version, the diverse main
-    path, the multi-solve. Returns pack_first_fit_v2's kernels-line numbers."""
+    path, the multi-solve. Returns pack_first_fit_v2's kernels-line numbers
+    and what phase 9 reuses of the team mix."""
     import torch
 
     from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
@@ -662,6 +696,12 @@ def diverse_phases(dev, card: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "ns_per_pod": ms_v2 * 1e6 / P,
+    }, {
+        # for phase 9: the team mix's pods and device="cpu" plan, and the v2
+        # result at n_max 512 that phase 5 held bit-exact with the plain version
+        "pods": pods,
+        "cpu_plan": plan_of(cpu_nodes, pods),
+        "plain_512": results[512],
     }
 
 
@@ -848,6 +888,232 @@ def resident_phase(dev, card: str) -> dict:
     return {"pack_first_fit": launches_v1, "pack_first_fit_v2": launches_v2}
 
 
+def host_ms(fn, iters: int) -> tuple:
+    """(mean, min) host-clock ms of ``fn()`` over ``iters`` calls, after
+    one call not timed."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sum(times) / len(times), min(times)
+
+
+def device_args(batch, device):
+    """``batch.pack_args()`` as tensors on ``device``."""
+    import torch
+
+    from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
+
+    return tuple(torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+                 for a, (_, dtype) in zip(batch.pack_args(), PACK_ARG_DTYPES))
+
+
+def host_result(result):
+    """A PackResult over numpy arrays (the native packer's) as tensors."""
+    import torch
+
+    from karpenter_tpu_torch.solver.kernel import PackResult
+
+    return PackResult(*(torch.as_tensor(np.asarray(a)) for a in result))
+
+
+def route_phase(dev, card: str, classes: dict, n_pods: int = 10000) -> dict:
+    """Phase 9: the cost router, the native packer and the unfused ladder.
+    ``classes`` holds, for the headline and the team mix of ``n_pods``
+    pods, phase 3's and phase 6's pods and device="cpu" plans (and the
+    team mix's plain-version result at n_max 512). Returns each kernel's
+    kernels-line additions."""
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import backend, native, pack_kernel, pack_kernel_v2, router
+    from karpenter_tpu_torch.solver.kernel import pack_reference
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    prov = make_provisioner(solver="tpu")
+    head_cat, team_cat = instance_types(400), instance_types_tradeoff(400)
+    batches = {
+        "headline": headline_batch(n_pods, 400, 42),
+        "team mix": encode_batch(team_cat, team_pods(n_pods, 9)),
+    }
+    kernel_of = {"headline": "pack_first_fit", "team mix": "pack_first_fit_v2"}
+    module_of = {"pack_first_fit": pack_kernel, "pack_first_fit_v2": pack_kernel_v2}
+    catalog_of = {"headline": head_cat, "team mix": team_cat}
+    out = {name: {} for name in module_of}
+
+    def timed(sched, pods, cls):
+        # a knob-off scheduler draws new hostnames on every topology round:
+        # each round replays the same draws (the topology rng reseeded as a
+        # new scheduler's), so its plan is held against the cpu plan. solve
+        # returns once its result is on the host
+        if not sched.torch.solver_delta:
+            sched.torch.topology.rng = random.Random(1)
+        t0 = time.perf_counter()
+        nodes = sched.solve(prov, catalog_of[cls], pods)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        prof = sched.last_stage_profile()
+        if plan_of(nodes, pods) != classes[cls]["cpu_plan"]:
+            raise AssertionError(f"route {cls}: plan differs from the device='cpu' plan "
+                                 f"({prof.get('packer_backend')}, {prof.get('pack_route')})")
+        return prof, wall
+
+    # -- (a) the native packer against the kernels on the same batches -----
+    t0 = time.perf_counter()
+    if not native.native_available(wait=180):
+        raise AssertionError("the native packer did not build (g++ -O3 -shared -fPIC)")
+    log(f"[route] native packer built and loaded in {time.perf_counter() - t0:.2f}s "
+        f"({native.lib_path().parent.name})")
+    for cls, batch in batches.items():
+        name = kernel_of[cls]
+        P = len(batch.pod_valid)
+        n_max = max(256, P // 4)  # the backend's native and unfused table
+        args = batch.pack_args()
+        gpu = device_args(batch, dev)
+        unfused = (pack_kernel.pack_first_fit if name == "pack_first_fit"
+                   else pack_kernel_v2.pack_unfused_v2)
+        ref = unfused(*gpu, n_max=n_max)
+        torch.cuda.synchronize()
+        worst = compare(ref, host_result(native.pack_native(*args, n_max=n_max)))
+        nat_ms, nat_min = host_ms(lambda: native.pack_native(*args, n_max=n_max), 5)
+        nat512_ms, nat512_min = host_ms(lambda: native.pack_native(*args, n_max=512), 5)
+        if name == "pack_first_fit":
+            k_ms = kernel_ms(gpu, n_max, 5, warmup=1)
+        else:
+            inputs = pack_kernel_v2.v2_args(*gpu)
+            F, R = batch.frontiers.shape[1], batch.frontiers.shape[2]
+            k_ms = kernel_ms(inputs, n_max, 5, pack_kernel_v2.pack_first_fit_v2, 1, F=F, R=R,
+                             front_s=pack_kernel_v2.signature_major(inputs[2]))
+
+        def unfused_call():
+            unfused(*gpu, n_max=n_max)
+            torch.cuda.synchronize()
+
+        unf_ms, unf_min = host_ms(unfused_call, 3)
+        log(f"[route] (a) {cls} P={P} n_max={n_max}: native == {name} bit for bit "
+            f"(max |diff| {worst}), {int(ref.n_nodes)} nodes; native {nat_ms:.4f} ms "
+            f"(min {nat_min:.4f}) at n_max={n_max}, {nat512_ms:.4f} ms (min {nat512_min:.4f}) "
+            f"at n_max=512, host clock, mean of 5; {name} {k_ms:.4f} ms at n_max={n_max} "
+            f"(CUDA events, mean of 5); the unfused caller whole {unf_ms:.4f} ms "
+            f"(min {unf_min:.4f}; host clock after a synchronize, mean of 3); card {card}")
+        out[name].update(native_ms=nat_ms, native_ms_n_max=n_max, native_ms_512=nat512_ms,
+                         unfused_ms=unf_ms, ms_at_native_n_max=k_ms)
+
+    # -- (b) the unfused v1 route: KARPENTER_PACKER=pallas -----------------
+    head_pods = classes["headline"]["pods"]
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    with mock.patch.dict(os.environ, {"KARPENTER_PACKER": "pallas"}):
+        pack_kernel.launches = 0
+        for r in range(3):
+            before = pack_kernel.launches
+            prof, wall = timed(sched, head_pods, "headline")
+            if (pack_kernel.launches != before + 1 or prof["packer_backend"] != "pack_first_fit"
+                    or prof["pack_route"] != "unfused"):
+                raise AssertionError(f"route (b) round {r}: {pack_kernel.launches - before} "
+                                     f"launches, {prof['packer_backend']} {prof['pack_route']}")
+            log(f"[route] (b) pallas headline round {r}: {wall * 1e3:.3f} ms, "
+                f"{prof['packer_backend']} via {prof['pack_route']}, plan == fused == cpu, "
+                f"dispatches={prof['pack_dispatches']}, {stage_line(prof)}")
+        out["pack_first_fit"]["launches_unfused"] = pack_kernel.launches
+
+    # -- (d) ids past int16 through pack_best on the card -------------------
+    for rung, (S, F) in (("pack_first_fit", (12, 4)), ("pack_first_fit_v2", (300, 8))):
+        args = synthetic_args(4096, S, F, 3, 16, 23, 6000, dev, host_base=32_000)
+        host_hi = int(args[3].max())
+        served, res = pack_kernel.pack_best(*args, n_max=1024)
+        torch.cuda.synchronize()
+        if served != rung or host_hi <= 32_767:
+            raise AssertionError(f"route (d): {served} served (want {rung}), hostname ids to {host_hi}")
+        worst = compare(pack_reference(*(a.cpu() for a in args), n_max=1024), res)
+        log(f"[route] (d) pack_best P=4096 S={S} F={F} hostname ids to {host_hi}: {served}, "
+            f"bit-exact with the plain version (max |diff| {worst}), {int(res.n_nodes)} nodes")
+
+    # -- (e) auto on the card: the device path, no router -----------------
+    # the router weighs native only for a device="cpu" scheduler; a fresh
+    # one must stay empty however many card rounds run
+    router.reset_default()
+    shared = router.default_router()
+    for cls in ("headline", "team mix"):
+        name = kernel_of[cls]
+        module = module_of[name]
+        module.launches, native.calls = 0, 0
+        sched = Scheduler(Cluster(), rng=random.Random(1))
+        fetch = []
+        for r in range(3):
+            before = module.launches
+            prof, wall = timed(sched, classes[cls]["pods"], cls)
+            if (module.launches != before + 1 or prof["packer_backend"] != name
+                    or prof["pack_route"] != "fused"):
+                raise AssertionError(f"route (e) {cls} round {r}: {module.launches - before} "
+                                     f"launches, {prof['packer_backend']} via {prof['pack_route']}")
+            fetch.append(prof["pack_fetch_s"] * 1e3)
+            log(f"[route] (e) {cls} round {r} (auto): {wall * 1e3:.3f} ms, {name} via fused, "
+                f"plan == cpu, {stage_line(prof)}")
+        if shared.report() or native.calls or sched.torch._probe_thread is not None:
+            raise AssertionError(f"route (e) {cls}: the card consulted the router "
+                                 f"({shared.report()}, {native.calls} native calls)")
+        nat = out[name]["native_ms"]
+        log(f"[route] (e) {cls}: 3 rounds under auto, {name} launches {module.launches}, native "
+            f"calls 0, router empty; pack_fetch_s {min(fetch):.4f}-{max(fetch):.4f} ms against "
+            f"native {nat:.4f} ms from (a) ({min(fetch) / nat:.2f}-{max(fetch) / nat:.2f}x); "
+            f"card {card}")
+        out[name].update(launches_route=module.launches, native_calls=native.calls)
+
+    # -- (f) the resident path with the native packer forced ----------------
+    # phase 8 holds the memos with the device typemask; here native (no
+    # typemask) must hit them too
+    sched = Scheduler(Cluster(), rng=random.Random(1), solver_delta=True)
+    with mock.patch.dict(os.environ, {"KARPENTER_PACKER": "native"}):
+        for r in range(4):
+            prof, wall = timed(sched, head_pods, "headline")
+            memo = sched.torch._dec_memo
+            hit = "decode_delta_s" in prof and "validate_delta_s" in prof
+            if (prof["packer_backend"] != "native" or memo is None or memo[8] is not None
+                    or hit != (r > 0)):
+                raise AssertionError(f"route (f) round {r}: {prof['packer_backend']}, "
+                                     f"memo hit {hit}, {sorted(prof)}")
+            log(f"[route] (f) resident headline round {r} (native forced): {wall * 1e3:.3f} ms, "
+                f"memos {'hit' if hit else 'filled'} with typemask None, {stage_line(prof)}")
+
+    # -- (c) the unfused v2 route: a failed fused shape ---------------------
+    team = batches["team mix"]
+    shape = backend.TorchScheduler._fused_shape(team, backend.N_MAX_FIRST)
+    with backend._fused_failed_lock:
+        backend._fused_failed_shapes.add(shape)
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    pack_kernel_v2.launches = 0
+    prof, wall = timed(sched, classes["team mix"]["pods"], "team mix")
+    launched = pack_kernel_v2.launches
+    if (launched != 1 or prof["packer_backend"] != "pack_first_fit_v2"
+            or prof["pack_route"] != "unfused"):
+        raise AssertionError(f"route (c): {launched} launches, {prof['packer_backend']} "
+                             f"via {prof['pack_route']}")
+    log(f"[route] (c) team mix with fused shape {shape} failed: {wall * 1e3:.3f} ms, "
+        f"{prof['packer_backend']} via {prof['pack_route']}, 1 launch, plan == fused == cpu, "
+        f"{stage_line(prof)}")
+    out["pack_first_fit_v2"]["launches_unfused"] = launched
+    served, res = pack_kernel.pack_best(*device_args(team, dev), n_max=512)
+    if served != "pack_first_fit_v2":
+        raise AssertionError(f"route (c): pack_best served {served}")
+    worst = compare(classes["team mix"]["plain_512"], res)
+    log(f"[route] (c) pack_best on the team mix's pack_args() at n_max=512: {served}, "
+        f"bit-exact with the plain version (max |diff| {worst})")
+    with backend._fused_failed_lock:
+        fused_memo = set(backend._fused_failed_shapes)
+    with pack_kernel._failed_shapes_lock:
+        ladder_memo = set(pack_kernel._failed_shapes)
+    if fused_memo != {shape} or ladder_memo:
+        raise AssertionError(f"route: failed-shape memos {fused_memo}, {ladder_memo}")
+    log(f"[route] failed-shape memos: fused {fused_memo}, ladder {ladder_memo}")
+    return out
+
+
+
+
 def main() -> int:
     import torch
 
@@ -867,6 +1133,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # every phase runs the default packer unless it says otherwise: on the
+    # card that is the device path, routed by shape
+    os.environ.pop("KARPENTER_PACKER", None)
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -1020,17 +1289,23 @@ def main() -> int:
     log(f"[retry] 600 one-per-node pods: {len(retry_nodes)} nodes, dispatches=2, "
         f"cuda == cpu")
 
-    v2 = diverse_phases(dev, card)
+    v2, team = diverse_phases(dev, card)
     resident = resident_phase(dev, card)
+    route = route_phase(dev, card, {
+        "headline": {"pods": pods, "cpu_plan": plan_of(cpu_nodes, pods)},
+        "team mix": team,
+    })
 
-    # -- 9. kernels -------------------------------------------------------
+    # -- 10. kernels ------------------------------------------------------
     kernels = [{
         "name": "pack_first_fit",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": main_launches + resident["pack_first_fit"],
-        "launches_by_path": {"main": main_launches, "resident": resident["pack_first_fit"]},
+        "launches_by_path": {"main": main_launches, "resident": resident["pack_first_fit"],
+                             "route": route["pack_first_fit"]["launches_route"]},
+        **{k: v for k, v in route["pack_first_fit"].items() if k != "launches_route"},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -1046,7 +1321,9 @@ def main() -> int:
         "replaces": V2_REPLACES,
         **v2,
         "launches": v2["launches"] + resident["pack_first_fit_v2"],
-        "launches_by_path": {"diverse": v2["launches"], "resident": resident["pack_first_fit_v2"]},
+        "launches_by_path": {"diverse": v2["launches"], "resident": resident["pack_first_fit_v2"],
+                             "route": route["pack_first_fit_v2"]["launches_route"]},
+        **{k: v for k, v in route["pack_first_fit_v2"].items() if k != "launches_route"},
         "library_ms": None,
         "parity": "bit-exact",
     }]

@@ -51,13 +51,10 @@ def _v2_args(pack_args) -> tuple:
     """``pack_first_fit_v2``'s stacked inputs from the stacked
     ``pack_args()`` tensors: each problem's per-core tables from
     ``_precompute`` on the host, its fresh-node fits on the device."""
-    per_problem = []
-    for b in range(pack_args[0].shape[0]):
-        args = [a[b] for a in pack_args]
-        tables = pack_kernel_v2._precompute(args[7].cpu().numpy(), args[8].cpu().numpy())[:3]
-        per_problem.append(pack_kernel_v2.kernel_inputs(
-            *args[:7], *args[8:], *(torch.tensor(t, device=args[0].device) for t in tables)
-        ))
+    per_problem = [
+        pack_kernel_v2.v2_args(*(a[b] for a in pack_args))
+        for b in range(pack_args[0].shape[0])
+    ]
     return tuple(torch.stack(col) for col in zip(*per_problem))
 
 

@@ -41,7 +41,8 @@ class Scheduler:
         """Per-stage timings of the most recent ``solver: tpu`` solve (sort /
         inject / encode / pack_fetch / decode / validate seconds, each stage
         served from resident state under its ``*_delta_s`` key;
-        pack_dispatches, packer_backend)."""
+        pack_dispatches; packer_backend, what served; pack_route, which
+        caller ran it: fused, unfused or the router's native)."""
         return dict(self.torch.last_profile)
 
     def solve(

@@ -5,21 +5,51 @@ dense arrays, run the packing kernel, decode virtual nodes, validate them.
 Stage order and profile keys follow the reference package's ``solver: tpu``
 backend:
 
-    sort → inject → encode → pack (begin) → fetch → split_fused → decode → validate
+    sort → inject → encode → pack (begin) → fetch → split → decode → validate
 
-The pack runs through one fused dispatch (one compact upload, one kernel,
-one flat buffer back), routed by the batch's shapes: ``fused.fused_solve``
-over ``pack_first_fit`` (route ``v1``), or, for constraint-diverse batches
+**Routing** (``_pack``). ``KARPENTER_PACKER`` is read once per solve. On
+the card, ``auto`` (the default) and ``fused`` take the device path: the
+port keeps a CUDA scheduler's pack on the card. On a ``device="cpu"``
+scheduler, where both contenders run on the host, ``auto`` routes by
+MEASURED cost between the device path (the plain versions) and the
+in-process native C++ packer (``native.py``), through the process-shared
+``router.default_router()``: every candidate is tried once per shape class
+(``_route_key``), then each solve takes the lower EMA of end-to-end pack
+time. A backend that raises records ``router.FAILURE_PENALTY_S``; a failed
+native pack is served by the device path. Every ``probe_every``-th solve of
+a class re-measures the losing backend on a daemon thread
+(``_shadow_probe``). ``pallas``, ``scan`` and ``native`` force a rung of the
+unfused ladder (``pack_unfused``) on either device.
+
+**The device path** (``_pack_device``). The fused route is one dispatch
+(one compact upload, one kernel, one flat buffer back): ``fused.fused_solve``
+over ``pack_first_fit`` (route ``v1``) or, for constraint-diverse batches
 whose per-core join tables fit the card's budget, ``fused.fused_solve_v2``
 over ``pack_first_fit_v2`` (route ``v2``; ``pack_kernel_v2.fused_route``).
-The node table starts at ``min(P, 512)`` slots and, when it saturates with
-pods left unscheduled, the solve retries once at ``P`` slots.
+It starts at ``min(P, 512)`` slots. Batches the fused route cannot take —
+ids past the compact int16 table, a shape whose fused solve failed (the
+failed-fused memo), or ``KARPENTER_PACKER`` not ``auto``/``fused`` — take
+the unfused ladder (``pack_unfused`` over the ``pack_args()`` tensors) at
+``max(256, P // 4)`` slots. A saturated node table retries once
+at ``P`` slots, the route re-derived. Begin launches the work, queues a
+``non_blocking`` copy of the result buffer into pinned host memory and
+records a CUDA event; finish waits on that event. The profile names what
+served (``packer_backend``: ``pack_first_fit``, ``pack_first_fit_v2``, on
+the CPU their plain versions ``pack_reference`` / ``pack_v2_reference``, or
+``native``) and which caller ran it (``pack_route``: ``fused``,
+``unfused``, or ``native`` for the router's native backend). On CUDA
+tensors no path ends in a plain version or in native unless
+``KARPENTER_PACKER`` asks for it: a kernel failure that the ladder cannot
+route around raises, as do ``SignatureOverflow`` and a plan that fails
+validation.
 
-Begin launches the work, queues a ``non_blocking`` copy of the result
-buffer into pinned host memory and records a CUDA event; finish waits on
-that event. A constraint diversity past the signature closure cap
-(``SignatureOverflow``), a kernel failure and a plan that fails validation
-all raise; nothing falls back to another kernel or to the CPU.
+**Shadow probes** (``device="cpu"`` schedulers only). A probe runs on its
+own daemon thread while the next solve runs. It may touch only state that is safe to share: the batch (read
+only), ``DeviceInvariants`` and the router (both locked), the two
+failed-shape memos (locked) and the kernels' launch counters (unlocked: a
+caller that reads them joins ``_probe_thread`` first). It never touches
+``PodResidency`` (it uploads its own pod table), the decode and validation
+memos, or ``last_profile`` (its profile is a throwaway dict).
 
 The resident delta path (``solver_delta``, env ``KARPENTER_SOLVER_DELTA``)
 keeps each stage's work across rounds, and a stage served from resident
@@ -35,7 +65,9 @@ state records its ``*_delta_s`` profile key in place of the full one:
 - upload: ``fused.PodResidency`` reuses or column-patches the device pod
   table;
 - decode: a bit-identical result for the same resident batch rebuilds the
-  nodes from the previous decode's rows (``decode_delta_s``);
+  nodes from the previous decode's rows (``decode_delta_s``); the unfused
+  and native routes bring no device typemask (``None``), and the memo
+  holds the two cases apart;
 - validate: skipped after such a decode when the memoized plan passed
   (``validate_delta_s``).
 """
@@ -45,8 +77,9 @@ from __future__ import annotations
 import logging
 import os
 import random
+import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,23 +96,65 @@ from karpenter_tpu_torch.scheduling.ffd import (
 )
 from karpenter_tpu_torch.scheduling.topology import Topology
 from karpenter_tpu_torch.solver import encode as enc
-from karpenter_tpu_torch.solver import fused
-from karpenter_tpu_torch.solver import pack_kernel_v2
+from karpenter_tpu_torch.solver import fused, kernel, native, pack_kernel, pack_kernel_v2
+from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
 from karpenter_tpu_torch.solver.delta import ResidentEncoder
+from karpenter_tpu_torch.solver.kernel import PackResult
+from karpenter_tpu_torch.solver.router import default_router
 from karpenter_tpu_torch.solver.signature import SignatureOverflow
 from karpenter_tpu_torch.utils import resources as res
 from karpenter_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("karpenter.solver")
 
-# first node-table size; a saturated table retries at P slots
+# first node-table size of the fused route; a saturated table retries at
+# P slots (the unfused ladder and native start at max(256, P // 4))
 N_MAX_FIRST = 512
+
+# (P, S, F, n_max) whose fused dispatch or fetch failed — those shapes take
+# the unfused ladder from then on (pack_kernel._failed_shapes is the
+# ladder's own memo). Written from solve threads and a cpu scheduler's
+# shadow-probe thread while other solves iterate it: snapshot and mutate
+# under the lock.
+_fused_failed_lock = threading.Lock()
+_fused_failed_shapes: set = set()  # guarded-by: _fused_failed_lock
 
 # kernel name per route: (on the card, plain version on the CPU)
 KERNELS = {
     "v1": ("pack_first_fit", "pack_reference"),
     "v2": ("pack_first_fit_v2", "pack_v2_reference"),
 }
+
+
+def pack_unfused(*args, n_max: int, packer: str = "auto") -> Tuple[str, PackResult]:
+    """The reference's ``pack_best`` rungs over one problem's ``pack_args()``
+    tensors → ``(what served, PackResult)``. ``packer`` (the solve's
+    ``KARPENTER_PACKER``) forces a rung: ``native`` blocks for the native
+    build and packs on the host (its result is host numpy arrays); ``scan``
+    runs the plain version on the tensors' device (a force, never a
+    fallback); ``pallas`` runs ``pack_first_fit`` and raises on CPU tensors,
+    as the reference raises without a TPU. Otherwise CUDA tensors take the
+    card's kernel ladder (``pack_kernel.pack_best``), which never ends off
+    the card, and CPU tensors, as the reference without a TPU, the native
+    packer when it is built (its failure falls to the plain version), else
+    the plain version."""
+    if packer == "native":
+        native.native_available(wait=180)  # forced: block for the g++ build
+        return "native", native.pack_native(*args, n_max=n_max)
+    if packer == "scan":
+        return "pack_reference", kernel.pack_reference(*args, n_max=n_max)
+    on_card = args[6].device.type == "cuda"
+    if packer == "pallas":
+        # forced means forced: no silent fallback when the card is absent
+        if not on_card:
+            raise RuntimeError("KARPENTER_PACKER=pallas but the tensors are not on a CUDA device")
+        return "pack_first_fit", pack_kernel.pack_first_fit(*args, n_max=n_max)
+    if not on_card and native.native_available():
+        try:
+            return "native", native.pack_native(*args, n_max=n_max)
+        except Exception:
+            logger.exception("native packer failed; plain version")
+    return pack_kernel.pack_best(*args, n_max=n_max)
 
 
 def _env_bool(key: str, default: bool = False) -> bool:
@@ -181,6 +256,12 @@ class TorchScheduler:
         self._validate_memo: Optional[tuple] = None
         # per-stage timings of the most recent solve
         self.last_profile: Dict[str, float] = {}
+        # measured-cost routing of a device="cpu" scheduler (router.py),
+        # shared by every scheduler of the process; at most one shadow
+        # probe in flight per scheduler
+        self.router = default_router()
+        self._probe_lock = threading.Lock()
+        self._probe_thread: Optional[threading.Thread] = None  # guarded-by: self._probe_lock
 
     def solve(
         self,
@@ -249,7 +330,7 @@ class TorchScheduler:
         )
 
         t0 = time.perf_counter()
-        result, typemask = self._pack(batch, prof)
+        result, typemask = self._pack(batch, prof)()
         prof["pack_fetch_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -321,44 +402,269 @@ class TorchScheduler:
                 plan=plan,
             )
 
-    def _pack(self, batch: enc.EncodedBatch, prof: Dict) -> tuple:
-        """Small table first, one retry at P slots on saturation. Returns
-        (PackResult, typemask) over host numpy arrays."""
-        if not fused.ids_fit(batch):
-            raise ValueError(
-                "batch ids exceed the compact int16 pod table "
-                f"({len(batch.hostnames)} hostnames, {len(batch.cores)} cores)"
-            )
+    def _pack(self, batch: enc.EncodedBatch, prof: Dict):
+        """BEGIN the packing solve and return ``finish()`` → ``(PackResult,
+        typemask-or-None)`` over host numpy arrays; only ``finish`` blocks.
+        ``KARPENTER_PACKER`` is read here, once per solve. On the card
+        ``auto`` is the device path. On a ``device="cpu"`` scheduler it
+        routes by MEASURED cost: the device path and the native C++ packer
+        are both first-class contenders, and the per-shape EMA of end-to-end
+        pack time decides (router.py)."""
+        packer = os.environ.get("KARPENTER_PACKER", "auto").lower()
+        if packer == "auto" and self.device.type == "cpu":
+            candidates = self._pack_candidates()
+            if len(candidates) > 1:
+                key = self._route_key(batch)
+                backend = self.router.choose(key, candidates)
+                t0 = time.perf_counter()
+                if backend == "native":
+                    # synchronous host compute: nothing in flight to
+                    # overlap, so it runs wholly in the finish phase
+                    def finish_native():
+                        try:
+                            out = self._pack_native(batch, prof)
+                        except Exception:
+                            # a failed pack records a PENALTY, not its tiny
+                            # elapsed time, or a fast-failing backend would
+                            # win the EMA; probes rehabilitate it
+                            self.router.record_failure(key, backend)
+                            # containment: a broken native library is served
+                            # by the device path, never crashes the solve
+                            logger.exception(
+                                "routed native pack failed; device path serves"
+                            )
+                            out = self._pack_device(batch, prof, packer)()
+                        else:
+                            self.router.record(key, backend, time.perf_counter() - t0)
+                        # packer_backend names the path that actually served
+                        if self.router.should_probe(key):
+                            self._shadow_probe(batch, key, candidates, backend)
+                        return out
+
+                    return finish_native
+                try:
+                    device_finish = self._pack_device(batch, prof, packer)
+                except Exception:
+                    self.router.record_failure(key, backend)
+                    raise
+
+                def finish_device():
+                    try:
+                        out = device_finish()
+                    except Exception:
+                        self.router.record_failure(key, backend)
+                        raise
+                    self.router.record(key, backend, time.perf_counter() - t0)
+                    if self.router.should_probe(key):
+                        self._shadow_probe(batch, key, candidates, backend)
+                    return out
+
+                return finish_device
+        return self._pack_device(batch, prof, packer)
+
+    def _shadow_probe(self, batch, key, candidates, winner: str) -> None:
+        """Re-measure the losing backend(s) OFF the critical path — on a
+        daemon thread, at most one in flight — so drift (host load) can
+        re-win the route without production solves ever paying a loser's
+        latency. A losing probe is slow precisely when it lost, so it does
+        not run inline. Only a ``device="cpu"`` scheduler routes, so only
+        it probes. What a probe may touch is in the module docstring."""
+        losers = [c for c in candidates if c != winner]
+        if not losers:
+            return
+
+        def probe():
+            nonlocal batch
+            try:
+                for loser in losers:
+                    t0 = time.perf_counter()
+                    try:
+                        if loser == "native":
+                            self._pack_native(batch, prof={})
+                        else:
+                            self._pack_device(batch, {}, "auto", probe=True)()
+                    except Exception:
+                        logger.debug("%s shadow probe failed", loser, exc_info=True)
+                    else:
+                        self.router.record(key, loser, time.perf_counter() - t0)
+            finally:
+                # drop the closure's cell: _probe_thread keeps the finished
+                # Thread (and this closure) alive until the next probe, which
+                # for a rare shape class would pin the multi-MB EncodedBatch
+                # indefinitely
+                batch = None
+
+        with self._probe_lock:
+            if self._probe_thread is not None and self._probe_thread.is_alive():
+                return  # previous probe still running; next cadence hit retries
+            t = threading.Thread(target=probe, name="karpenter-router-probe", daemon=True)
+            self._probe_thread = t
+            # started under the lock: is_alive() is False for an assigned-
+            # but-unstarted thread, so a concurrent finisher checking the
+            # guard before this start() would spawn a second probe
+            t.start()
+
+    @staticmethod
+    def _route_key(batch: enc.EncodedBatch) -> tuple:
+        """Shape CLASS for the router's cost memos: P is already bucketed
+        by encode's padding, but S (signature count) and F (frontier width)
+        are exact per-batch values — a churning cluster would mint a fresh
+        key per round, re-paying cold start on production solves and
+        growing the process-shared EMA tables without bound. Pow2 bucketing
+        keeps the landscape to a few dozen classes whose cost is smooth
+        within each.
+
+        The last element is CONSTRAINT DENSITY: whether affinity/topology
+        decisions pinned any pod to a hostname. Hostname-dense solves cost
+        the two backends differently from hostname-free batches of the same
+        (P, S, F), so they hold their own EMAs."""
+        S, F = batch.frontiers.shape[0], batch.frontiers.shape[1]
+        return (
+            len(batch.pod_valid),
+            1 << max(S - 1, 0).bit_length(),
+            1 << max(F - 1, 0).bit_length(),
+            int(bool((batch.pod_host >= 0).any())),
+        )
+
+    @staticmethod
+    def _pack_candidates() -> List[str]:
+        """Backends that can serve right now, in cold-start preference
+        order: the device path first (its kernel build and first launch
+        then land in the first solve), then the native packer (non-blocking
+        — while its g++ build is still running it simply is not a
+        candidate)."""
+        candidates = ["device"]
+        if native.native_available():
+            candidates.append("native")
+        return candidates
+
+    def _pack_native(self, batch: enc.EncodedBatch, prof: Dict):
+        """The native C++ packer as a routed backend, with the same
+        small-table-then-retry contract as the device path. A shadow probe
+        passes a throwaway ``prof``."""
         p = len(batch.pod_valid)
-        n_max = min(p, N_MAX_FIRST)
+        n_max = max(256, p // 4)
+        prof["packer_backend"] = "native"
+        prof["pack_route"] = "native"
         prof["pack_dispatches"] = 0
+        args = batch.pack_args()
         while True:
-            route = self._fused_route(batch)  # re-derived for the retry
             prof["pack_dispatches"] += 1
-            prof["packer_backend"] = kernel_name(route, self.device)
-            finish = self._pack_begin(batch, n_max, route)
-            result, typemask = finish()
+            result = native.pack_native(*args, n_max=n_max)
             saturated = int(result.n_nodes) == n_max and bool(
                 (np.asarray(result.assignment)[: batch.n_pods] < 0).any()
             )
             if not saturated or n_max >= p:
-                return result, typemask
+                return result, None
             n_max = p
 
+    def _pack_device(
+        self, batch: enc.EncodedBatch, prof: Dict, packer: str, probe: bool = False
+    ):
+        """BEGIN the device path — the fused single dispatch when the batch
+        and ``packer`` take it, else the unfused ladder — and return
+        ``finish()``. The begin phase launches the first attempt; only
+        ``finish`` blocks on the fetch.
+
+        The node table starts small (per-pod kernel cost grows with the
+        table, and real packings open far fewer nodes than pods) and
+        retries at full P on saturation (table full with unscheduled pods).
+        A fused dispatch or fetch failure puts the shape in the failed-fused
+        memo and takes the unfused ladder. ``probe`` (a shadow probe) keeps
+        the call off ``PodResidency``."""
+        p = len(batch.pod_valid)
+        route0 = self._fused_route(batch, packer)
+        n_max0 = min(p, N_MAX_FIRST) if route0 else max(256, p // 4)
+        prof["pack_dispatches"] = 0
+        args_box: list = [None]
+
+        def unfused(n_max: int):
+            if args_box[0] is None:
+                args_box[0] = self._device_args(batch)
+            return self._pack_local_begin(args_box[0], p, n_max, prof, packer)
+
+        def dispatch(n_max: int, route: Optional[str]):
+            """One dispatch → ``(fetch, route-or-None)``. A fused DISPATCH
+            failure blacklists the shape and falls straight to the unfused
+            ladder."""
+            prof["pack_dispatches"] += 1
+            if route:
+                try:
+                    fetch = self._pack_fused_begin(batch, n_max, route, prof, probe)
+                except Exception:
+                    self._fused_blacklist(batch, n_max, route)
+                else:
+                    return fetch, route
+            return unfused(n_max), None
+
+        fetch0, taken0 = dispatch(n_max0, route0)
+
+        def finish():
+            n_max, fetch, taken = n_max0, fetch0, taken0
+            while True:
+                try:
+                    result, typemask = fetch()
+                except Exception:
+                    if taken is None:
+                        raise
+                    # one pathological shape must not fail the batch or
+                    # move other shapes: record it and take the unfused
+                    # ladder (which routes around its own failed kernels)
+                    self._fused_blacklist(batch, n_max, taken)
+                    prof["pack_dispatches"] += 1
+                    fetch, taken = unfused(n_max), None
+                    continue
+                saturated = int(result.n_nodes) == n_max and bool(
+                    (np.asarray(result.assignment)[: batch.n_pods] < 0).any()
+                )
+                if not saturated or n_max >= p:
+                    return result, typemask
+                n_max = p
+                # re-derive the route for the full-table retry
+                fetch, taken = dispatch(n_max, self._fused_route(batch, packer))
+
+        return finish
+
+    def _fused_blacklist(self, batch: enc.EncodedBatch, n_max: int, route: str) -> None:
+        shape = self._fused_shape(batch, n_max)
+        logger.exception("fused %s solve failed for shape %s; unfused ladder", route, shape)
+        with _fused_failed_lock:
+            _fused_failed_shapes.add(shape)
+
     @staticmethod
-    def _fused_route(batch: enc.EncodedBatch) -> str:
-        """``"v1"`` or ``"v2"`` for this batch. The reference's gate also
+    def _fused_shape(batch: enc.EncodedBatch, n_max: int) -> tuple:
+        return (
+            len(batch.pod_valid), batch.frontiers.shape[0],
+            batch.frontiers.shape[1], n_max,
+        )
+
+    @staticmethod
+    def _fused_route(batch: enc.EncodedBatch, packer: str = "auto") -> Optional[str]:
+        """``"v1"``, ``"v2"`` or None (the unfused ladder) for this batch.
+        None unless ``packer`` is ``auto`` or ``fused``, when a
+        fused solve of this (P, S, F) already failed, or when the interned
+        ids do not fit the compact int16 upload. Otherwise the card's shape
+        rule, ``pack_kernel_v2.fused_route``: the reference's gate also
         weighs the node-table size (its v2 kernel keeps a one-hot
         ``[S, n_max]`` state in VMEM); the card's weighs only the per-core
         tables, so both table sizes of one batch take the same route."""
+        if packer not in ("auto", "fused"):
+            return None
+        P = len(batch.pod_valid)
         S, F, R = batch.frontiers.shape
+        with _fused_failed_lock:
+            failed = any(s[:3] == (P, S, F) for s in _fused_failed_shapes)
+        if failed or not fused.ids_fit(batch):
+            return None
         return pack_kernel_v2.fused_route(S, F, R, batch.join_table.shape[1])
 
-    def _pack_begin(self, batch: enc.EncodedBatch, n_max: int, route: str):
-        """Launch one fused solve on ``route`` and return ``finish()``,
-        which blocks until its buffer is on the host and splits it."""
+    def _pack_fused_begin(
+        self, batch: enc.EncodedBatch, n_max: int, route: str, prof: Dict, probe: bool = False
+    ):
+        """Launch one fused solve on ``route`` and return ``fetch()``, which
+        blocks until its buffer is on the host and splits it."""
         dev = self.device
-        if self._pod_residency is not None:
+        if self._pod_residency is not None and not probe:
             # a no-churn round reuses the resident upload by batch identity
             # (the saturation retry's second call too), a small-churn round
             # patches it in place on the device
@@ -377,23 +683,55 @@ class TorchScheduler:
             )
         else:
             buf = fused.fused_solve(*pod_side, *self._invariants.get(batch), n_max=n_max)
-        if dev.type == "cuda":
-            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
-        else:
-            host, done = buf, None
+        prof["packer_backend"] = kernel_name(route, dev)
+        prof["pack_route"] = "fused"
+        wait = self._to_host(buf)
 
-        def finish():
-            if done is not None:
-                done.synchronize()
+        def fetch():
             return fused.split_fused(
-                host.numpy(), len(batch.pod_valid), n_max,
+                wait(), len(batch.pod_valid), n_max,
                 batch.usable.shape[1], batch.usable.shape[0],
             )
 
-        return finish
+        return fetch
+
+    def _device_args(self, batch: enc.EncodedBatch) -> tuple:
+        """``batch.pack_args()`` as tensors on the scheduler's device."""
+        return tuple(
+            torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)
+            for a, (_, dtype) in zip(batch.pack_args(), PACK_ARG_DTYPES)
+        )
+
+    def _pack_local_begin(self, args, p: int, n_max: int, prof: Dict, packer: str):
+        """Launch the unfused ladder (``pack_unfused``) and return
+        ``fetch()`` → ``(PackResult, None)``: the result flattened into one
+        buffer on the device, one transfer (nothing to transfer for a native
+        result, already host arrays)."""
+        served, result = pack_unfused(*args, n_max=n_max, packer=packer)
+        prof["packer_backend"] = served
+        prof["pack_route"] = "unfused"
+        if served == "native":
+            return lambda: (result, None)
+        wait = self._to_host(kernel.fuse_result(result))
+        R = args[6].shape[1]
+        return lambda: (kernel.split_result(wait(), p, n_max, R), None)
+
+    def _to_host(self, buf: torch.Tensor):
+        """Queue ``buf``'s copy to the host and return ``wait()`` → numpy:
+        on the card a ``non_blocking`` copy into pinned memory behind a
+        CUDA event, which ``wait`` synchronizes on."""
+        if self.device.type != "cuda":
+            return buf.numpy
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+
+        def wait():
+            done.synchronize()
+            return host.numpy()
+
+        return wait
 
     @staticmethod
     def _validate_pack(nodes, pods, daemon) -> Optional[str]:
@@ -430,7 +768,7 @@ class TorchScheduler:
         self,
         batch: enc.EncodedBatch,
         result,
-        typemask,  # [N, T] bool from the fused solve
+        typemask,  # [N, T] bool from the fused solve, or None
         constraints: Constraints,
         instance_types: Sequence[InstanceType],
     ) -> List[VirtualNode]:
@@ -488,7 +826,16 @@ class TorchScheduler:
                 self._scales_memo.clear()
             self._scales_memo[id(axis_names)] = (axis_names, scales)
         live_idx = np.asarray(live, np.int64)
-        ok_all = typemask[live_idx]
+        # surviving types for ALL nodes: the fused solve computed the
+        # [N, T] mask on the device; otherwise one batched host comparison
+        # (signature-compatible and fits the node total)
+        if typemask is not None:
+            ok_all = typemask[live_idx]
+        else:
+            totals = np.asarray(node_req)[live_idx]  # [L, R]
+            fit_all = np.all(batch.usable[None, :, :] >= totals[:, None, :], axis=-1)  # [L, T]
+            mask_all = batch.type_mask_matrix()[np.asarray(node_sig)[live_idx]]  # [L, T]
+            ok_all = fit_all & mask_all
         types_arr = np.array(instance_types, dtype=object)
         # most nodes share identical surviving-type masks: build each
         # distinct list once and share it (VirtualNode.add REPLACES
@@ -550,7 +897,7 @@ class TorchScheduler:
                 np.asarray(node_host)[:n_nodes].copy(),
                 np.asarray(node_req)[:n_nodes].copy(),
                 n_nodes,
-                np.asarray(typemask).copy(),
+                None if typemask is None else np.asarray(typemask).copy(),
                 memo_rows,
             )
         return nodes
@@ -561,7 +908,8 @@ class TorchScheduler:
     ) -> Optional[List[VirtualNode]]:
         """The decode-side reuse rung: None unless every input the decoded
         nodes are a function of matches the memo — the resident batch by
-        identity, the raw result and typemask bit for bit, the catalog by
+        identity, the raw result and typemask bit for bit (a memo without a
+        typemask matches only a result without one), the catalog by
         element identity, and the constraints by content (the requirements
         object itself rides the resident plan cache, so identity holds in
         steady state). On a hit the nodes are rebuilt from the memoized
@@ -571,7 +919,7 @@ class TorchScheduler:
         if memo is None or memo[0] is not batch:
             return None
         (_, mits, mcon, mass, msig, mhost, mreq, mn, mmask, rows) = memo
-        if n_nodes != mn:
+        if n_nodes != mn or (typemask is None) != (mmask is None):
             return None
         if len(instance_types) != len(mits) or any(
             a is not b for a, b in zip(instance_types, mits)
@@ -590,7 +938,7 @@ class TorchScheduler:
             and np.array_equal(np.asarray(node_sig)[:n_nodes], msig)
             and np.array_equal(np.asarray(node_host)[:n_nodes], mhost)
             and np.array_equal(np.asarray(node_req)[:n_nodes], mreq)
-            and np.array_equal(np.asarray(typemask), mmask)
+            and (mmask is None or np.array_equal(np.asarray(typemask), mmask))
         ):
             return None
         nodes: List[VirtualNode] = []

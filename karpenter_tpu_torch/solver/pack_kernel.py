@@ -27,12 +27,19 @@ problems, one thread block each, in one launch. For CUDA tensors it
 launches the kernel or raises; for CPU tensors it runs the plain version
 ``kernel.pack_reference`` (per problem). It counts its launches in
 ``launches``.
+
+``pack_best`` is the card's unfused kernel ladder over one problem's
+``pack_args()`` tensors: ``pack_first_fit`` or the unfused v2 caller by
+shape, the other kernel when a launch raises (its shape memoized in
+``_failed_shapes``). Which rung a solve asks for (``KARPENTER_PACKER``) and
+the host packers are the backend's (``backend.pack_unfused``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -43,6 +50,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_reference
+
+logger = logging.getLogger("karpenter.solver")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
@@ -329,3 +338,67 @@ def pack_first_fit(*args, n_max: int, plan: Optional[LaunchPlan] = None) -> Pack
     check_launch("pack_first_fit", err)
     launches += 1
     return out
+
+
+BLOCK = 128  # the reference's lane block: its v1 rung takes P % BLOCK == 0
+
+# Shapes whose kernel launch raised: (P, n_max) for pack_first_fit and
+# ("v2", P, n_max) for pack_first_fit_v2. Only those shapes skip the
+# rung, so one pathological batch does not move any other shape off its
+# kernel. Solve threads and the router's shadow-probe thread write it
+# while other solves read it: read and write under the lock.
+_failed_shapes_lock = threading.Lock()
+_failed_shapes: set = set()  # guarded-by: _failed_shapes_lock
+
+
+def pack_best(*args, n_max: int) -> Tuple[str, PackResult]:
+    """The card's kernel ladder: ``kernel.pack_reference``'s contract over
+    one problem's ``pack_args()`` tensors → ``(kernel that served,
+    PackResult)``. On CUDA tensors: ``pack_first_fit`` when P % 128 == 0
+    and S·F ≤ 1024, else the unfused v2 caller when the v2 tables fit the
+    card's budget, else ``pack_first_fit`` (where the reference falls to
+    lax.scan). A kernel whose launch raises puts its shape in the failed
+    memo and the ladder moves to the other kernel; it never ends in the
+    plain version, and raises when no kernel served. On CPU tensors, the
+    plain version (``pack_reference``)."""
+    if args[6].device.type != "cuda":
+        return "pack_reference", pack_reference(*args, n_max=n_max)
+    return _kernel_ladder(*args, n_max=n_max)
+
+
+def _kernel_ladder(*args, n_max: int) -> Tuple[str, PackResult]:
+    """``pack_best``'s rungs for CUDA tensors: the two kernels in the
+    shape's order, each skipped once its shape failed; raises when neither
+    served."""
+    from karpenter_tpu_torch.solver import pack_kernel_v2
+
+    P, R = args[6].shape
+    S, F = args[8].shape[0], args[8].shape[1]
+    C = args[7].shape[1]
+    v2_fits = pack_kernel_v2.v2_tables_fit(S, F, R, C)
+    if P % BLOCK == 0 and S * F <= pack_kernel_v2.PALLAS_UNROLL_BUDGET:
+        order = ("v1", "v2") if v2_fits else ("v1",)
+    elif v2_fits:
+        order = ("v2", "v1")
+    else:
+        order = ("v1",)
+    rungs = {
+        "v1": ((P, n_max), "pack_first_fit", lambda: pack_first_fit(*args, n_max=n_max)),
+        "v2": (("v2", P, n_max), "pack_first_fit_v2",
+               lambda: pack_kernel_v2.pack_unfused_v2(*args, n_max=n_max)),
+    }
+    for rung in order:
+        shape, name, run = rungs[rung]
+        with _failed_shapes_lock:
+            if shape in _failed_shapes:
+                continue
+        try:
+            return name, run()
+        except Exception:
+            logger.exception("%s failed for shape %s; next kernel", name, shape)
+            with _failed_shapes_lock:
+                _failed_shapes.add(shape)
+    raise RuntimeError(
+        f"no kernel served P={P} S={S} F={F} n_max={n_max}: "
+        f"{' and '.join(rungs[r][1] for r in order)} failed for this shape"
+    )

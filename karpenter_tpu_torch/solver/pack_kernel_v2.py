@@ -22,6 +22,12 @@ in ``launches``.
 
 ``fused_route`` is the card's routing gate between the two kernels, a pure
 function of the tables' shapes.
+
+``pack_unfused_v2`` is the unfused caller (the reference's
+``pack_pallas_v2``): from one problem's ``pack_args()`` tensors it builds
+the tables on the host per call and the kernel's inputs (``v2_args``, which
+the multi-solve shares) and launches ``pack_first_fit_v2``;
+``pack_kernel.pack_best`` takes it for batches the fused route does not.
 """
 
 from __future__ import annotations
@@ -135,6 +141,32 @@ def kernel_inputs(
         open_fits.to(torch.int32).reshape(1, -1),
         daemon.reshape(-1, 1),
     )
+
+
+def v2_args(
+    pod_valid, pod_open_sig, pod_core, pod_host, pod_host_in_base, pod_open_host,
+    pod_req, join_table, frontiers, daemon,
+) -> tuple:
+    """``pack_first_fit_v2``'s seven inputs for one problem from its
+    ``pack_args()`` tensors: the per-core tables from ``_precompute`` on
+    the host (per call, nothing cached), the rest by ``kernel_inputs`` on
+    the tensors' device."""
+    dev = pod_req.device
+    tables = _precompute(join_table.cpu().numpy(), frontiers.cpu().numpy())[:3]
+    return kernel_inputs(
+        pod_valid, pod_open_sig, pod_core, pod_host, pod_host_in_base, pod_open_host,
+        pod_req, frontiers, daemon, *(torch.from_numpy(t).to(dev) for t in tables),
+    )
+
+
+def pack_unfused_v2(*args, n_max: int) -> PackResult:
+    """The unfused v2 caller (the reference's ``pack_pallas_v2``):
+    ``kernel.pack_reference``'s contract over one problem's ``pack_args()``
+    tensors. Builds the v2 inputs (``v2_args``) and runs
+    ``pack_first_fit_v2``, which on the card walks a signature-major copy of
+    the limits made for this call."""
+    F, R = args[8].shape[1], args[8].shape[2]
+    return pack_first_fit_v2(*v2_args(*args), n_max=n_max, F=F, R=R)
 
 
 _SPEC = (

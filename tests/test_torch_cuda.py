@@ -18,7 +18,9 @@ import torch
 from karpenter_tpu_torch.solver import carry, fused, pack_kernel, pack_kernel_v2
 from karpenter_tpu_torch.solver.backend import kernel_name
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_reference, pack_v2_reference
-from torch_parity import encode_scenario, fields, scenario, synth_fields, team_mix, with_v2_tables
+from torch_parity import (  # noqa: F401
+    encode_scenario, fields, fresh_router, scenario, synth_fields, team_mix, with_v2_tables,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,9 +82,13 @@ def test_wrapper_rejects_bad_dtype_on_card(cuda):
         ("teams", 2000, 64, 1, "pack_first_fit_v2"),
     ],
 )
-def test_scheduler_cuda_plan_matches_cpu(cuda, name, n_pods, n_types, dispatches, kernel):
+def test_scheduler_cuda_plan_matches_cpu(cuda, monkeypatch, name, n_pods, n_types, dispatches, kernel):
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+
+    # the default packer: the cpu solve is its router's cold start (the
+    # device path), and on the card auto is the device path
+    monkeypatch.delenv("KARPENTER_PACKER", raising=False)
 
     prov, catalog, pods = scenario("karpenter_tpu_torch", name, n_pods, 42, n_types)
     module = pack_kernel_v2 if kernel == "pack_first_fit_v2" else pack_kernel
@@ -371,7 +377,7 @@ def test_pod_residency_patches_in_place_on_card(cuda):
 
 
 @pytest.mark.parametrize("name,n_pods,n_types", [("diverse", 700, 50), ("teams", 2000, 64)])
-def test_resident_steady_state_on_card_matches_cpu(cuda, name, n_pods, n_types):
+def test_resident_steady_state_on_card_matches_cpu(cuda, monkeypatch, name, n_pods, n_types):
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.scheduling.scheduler import Scheduler
 
@@ -379,6 +385,12 @@ def test_resident_steady_state_on_card_matches_cpu(cuda, name, n_pods, n_types):
     index = {id(p): i for i, p in enumerate(pods)}
     plans, keys = {}, {}
     for device in ("cpu", "cuda"):
+        # three rounds: the cpu twin pins the device path (its router would
+        # send round 2 to native); the card runs the default
+        if device == "cpu":
+            monkeypatch.setenv("KARPENTER_PACKER", "fused")
+        else:
+            monkeypatch.delenv("KARPENTER_PACKER", raising=False)
         sched = Scheduler(Cluster(), rng=random.Random(1), device=device, solver_delta=True)
         plans[device], keys[device] = [], []
         for _ in range(3):
@@ -394,3 +406,122 @@ def test_resident_steady_state_on_card_matches_cpu(cuda, name, n_pods, n_types):
     assert plans["cpu"] == plans["cuda"]
     assert keys["cpu"] == keys["cuda"]
     assert "encode_delta_s" in keys["cuda"][2] and "sort_delta_s" in keys["cuda"][2]
+
+
+# -- the unfused ladder (pack_kernel.pack_best) on the card -----------------
+
+
+def _high_hosts(f, base=32_768):
+    """``f`` with every pinned hostname id moved past int16."""
+    f = dict(f)
+    for k in ("pod_host", "pod_open_host"):
+        f[k] = np.where(f[k] >= 0, f[k] + base, f[k]).astype(np.int32)
+    return f
+
+
+LADDER_CASES = {
+    # P % 128 == 0 and S·F <= 1024: the v1 rung
+    "v1": (lambda: synth_fields(P=1024, S=12, F=3, R=4, C=6, n_hosts=9, seed=5), "pack_first_fit"),
+    # S·F past the v1 budget, tables within the card's: the v2 rung
+    "v2": (lambda: synth_fields(P=1024, S=300, F=8, R=3, C=16, n_hosts=40, seed=6),
+           "pack_first_fit_v2"),
+    "v1_hosts_past_int16": (
+        lambda: _high_hosts(synth_fields(P=2048, S=12, F=3, R=4, C=6, n_hosts=900, seed=7)),
+        "pack_first_fit"),
+    "v2_hosts_past_int16": (
+        lambda: _high_hosts(synth_fields(P=2048, S=300, F=8, R=3, C=16, n_hosts=900, seed=8)),
+        "pack_first_fit_v2"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LADDER_CASES))
+def test_pack_best_on_card_matches_plain(cuda, case):
+    make, want = LADDER_CASES[case]
+    f = make()
+    module = pack_kernel_v2 if want == "pack_first_fit_v2" else pack_kernel
+    before = module.launches
+    served, out = pack_kernel.pack_best(*carry.tensors_from_reference(f, cuda)["pack_args"], n_max=256)
+    torch.cuda.synchronize()
+    assert served == want and module.launches == before + 1
+    assert_same(pack_reference(*carry.tensors_from_reference(f, "cpu")["pack_args"], n_max=256), out)
+
+
+def test_v1_failure_takes_v2_and_is_memoized(cuda, monkeypatch):
+    f = synth_fields(P=1024, S=12, F=3, R=4, C=6, n_hosts=9, seed=5)
+    args = carry.tensors_from_reference(f, cuda)["pack_args"]
+    calls = []
+
+    def broken(*a, **kw):
+        calls.append(1)
+        raise RuntimeError("v1 launch failed (test)")
+
+    monkeypatch.setattr(pack_kernel, "pack_first_fit", broken)
+    for _ in range(2):
+        served, out = pack_kernel.pack_best(*args, n_max=128)
+        assert served == "pack_first_fit_v2"
+        assert_same(pack_reference(*carry.tensors_from_reference(f, "cpu")["pack_args"], n_max=128), out)
+    assert len(calls) == 1  # the memo skips v1 for this shape from then on
+    assert (1024, 128) in pack_kernel._failed_shapes
+
+
+def test_both_kernels_failing_raises(cuda, monkeypatch):
+    from karpenter_tpu_torch.solver import native
+
+    def broken(*a, **kw):
+        raise RuntimeError("launch failed (test)")
+
+    def never(*a, **kw):
+        raise AssertionError("the ladder fell back off the card")
+
+    monkeypatch.setattr(pack_kernel, "pack_first_fit", broken)
+    monkeypatch.setattr(pack_kernel_v2, "pack_first_fit_v2", broken)
+    monkeypatch.setattr(pack_kernel, "pack_reference", never)
+    monkeypatch.setattr(native, "pack_native", never)
+    f = synth_fields(P=1024, S=12, F=3, R=4, C=6, n_hosts=9, seed=5)
+    with pytest.raises(RuntimeError, match="no kernel served"):
+        pack_kernel.pack_best(*carry.tensors_from_reference(f, cuda)["pack_args"], n_max=128)
+    assert {(1024, 128), ("v2", 1024, 128)} <= pack_kernel._failed_shapes
+
+
+def test_pallas_round_equals_fused_round(cuda, monkeypatch):
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+
+    prov, catalog, pods = scenario("karpenter_tpu_torch", "diverse", 700, 42, 50)
+    index = {id(p): i for i, p in enumerate(pods)}
+    plans = {}
+    for value in ("fused", "pallas"):
+        monkeypatch.setenv("KARPENTER_PACKER", value)
+        sched = Scheduler(Cluster(), rng=random.Random(1))
+        before = pack_kernel.launches
+        nodes = sched.solve(prov, catalog, pods)
+        prof = sched.last_stage_profile()
+        assert pack_kernel.launches == before + 1
+        assert prof["packer_backend"] == "pack_first_fit"
+        assert prof["pack_route"] == ("unfused" if value == "pallas" else "fused")
+        plans[value] = [
+            ([index[id(p)] for p in n.pods], [it.name for it in n.instance_type_options],
+             n.requests, n.constraints.requirements.requirements)
+            for n in nodes
+        ]
+    assert plans["fused"] == plans["pallas"]
+
+
+def test_auto_on_card_never_consults_the_router(cuda, monkeypatch):
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import native
+
+    monkeypatch.delenv("KARPENTER_PACKER", raising=False)
+    native.native_available(wait=180)  # built: native would be a candidate
+    prov, catalog, pods = scenario("karpenter_tpu_torch", "diverse", 700, 42, 50)
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    calls = native.calls
+    for r in range(3):
+        before = pack_kernel.launches
+        sched.solve(prov, catalog, pods)
+        prof = sched.last_stage_profile()
+        assert pack_kernel.launches == before + 1, r
+        assert (prof["packer_backend"], prof["pack_route"]) == ("pack_first_fit", "fused"), r
+    assert sched.torch.router.report() == {} and native.calls == calls
+    assert sched.torch._probe_thread is None

@@ -2,7 +2,10 @@
 
 Covers the in-process half of the resident plane, each layer held against
 ``karpenter_tpu`` on the same seeded inputs (the JAX side solves with its
-lax.scan packer, ``KARPENTER_PACKER=scan``; the port on ``device="cpu"``):
+lax.scan packer, ``KARPENTER_PACKER=scan`` around its solves; the port on
+``device="cpu"`` through its fused route, ``KARPENTER_PACKER=fused`` for
+the whole test, so the router never moves a round off the fused
+typemask and ``PodResidency``):
 
 - host: ``ResidentEncoder`` churn fuzz — every round's batch equals the JAX
   package's resident batch and a cold full encode byte for byte, with the
@@ -25,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import PACKAGES, mods, scenario
+from torch_parity import PACKAGES, fresh_router, mods, pinned, scenario  # noqa: F401
 
 STAGE_KEYS = (
     "sort_s", "sort_delta_s", "inject_s", "inject_delta_s",
@@ -33,9 +36,11 @@ STAGE_KEYS = (
 )
 
 
-@pytest.fixture
-def scan(monkeypatch):
-    monkeypatch.setenv("KARPENTER_PACKER", "scan")
+@pytest.fixture(autouse=True)
+def fused_port(monkeypatch):
+    """The port's side pinned to its fused route; the JAX package's solves
+    switch to lax.scan inside ``pinned``."""
+    monkeypatch.setenv("KARPENTER_PACKER", "fused")
 
 
 def delta_mod(pkg):
@@ -254,6 +259,7 @@ class Topo:
     def __init__(self, pkg, n_pods=70, n_types=8, seed=5):
         M = mods(pkg)
         self.M = M
+        self.pkg = pkg
         self.catalog = M.fake.instance_types(n_types)
         self.provisioner = M.factories.make_provisioner(solver="tpu")
         self.pods = M.scenarios.diverse_pods(n_pods, random.Random(seed))
@@ -262,13 +268,14 @@ class Topo:
         self.backend = self.sched.torch if pkg == "karpenter_tpu_torch" else None
 
     def solve(self):
-        nodes = self.sched.solve(self.provisioner, self.catalog, self.pods)
+        with pinned(self.pkg):
+            nodes = self.sched.solve(self.provisioner, self.catalog, self.pods)
         if self.backend is None:
             self.backend = self.sched._tpu
         return nodes, stage_keys(self.sched), self.sched.last_stage_profile()
 
 
-def test_topology_steady_state_matches_reference(scan):
+def test_topology_steady_state_matches_reference():
     """A topology batch full-injects once; with cluster, constraints and
     batch unchanged, later rounds reuse the plan, hit the encode reuse rung
     and the decode memo, and skip validation — the same rungs as the
@@ -306,7 +313,7 @@ def mutate(pkg, cluster, how):
 
 
 @pytest.mark.parametrize("how", ["create", "update", "delete", "bind", "seed"])
-def test_cluster_mutation_invalidates_the_plan(scan, how):
+def test_cluster_mutation_invalidates_the_plan(how):
     """Every store mutation bumps Cluster.version() and the next solve
     re-injects in full, as in the reference; the plans stay equal."""
     envs = {}
@@ -364,7 +371,7 @@ def test_delete_keeps_finalizer_semantics():
         cluster.delete("pods", "never-created")
 
 
-def test_constraints_change_invalidates_the_plan(scan):
+def test_constraints_change_invalidates_the_plan():
     """The plan key holds the PRE-inject requirements content: a
     provisioner constraints edit re-injects, as in the reference."""
     envs = {pkg: Topo(pkg) for pkg in PACKAGES}
@@ -622,13 +629,14 @@ def run_sequence(pkg, name, n_pods, delta):
             pods = [p for i, p in enumerate(pods) if i not in leave] + new_pods(pkg, name, 10, rng)
         elif kind == "bind":
             cluster.bind(held, "node-x")
-        nodes = sched.solve(prov, catalog, pods)
+        with pinned(pkg):
+            nodes = sched.solve(prov, catalog, pods)
         out.append((plan_of(nodes, pods), stage_keys(sched)))
     return out
 
 
 @pytest.mark.parametrize("name,n_pods", [("teams", 400), ("diverse", 300)])
-def test_churn_sequence_matches_reference(scan, name, n_pods):
+def test_churn_sequence_matches_reference(name, n_pods):
     ref = run_sequence("karpenter_tpu", name, n_pods, True)
     out = run_sequence("karpenter_tpu_torch", name, n_pods, True)
     off = run_sequence("karpenter_tpu_torch", name, n_pods, False)

@@ -3,8 +3,9 @@ package's, and the port's import boundary.
 
 Both schedulers solve the same seeded batch (``solver: tpu``, topology
 rng ``random.Random(1)``); the JAX side runs its lax.scan packer
-(``KARPENTER_PACKER=scan``), the port its plain PyTorch path
-(``device="cpu"``). The decoded nodes must be equal node by node: the pods
+(``KARPENTER_PACKER=scan`` around its solve), the port its fused route's
+plain PyTorch path (``device="cpu"``, ``KARPENTER_PACKER=fused`` around its
+solve). The decoded nodes must be equal node by node: the pods
 (by their index in the input list), the surviving instance types, the
 requests and the node requirements.
 """
@@ -20,7 +21,7 @@ import jax  # noqa: F401  (kept on the CPU by conftest)
 import pytest
 import torch
 
-from torch_parity import PACKAGES, scenario
+from torch_parity import PACKAGES, fresh_router, pinned, scenario  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "karpenter_tpu_torch"
@@ -38,7 +39,8 @@ def solve(pkg, name, n_pods, seed, n_types):
         from karpenter_tpu_torch.scheduling.scheduler import Scheduler
 
         sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu")
-    nodes = sched.solve(prov, catalog, pods)
+    with pinned(pkg):
+        nodes = sched.solve(prov, catalog, pods)
     index = {id(p): i for i, p in enumerate(pods)}
     plan = [
         (
@@ -57,15 +59,14 @@ def solve(pkg, name, n_pods, seed, n_types):
     "name,n_pods,dispatches",
     [("diverse", 700, 1), ("one_per_node", 600, 2)],
 )
-def test_plan_identical_to_jax_scheduler(monkeypatch, name, n_pods, dispatches):
-    monkeypatch.setenv("KARPENTER_PACKER", "scan")
+def test_plan_identical_to_jax_scheduler(name, n_pods, dispatches):
     (ref, ref_prof), (out, prof) = (solve(pkg, name, n_pods, 42, 50) for pkg in PACKAGES)
     assert len(out) == len(ref) > 0
     for i, (a, b) in enumerate(zip(ref, out)):
         assert a == b, f"node {i} differs"
     assert sum(len(n[0]) for n in out) == sum(len(n[0]) for n in ref)
     assert prof["pack_dispatches"] == ref_prof["pack_dispatches"] == dispatches
-    assert prof["packer_backend"] == "pack_reference"
+    assert prof["packer_backend"] == "pack_reference" and prof["pack_route"] == "fused"
     for key in ("sort_s", "inject_s", "encode_s", "pack_fetch_s", "decode_s"):
         assert prof[key] >= 0.0
     if name == "one_per_node":
@@ -103,7 +104,8 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'karpenter_tpu' or m.startswith('karpenter_tpu.'))\n"
         "n = sum(1 for m in sys.modules if m.startswith('karpenter_tpu_torch.'))\n"
-        "print(n, bad)\n"
+        "new = all(f'karpenter_tpu_torch.solver.{m}' in sys.modules for m in ('router', 'native'))\n"
+        "print(n, new, bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -111,8 +113,8 @@ def test_importing_the_port_loads_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 25 and bad.strip() == "[]"
+    count, new, bad = out.stdout.split(" ", 2)
+    assert int(count) >= 25 and new == "True" and bad.strip() == "[]"
 
 
 def test_no_source_names_the_jax_package():

@@ -3,14 +3,14 @@ batches (S·F past the v1 budget) through ``pack_first_fit_v2``'s plain
 version, ``fused_solve_v2`` and ``Scheduler.solve``.
 
 The JAX v2 kernel (``pallas_kernel_v2._pack_v2_call``) runs here in Pallas
-interpret mode: the ``interpret`` fixture patches ``pl.pallas_call`` for
-one test and clears the jitted callers' caches before and after, so no
-traced program outlives the patch. Nothing in ``karpenter_tpu`` changes.
+interpret mode: the ``interpret`` fixture (``torch_parity``) patches
+``pl.pallas_call`` for one test and clears the jitted callers' caches
+before and after, so no traced program outlives the patch. Nothing in
+``karpenter_tpu`` changes.
 Every comparison is exact (tolerance 0): integer outputs equal, f32 totals
 and tables equal bit for bit.
 """
 
-import functools
 import random
 
 import jax
@@ -23,22 +23,9 @@ from karpenter_tpu.solver import kernel as jax_kernel
 from karpenter_tpu.solver import pallas_kernel_v2 as jax_v2
 from karpenter_tpu_torch.solver import carry, fused, pack_kernel_v2
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_v2_reference
-from torch_parity import encode_scenario, fields, scenario, synth_fields, team_mix
-
-
-@pytest.fixture
-def interpret(monkeypatch):
-    """Run the JAX v2 Pallas kernel in interpret mode for one test."""
-    from jax.experimental import pallas as pl
-
-    def clear():
-        jax_v2._pack_v2_call.clear_cache()
-        jax_fused.fused_solve_v2.clear_cache()
-
-    clear()
-    monkeypatch.setattr(jax_v2.pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
-    yield
-    clear()
+from torch_parity import (  # noqa: F401
+    encode_scenario, fields, fresh_router, interpret, pinned, scenario, synth_fields, team_mix,
+)
 
 
 def team_fields(n_pods, n_types, seed=9, pkg="karpenter_tpu"):
@@ -312,7 +299,8 @@ def solve(pkg, n_pods, n_types):
         from karpenter_tpu_torch.scheduling.scheduler import Scheduler
 
         sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu")
-    nodes = sched.solve(prov, catalog, pods)
+    with pinned(pkg):
+        nodes = sched.solve(prov, catalog, pods)
     return plan_of(nodes, pods), sched.last_stage_profile()
 
 
@@ -320,13 +308,12 @@ def solve(pkg, n_pods, n_types):
 def test_team_mix_plan_identical_to_jax_scheduler(monkeypatch, n_pods, n_types, n_max_first):
     from karpenter_tpu_torch.solver import backend
 
-    monkeypatch.setenv("KARPENTER_PACKER", "scan")
     monkeypatch.setattr(backend, "N_MAX_FIRST", n_max_first)
     ref, _ = solve("karpenter_tpu", n_pods, n_types)
     out, prof = solve("karpenter_tpu_torch", n_pods, n_types)
     assert len(out) == len(ref) > 0
     for i, (a, b) in enumerate(zip(ref, out)):
         assert a == b, f"node {i} differs"
-    assert prof["packer_backend"] == "pack_v2_reference"
+    assert prof["packer_backend"] == "pack_v2_reference" and prof["pack_route"] == "fused"
     # a 32-slot first table saturates and the retry at P re-derives v2
     assert prof["pack_dispatches"] == (2 if n_max_first < len(out) else 1)

@@ -8,13 +8,91 @@ the input list, never by name.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import os
 import random
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
 
 PACKAGES = ("karpenter_tpu", "karpenter_tpu_torch")
+
+# the packer each package's side of a parity test pins: the JAX package its
+# lax.scan kernel, the port its device path routed by shape (no router)
+PINNED_PACKER = {"karpenter_tpu": "scan", "karpenter_tpu_torch": "fused"}
+
+
+@contextlib.contextmanager
+def packer(value):
+    """``KARPENTER_PACKER`` set to ``value`` (unset for None) inside the
+    block, restored after it."""
+    before = os.environ.get("KARPENTER_PACKER")
+    if value is None:
+        os.environ.pop("KARPENTER_PACKER", None)
+    else:
+        os.environ["KARPENTER_PACKER"] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("KARPENTER_PACKER", None)
+        else:
+            os.environ["KARPENTER_PACKER"] = before
+
+
+def pinned(pkg: str):
+    """``packer`` pinned for one package's side of a parity test."""
+    return packer(PINNED_PACKER[pkg])
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Run the JAX package's v2 Pallas kernel in interpret mode for one
+    test: ``pl.pallas_call`` patched, the jitted callers' caches cleared
+    before and after, so no traced program outlives the patch. Nothing in
+    ``karpenter_tpu`` changes. JAX is imported here, never at module level
+    (the card-only tests import this module without JAX)."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    from karpenter_tpu.solver import fused as jax_fused
+    from karpenter_tpu.solver import pallas_kernel_v2 as jax_v2
+
+    def clear():
+        jax_v2._pack_v2_call.clear_cache()
+        jax_fused.fused_solve_v2.clear_cache()
+
+    clear()
+    monkeypatch.setattr(jax_v2.pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    yield
+    clear()
+
+
+@pytest.fixture(autouse=True)
+def fresh_router():
+    """The port's process-shared cost router reset before and after each
+    test, and the port's two failed-shape memos restored after it, so test
+    order never changes routing. Autouse in every module that imports it."""
+    from karpenter_tpu_torch.solver import backend, pack_kernel, router
+
+    memos = (
+        (pack_kernel._failed_shapes_lock, pack_kernel._failed_shapes),
+        (backend._fused_failed_lock, backend._fused_failed_shapes),
+    )
+    saved = []
+    for lock, memo in memos:
+        with lock:
+            saved.append(set(memo))
+    router.reset_default()
+    yield
+    router.reset_default()
+    for (lock, memo), was in zip(memos, saved):
+        with lock:
+            memo.clear()
+            memo.update(was)
 
 
 def mods(pkg: str) -> SimpleNamespace:
