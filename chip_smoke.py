@@ -83,15 +83,47 @@ Phases (any failure exits non-zero; nothing is swallowed):
              to phase 6's), and pack_best on the team mix's pack_args() on
              the card is bit-exact with the plain version; at the end both
              failed-shape memos hold only what (c) put there;
+11. degrade — (after phase 9; it fails first if the integrity counters
+             show a quarantine, a screen failure or a canary mismatch from
+             the earlier phases) the degrade ladder around both kernels, on
+             fresh schedulers, both failed-shape memos restored after each
+             part. (a) canary_rate=1.0 on healthy full-width rounds: 3
+             headline, 3 team-mix, the retry batch (its canary at n_max =
+             P) and 2 resident headline rounds; every round launches its
+             kernel, equals the device="cpu" plan, and its native re-solve
+             agrees (canary_solves == rounds, 0 mismatches, 0 quarantines;
+             the canary's and the screen's host times printed). (b)-(f)
+             reach each trigger only by injection at the Python level, at
+             full width; a card scheduler has no FFD floor, so each round
+             the reference would serve from its floor must raise here,
+             after the reference's bookkeeping: (b) both kernels raise on
+             the headline — 2 rounds raise, then the breaker is open and
+             the third round raises BreakerOpen with no kernel called; (c)
+             a NaN in node_req of the fetched headline buffer — screen
+             failure, 1 quarantine, breaker open, one IntegrityQuarantine
+             Warning event, InvalidPackError, the next round BreakerOpen
+             with no launch; (d) a pod placed twice after decode on the
+             team mix — 1 quarantine, InvalidPackError, the next round
+             BreakerOpen with no launch; (e) SignatureOverflow on both
+             encode attempts — it raises, no packer_backend, no launch; (f)
+             one cpu core (1000 in the device's millicore units) added to
+             node_req[0, 0] after the screen with the canary on — served
+             by the kernel, 1 canary mismatch, the shape quarantined, the
+             next round BreakerOpen with no launch;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
-             6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
-             and the native packer's time on the same batches.
+             6 and 8 for pack_first_fit_v2), on the unfused route (phase 9),
+             the native packer's time on the same batches, and ``degrade``:
+             phase 11's canary solves and mismatches and its launches under
+             injection.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
 device="cpu" schedulers that give the reference plans route between their
 plain versions and the native packer, as the default does on the CPU.
+Every round of phases 3, 4, 6, 8 and 9 must name what served it (its
+kernel, or native where 9 forces it): a round the FFD floor served
+(ffd-degraded) or that names nothing fails the run.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -438,6 +470,27 @@ def plan_of(nodes, pods):
     ]
 
 
+def served(sched, want: str, where: str) -> dict:
+    """The round's profile; raises unless ``want`` served it — never the
+    FFD floor (``ffd-degraded``), never a round without a name."""
+    prof = sched.last_stage_profile()
+    got = prof.get("packer_backend")
+    if got != want:
+        floor = " (the FFD floor)" if got in ("ffd-degraded", None) else ""
+        raise AssertionError(f"{where}: served by {got!r}{floor}, expected {want}")
+    return prof
+
+
+def not_degraded(sched, where: str) -> dict:
+    """A device="cpu" reference round's profile; raises when the floor
+    served it or it names nothing."""
+    prof = sched.last_stage_profile()
+    if prof.get("packer_backend") in ("ffd-degraded", None):
+        raise AssertionError(f"{where}: the reference round took the FFD floor "
+                             f"({prof.get('packer_backend')!r})")
+    return prof
+
+
 def v2_parity(name: str, gpu, n_max: int, F: int, R: int, front_s=None) -> tuple:
     """pack_first_fit_v2 on the card against pack_v2_reference on CPU copies
     of the same inputs; raises unless bit-exact. Returns (result, max |diff|)."""
@@ -617,10 +670,13 @@ def diverse_phases(dev, card: str) -> tuple:
     t0 = time.perf_counter()
     warm = sched.solve(prov, catalog, pods)
     torch.cuda.synchronize()
+    served(sched, "pack_first_fit_v2", "diverse warm-up")
     log(f"[diverse] warm-up round {time.perf_counter() - t0:.3f}s, nodes={len(warm)}")
     t0 = time.perf_counter()
-    cpu_nodes = Scheduler(Cluster(), rng=random.Random(1), device="cpu").solve(prov, catalog, pods)
+    cpu_sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu")
+    cpu_nodes = cpu_sched.solve(prov, catalog, pods)
     cpu_s = time.perf_counter() - t0
+    not_degraded(cpu_sched, "diverse cpu plan")
     if plan_of(warm, pods) != plan_of(cpu_nodes, pods):
         raise AssertionError("diverse: cuda plan differs from the device='cpu' plan")
     if len(warm) != DIVERSE_NODES:
@@ -636,11 +692,11 @@ def diverse_phases(dev, card: str) -> tuple:
         nodes = sched.solve(prov, catalog, pods)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        prof = sched.last_stage_profile()
+        prof = served(sched, "pack_first_fit_v2", f"diverse round {r}")
         if pack_kernel_v2.launches <= before:
             raise AssertionError(f"diverse round {r} did not launch pack_first_fit_v2")
-        if prof["packer_backend"] != "pack_first_fit_v2" or len(nodes) != DIVERSE_NODES:
-            raise AssertionError(f"diverse round {r}: {prof['packer_backend']}, {len(nodes)} nodes")
+        if len(nodes) != DIVERSE_NODES:
+            raise AssertionError(f"diverse round {r}: {len(nodes)} nodes")
         rounds.append(wall)
         stages = " ".join(
             f"{k}={prof[k] * 1e3:.3f}ms"
@@ -739,11 +795,12 @@ def resident_phase(dev, card: str) -> dict:
     warm = sched.solve(prov, catalog, pods)
     torch.cuda.synchronize()
     log(f"[resident] headline warm-up round {time.perf_counter() - t0:.3f}s, nodes={len(warm)}, "
-        f"{stage_line(sched.last_stage_profile())}")
+        f"{stage_line(served(sched, 'pack_first_fit', 'resident headline warm-up'))}")
     warm_plan = plan_of(warm, pods)
     off_cpu = Scheduler(Cluster(), rng=random.Random(1), device="cpu", solver_delta=False)
     if warm_plan != plan_of(off_cpu.solve(prov, catalog, pods), pods):
         raise AssertionError("resident headline: warm-up plan differs from the knob-off cpu plan")
+    not_degraded(off_cpu, "resident headline knob-off cpu plan")
     if len(warm) != HEADLINE_NODES:
         raise AssertionError(f"resident headline opened {len(warm)} nodes, expected {HEADLINE_NODES}")
     # the cpu twin takes the warm-up and, later, the same mutation; the
@@ -752,6 +809,7 @@ def resident_phase(dev, card: str) -> dict:
     twin = Scheduler(twin_cluster, rng=random.Random(1), device="cpu", solver_delta=True)
     if plan_of(twin.solve(prov, catalog, pods), pods) != warm_plan:
         raise AssertionError("resident headline: the cpu twin's warm-up plan differs")
+    not_degraded(twin, "resident headline cpu twin warm-up")
     log(f"[resident] headline warm-up plan == knob-off cpu plan == cpu twin ({len(warm)} nodes)")
 
     pack_kernel.launches = 0
@@ -762,11 +820,11 @@ def resident_phase(dev, card: str) -> dict:
         nodes = sched.solve(prov, catalog, pods)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        prof = sched.last_stage_profile()
+        prof = served(sched, "pack_first_fit", f"resident headline round {r}")
         missing = [k for k in DELTA_KEYS if k not in prof]
         if missing:
             raise AssertionError(f"resident headline round {r}: no {missing} in {sorted(prof)}")
-        if pack_kernel.launches != before + 1 or prof["packer_backend"] != "pack_first_fit":
+        if pack_kernel.launches != before + 1:
             raise AssertionError(f"resident headline round {r}: {pack_kernel.launches - before} "
                                  f"launches of {prof['packer_backend']}")
         if residency.stats["reused"] != reused + 1:
@@ -790,11 +848,12 @@ def resident_phase(dev, card: str) -> dict:
     nodes = sched.solve(prov, catalog, pods)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    prof = sched.last_stage_profile()
+    prof = served(sched, "pack_first_fit", "resident headline after create + bind")
     if "inject_s" not in prof or "encode_s" not in prof:
         raise AssertionError(f"resident headline: the round after a bind kept {sorted(prof)}")
     if plan_of(nodes, pods) != plan_of(twin.solve(prov, catalog, pods), pods):
         raise AssertionError("resident headline: the post-bind plan differs from the cpu twin's")
+    not_degraded(twin, "resident headline cpu twin after create + bind")
     log(f"[resident] headline after create + bind: {wall * 1e3:.3f} ms, re-injected and "
         f"encoded in full, plan == cpu twin ({len(nodes)} nodes), {stage_line(prof)}")
 
@@ -808,9 +867,11 @@ def resident_phase(dev, card: str) -> dict:
     t0 = time.perf_counter()
     warm = sched.solve(prov, catalog, pods)
     torch.cuda.synchronize()
+    served(sched, "pack_first_fit_v2", "resident team mix warm-up")
     log(f"[resident] team mix warm-up round {time.perf_counter() - t0:.3f}s, nodes={len(warm)}")
     if plan_of(warm, pods) != plan_of(off.solve(prov, catalog, pods), pods):
         raise AssertionError("resident team mix: warm-up plan differs from the knob-off plan")
+    served(off, "pack_first_fit_v2", "resident team mix knob-off warm-up")
 
     rng = random.Random(11)
     churn = []
@@ -834,7 +895,8 @@ def resident_phase(dev, card: str) -> dict:
         t0 = time.perf_counter()
         nodes = scheduler.solve(prov, catalog, batch_pods)
         torch.cuda.synchronize()
-        return nodes, time.perf_counter() - t0, scheduler.last_stage_profile()
+        wall = time.perf_counter() - t0
+        return nodes, wall, served(scheduler, "pack_first_fit_v2", "resident team mix round")
 
     # the knob-off comparisons launch the kernel too: only the resident
     # scheduler's launches are summed. The knob-off round on the same pods
@@ -868,6 +930,7 @@ def resident_phase(dev, card: str) -> dict:
         if r in (0, len(churn) - 1):
             if plan != plan_of(off_cpu.solve(prov, catalog, batch_pods), batch_pods):
                 raise AssertionError(f"resident team mix round {r}: plan differs from the cpu plan")
+            not_degraded(off_cpu, f"resident team mix round {r} cpu plan")
             checked += " and cpu plan"
         if kind == "swap":
             patched_in_place = (residency.stats["patched"] == stats["patched"] + 1
@@ -957,6 +1020,9 @@ def route_phase(dev, card: str, classes: dict, n_pods: int = 10000) -> dict:
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         prof = sched.last_stage_profile()
+        if prof.get("packer_backend") in ("ffd-degraded", None):
+            raise AssertionError(f"route {cls}: the round took the FFD floor "
+                                 f"({prof.get('packer_backend')!r})")
         if plan_of(nodes, pods) != classes[cls]["cpu_plan"]:
             raise AssertionError(f"route {cls}: plan differs from the device='cpu' plan "
                                  f"({prof.get('packer_backend')}, {prof.get('pack_route')})")
@@ -1112,6 +1178,303 @@ def route_phase(dev, card: str, classes: dict, n_pods: int = 10000) -> dict:
     return out
 
 
+def degrade_phase(card: str, classes: dict) -> dict:
+    """Phase 11: the degrade ladder around both kernels, at full width. (a)
+    runs healthy with the canary on every round; (b)-(f) reach each trigger
+    only by injection at the Python level (a kernel or split function
+    made to raise, a fetched host buffer altered, a forced overflow; never
+    a device fault), and each round that the reference would serve from its
+    FFD floor must raise: the card has no floor. ``classes`` holds the
+    earlier phases' pods and device="cpu" plans. Returns each kernel's
+    kernels-line ``degrade`` entry."""
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.resilience import BreakerOpen
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import backend, fused, integrity, pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.solver import encode as enc
+    from karpenter_tpu_torch.solver.backend import InvalidPackError
+    from karpenter_tpu_torch.solver.signature import SignatureOverflow
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    prov = make_provisioner(solver="tpu")
+    catalogs = {"headline": instance_types(400), "team mix": instance_types_tradeoff(400),
+                "retry": instance_types(50)}
+    kernel_of = {"headline": "pack_first_fit", "team mix": "pack_first_fit_v2",
+                 "retry": "pack_first_fit"}
+    modules = {"pack_first_fit": pack_kernel, "pack_first_fit_v2": pack_kernel_v2}
+    out = {name: {"canary_solves": 0, "canary_mismatches": 0, "launches_injected": 0}
+           for name in modules}
+    memos = ((pack_kernel._failed_shapes_lock, pack_kernel._failed_shapes),
+             (backend._fused_failed_lock, backend._fused_failed_shapes))
+    saved = []
+    for lock, memo in memos:
+        with lock:
+            saved.append(set(memo))
+
+    def restore_memos():
+        for (lock, memo), was in zip(memos, saved):
+            with lock:
+                memo.clear()
+                memo.update(was)
+
+    def launches():
+        return {name: m.launches for name, m in modules.items()}
+
+    def run(sched, cls, pods):
+        """One round: the topology rng of a knob-off scheduler reseeded (its
+        plan is held against a plan that drew from Random(1)); returns
+        (nodes, profile, wall ms, launches by kernel)."""
+        if not sched.torch.solver_delta:
+            sched.torch.topology.rng = random.Random(1)
+        before = launches()
+        t0 = time.perf_counter()
+        nodes = sched.solve(prov, catalogs[cls], pods)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        after = launches()
+        return nodes, sched.last_stage_profile(), wall, {k: after[k] - before[k] for k in after}
+
+    def delta(before):
+        now = integrity.totals()
+        return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+    integrity.reset()
+    try:
+        # -- (a) the canary on every healthy round, full width ---------------
+        canary_ms, canary_n_max, screen_ms = [], [], []
+        real_check, real_screen = backend.TorchScheduler._canary_check, integrity.screen_result
+
+        def timed_check(self, batch, result):
+            t0 = time.perf_counter()
+            real_check(self, batch, result)
+            canary_ms.append((time.perf_counter() - t0) * 1e3)
+            canary_n_max.append(int(np.asarray(result[1]).shape[0]))
+
+        def timed_screen(result, n_pods):
+            t0 = time.perf_counter()
+            verdict = real_screen(result, n_pods=n_pods)
+            screen_ms.append((time.perf_counter() - t0) * 1e3)
+            return verdict
+
+        plan = [("headline", False, 3), ("team mix", False, 3), ("retry", False, 1),
+                ("headline", True, 2)]
+        n_rounds = sum(n for _, _, n in plan)
+        with mock.patch.object(backend.TorchScheduler, "_canary_check", timed_check), \
+                mock.patch.object(integrity, "screen_result", timed_screen):
+            for cls, resident, n in plan:
+                sched = Scheduler(Cluster(), rng=random.Random(1), canary_rate=1.0,
+                                  solver_delta=resident)
+                name = kernel_of[cls]
+                for r in range(n):
+                    before = integrity.totals()
+                    nodes, prof, wall, launched = run(sched, cls, classes[cls]["pods"])
+                    thread = sched.torch._canary_thread
+                    if thread is None:
+                        raise AssertionError(f"degrade (a) {cls} round {r}: no canary started")
+                    thread.join(timeout=300)
+                    if thread.is_alive():
+                        raise AssertionError(f"degrade (a) {cls} round {r}: the canary hangs")
+                    got = delta(before)
+                    want_launches = prof["pack_dispatches"]
+                    if (prof.get("packer_backend") != name or launched[name] != want_launches
+                            or got != {"canary_solves": 1}):
+                        raise AssertionError(f"degrade (a) {cls} round {r}: "
+                                             f"{prof.get('packer_backend')}, {launched}, {got}")
+                    if plan_of(nodes, classes[cls]["pods"]) != classes[cls]["cpu_plan"]:
+                        raise AssertionError(f"degrade (a) {cls} round {r}: plan differs "
+                                             "from the device='cpu' plan")
+                    out[name]["canary_solves"] += 1
+                    log(f"[degrade] (a) {cls}{' resident' if resident else ''} round {r}: "
+                        f"{wall:.3f} ms, {name} x{launched[name]}, plan == cpu, canary "
+                        f"clean (native re-solve and compare {canary_ms[-1]:.3f} ms off the "
+                        f"path, n_max={canary_n_max[-1]}), screen {screen_ms[-1]:.4f} ms; "
+                        f"{stage_line(prof)}")
+        totals = integrity.totals()
+        if (totals["canary_solves"] != n_rounds or totals["canary_mismatches"]
+                or totals["quarantines"] or totals["screen_failures"]):
+            raise AssertionError(f"degrade (a): {totals} over {n_rounds} rounds")
+        log(f"[degrade] (a) {n_rounds} healthy rounds with canary_rate=1.0: canary_solves "
+            f"{totals['canary_solves']}, 0 mismatches, 0 quarantines; canary "
+            f"{min(canary_ms):.3f}-{max(canary_ms):.3f} ms off the path, screen "
+            f"{min(screen_ms):.4f}-{max(screen_ms):.4f} ms a round (host clock); card {card}")
+
+        head_pods, team = classes["headline"]["pods"], classes["team mix"]["pods"]
+
+        def inject_count(launched):
+            for k, v in launched.items():
+                out[k]["launches_injected"] += v
+
+        def refused(where, sched, cls, pods, error, match):
+            """One round that must raise ``error`` (its message holding
+            ``match``): the card serves no floor. Returns (profile, wall
+            ms, launches by kernel, the message)."""
+            if not sched.torch.solver_delta:
+                sched.torch.topology.rng = random.Random(1)
+            before = launches()
+            t0 = time.perf_counter()
+            try:
+                sched.solve(prov, catalogs[cls], pods)
+            except error as e:
+                message = str(e)
+            else:
+                raise AssertionError(f"degrade {where}: served "
+                                     f"({sched.last_stage_profile().get('packer_backend')}), "
+                                     f"expected {error.__name__}")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            after = launches()
+            launched = {k: after[k] - before[k] for k in after}
+            inject_count(launched)
+            prof = sched.last_stage_profile()
+            if match not in message or prof.get("packer_backend") == "ffd-degraded":
+                raise AssertionError(f"degrade {where}: {error.__name__}({message!r}), "
+                                     f"{prof.get('packer_backend')}")
+            return prof, wall, launched, message
+
+        def breaker_refuses(where, sched, cls, pods):
+            """The quarantined or failing shape's next round: BreakerOpen,
+            no kernel launched."""
+            prof, wall, launched, message = refused(where, sched, cls, pods, BreakerOpen, "pack:")
+            if any(launched.values()):
+                raise AssertionError(f"degrade {where}: launched {launched}")
+            log(f"[degrade] {where}: {wall:.3f} ms, {message}, no launch; "
+                f"{stage_line(prof)}; card {card}")
+
+        # -- (b) both kernels raise for the headline shape --------------------
+        calls = []
+
+        def broken(*a, **kw):
+            calls.append(1)
+            raise RuntimeError("kernel launch failed (injected)")
+
+        sched = Scheduler(Cluster(), rng=random.Random(1))
+        with mock.patch.object(fused, "pack_first_fit", broken), \
+                mock.patch.object(pack_kernel, "pack_first_fit", broken), \
+                mock.patch.object(pack_kernel_v2, "pack_first_fit_v2", broken):
+            for r in range(2):
+                n_calls = len(calls)
+                prof, wall, launched, message = refused(
+                    f"(b) round {r}", sched, "headline", head_pods, RuntimeError, "no kernel served")
+                # round 1 may find both shapes in the ladder's failed memo
+                if any(launched.values()) or (r == 0 and len(calls) == n_calls):
+                    raise AssertionError(f"degrade (b) round {r}: launched {launched}, "
+                                         f"kernel calls {len(calls) - n_calls}")
+                log(f"[degrade] (b) both kernels raise, round {r}: {wall:.3f} ms, raised "
+                    f"{message!r} after {len(calls) - n_calls} kernel calls; "
+                    f"{stage_line(prof)}; card {card}")
+            n_calls = len(calls)
+            breaker_refuses("(b) round 2", sched, "headline", head_pods)
+            opened = sched.torch._pack_breakers.open_dependencies()
+            if len(calls) != n_calls or len(opened) != 1 or integrity.totals()["quarantines"]:
+                raise AssertionError(f"degrade (b) round 2: kernel calls {len(calls) - n_calls}, "
+                                     f"open {opened}")
+        restore_memos()
+
+        # -- (c) a NaN in the fetched headline buffer -------------------------
+        real_split = fused.split_fused
+
+        def nan_split(*a, **kw):
+            result, typemask = real_split(*a, **kw)
+            result.node_req[0, 0] = np.nan  # a view into the fetched host buffer
+            return result, typemask
+
+        cluster = Cluster()
+        sched = Scheduler(cluster, rng=random.Random(1))
+        before = integrity.totals()
+        with mock.patch.object(fused, "split_fused", nan_split):
+            prof, wall, launched, message = refused(
+                "(c)", sched, "headline", head_pods, InvalidPackError, "integrity screen")
+        got = delta(before)
+        events = [e for e in cluster.list("events")
+                  if (e.type, e.reason) == ("Warning", "IntegrityQuarantine")]
+        opened = sched.torch._pack_breakers.open_dependencies()
+        if (got != {"screen_failures": 1, "quarantines": 1} or len(events) != 1 or not opened
+                or launched["pack_first_fit"] != 1 or prof["packer_backend"] != "pack_first_fit"):
+            raise AssertionError(f"degrade (c): {got}, {len(events)} events, open {opened}, "
+                                 f"launched {launched}")
+        log(f"[degrade] (c) NaN in node_req of the fetched buffer: {wall:.3f} ms, "
+            f"pack_first_fit x1, screen failed, 1 quarantine, breaker open {opened}, 1 "
+            f"IntegrityQuarantine Warning ({events[0].message!r}), raised {message!r}; "
+            f"{stage_line(prof)}; card {card}")
+        breaker_refuses("(c) next round", sched, "headline", head_pods)
+        restore_memos()
+
+        # -- (d) an invalid plan on the team mix -------------------------------
+        sched = Scheduler(Cluster(), rng=random.Random(1))
+        real_decode = sched.torch._decode
+
+        def double_placed(*a, **kw):
+            nodes = real_decode(*a, **kw)
+            nodes[1].pods.append(nodes[0].pods[0])
+            return nodes
+
+        sched.torch._decode = double_placed
+        before = integrity.totals()
+        prof, wall, launched, message = refused(
+            "(d)", sched, "team mix", team, InvalidPackError, "invalid plan")
+        got = delta(before)
+        if got != {"quarantines": 1} or launched["pack_first_fit_v2"] != 1:
+            raise AssertionError(f"degrade (d): {got}, launched {launched}")
+        log(f"[degrade] (d) a pod placed twice after decode (team mix): {wall:.3f} ms, "
+            f"pack_first_fit_v2 x1, 1 quarantine, raised {message!r}; "
+            f"{stage_line(prof)}; card {card}")
+        breaker_refuses("(d) next round", sched, "team mix", team)
+        restore_memos()
+
+        # -- (e) a signature overflow on both encode attempts ------------------
+        encodes = []
+
+        def overflow(*a, **kw):
+            encodes.append(1)
+            raise SignatureOverflow("forced signature overflow (injected)")
+
+        sched = Scheduler(Cluster(), rng=random.Random(1))
+        before = integrity.totals()
+        with mock.patch.object(enc, "encode", overflow):
+            prof, wall, launched, message = refused(
+                "(e)", sched, "headline", head_pods, SignatureOverflow, "forced")
+        if (any(launched.values()) or len(encodes) != 2 or delta(before)
+                or "packer_backend" in prof):
+            raise AssertionError(f"degrade (e): launched {launched}, {len(encodes)} encodes, "
+                                 f"{prof.get('packer_backend')}")
+        log(f"[degrade] (e) overflow on both encode attempts: {wall:.3f} ms, raised "
+            f"{message!r}, no packer_backend, no launch; {stage_line(prof)}; card {card}")
+
+        # -- (f) a screen-clean wrong total, caught by the canary --------------
+        # one cpu core: node totals are in millicores, and +1.0 (one
+        # millicore) on a node of 100 cores is inside the comparator's
+        # rtol of 1e-5
+        def wrong_after_screen(result, n_pods):
+            verdict = real_screen(result, n_pods=n_pods)
+            np.asarray(result[3])[0, 0] += 1000.0  # the served host buffer
+            return verdict
+
+        sched = Scheduler(Cluster(), rng=random.Random(1), canary_rate=1.0)
+        before = integrity.totals()
+        with mock.patch.object(integrity, "screen_result", wrong_after_screen):
+            nodes, prof, wall, launched = run(sched, "headline", head_pods)
+        inject_count(launched)
+        sched.torch._canary_thread.join(timeout=300)
+        if sched.torch._canary_thread.is_alive():
+            raise AssertionError("degrade (f): the canary hangs")
+        got = delta(before)
+        if (prof.get("packer_backend") != "pack_first_fit" or launched["pack_first_fit"] != 1
+                or got != {"canary_solves": 1, "canary_mismatches": 1, "quarantines": 1}):
+            raise AssertionError(f"degrade (f): {prof.get('packer_backend')}, {launched}, {got}")
+        log(f"[degrade] (f) one cpu core on node_req[0, 0] after the screen: {wall:.3f} ms, "
+            f"served by pack_first_fit, the canary mismatched, 1 quarantine; "
+            f"{stage_line(prof)}; card {card}")
+        breaker_refuses("(f) next round", sched, "headline", head_pods)
+    finally:
+        restore_memos()
+    log(f"[degrade] launches under injection: "
+        f"{ {k: v['launches_injected'] for k, v in out.items()} }; card {card}")
+    return out
+
+
 
 
 def main() -> int:
@@ -1231,8 +1594,11 @@ def main() -> int:
     t0 = time.perf_counter()
     warm = sched.solve(prov, catalog, pods)
     torch.cuda.synchronize()
+    served(sched, "pack_first_fit", "main warm-up")
     log(f"[main] warm-up round {time.perf_counter() - t0:.3f}s, nodes={len(warm)}")
-    cpu_nodes = Scheduler(Cluster(), rng=random.Random(1), device="cpu").solve(prov, catalog, pods)
+    cpu_sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu")
+    cpu_nodes = cpu_sched.solve(prov, catalog, pods)
+    not_degraded(cpu_sched, "main cpu plan")
     if plan_of(warm, pods) != plan_of(cpu_nodes, pods):
         raise AssertionError("cuda plan differs from the device='cpu' plan")
     if len(warm) != HEADLINE_NODES:
@@ -1248,11 +1614,9 @@ def main() -> int:
         nodes = sched.solve(prov, catalog, pods)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        prof = sched.last_stage_profile()
+        prof = served(sched, "pack_first_fit", f"main round {r}")
         if pack_kernel.launches <= before:
             raise AssertionError(f"round {r} did not launch pack_first_fit")
-        if prof["packer_backend"] != "pack_first_fit":
-            raise AssertionError(f"round {r} packed with {prof['packer_backend']}")
         rounds.append(wall)
         stages = " ".join(
             f"{k}={prof[k] * 1e3:.3f}ms"
@@ -1279,11 +1643,13 @@ def main() -> int:
     retry_sched = Scheduler(Cluster(), rng=random.Random(1))
     retry_nodes = retry_sched.solve(prov, small, solo)
     torch.cuda.synchronize()
-    prof = retry_sched.last_stage_profile()
+    prof = served(retry_sched, "pack_first_fit", "retry")
     if prof["pack_dispatches"] != 2 or pack_kernel.launches - before != 2:
         raise AssertionError(f"retry path: {prof['pack_dispatches']} dispatches, "
                              f"{pack_kernel.launches - before} launches")
-    retry_cpu = Scheduler(Cluster(), rng=random.Random(1), device="cpu").solve(prov, small, solo)
+    retry_cpu_sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu")
+    retry_cpu = retry_cpu_sched.solve(prov, small, solo)
+    not_degraded(retry_cpu_sched, "retry cpu plan")
     if plan_of(retry_nodes, solo) != plan_of(retry_cpu, solo):
         raise AssertionError("retry path: cuda plan differs from the cpu plan")
     log(f"[retry] 600 one-per-node pods: {len(retry_nodes)} nodes, dispatches=2, "
@@ -1291,10 +1657,25 @@ def main() -> int:
 
     v2, team = diverse_phases(dev, card)
     resident = resident_phase(dev, card)
-    route = route_phase(dev, card, {
+    classes = {
         "headline": {"pods": pods, "cpu_plan": plan_of(cpu_nodes, pods)},
         "team mix": team,
-    })
+        "retry": {"pods": solo, "cpu_plan": plan_of(retry_cpu, solo)},
+    }
+    route = route_phase(dev, card, classes)
+
+    # -- 11. degrade ------------------------------------------------------
+    # every earlier phase ran healthy: nothing quarantined, screened out or
+    # contradicted by a canary
+    from karpenter_tpu_torch.solver import integrity
+
+    totals = integrity.totals()
+    bad = {k: totals[k] for k in ("quarantines", "screen_failures", "canary_mismatches")
+           if totals[k]}
+    if bad:
+        raise AssertionError(f"integrity counters before phase 11: {bad}")
+    log(f"[degrade] before phase 11: integrity {totals}")
+    degrade = degrade_phase(card, classes)
 
     # -- 10. kernels ------------------------------------------------------
     kernels = [{
@@ -1306,6 +1687,7 @@ def main() -> int:
         "launches_by_path": {"main": main_launches, "resident": resident["pack_first_fit"],
                              "route": route["pack_first_fit"]["launches_route"]},
         **{k: v for k, v in route["pack_first_fit"].items() if k != "launches_route"},
+        "degrade": degrade["pack_first_fit"],
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -1324,6 +1706,7 @@ def main() -> int:
         "launches_by_path": {"diverse": v2["launches"], "resident": resident["pack_first_fit_v2"],
                              "route": route["pack_first_fit_v2"]["launches_route"]},
         **{k: v for k, v in route["pack_first_fit_v2"].items() if k != "launches_route"},
+        "degrade": degrade["pack_first_fit_v2"],
         "library_ms": None,
         "parity": "bit-exact",
     }]

@@ -2,12 +2,15 @@
 
 The solve path reads three things from the cluster: daemonsets (for the
 per-node daemon overhead) and pods and nodes (for topology spread and pod
-(anti-)affinity domain counts). This is the in-memory store that serves
-them — the test and benchmark substrate.
+(anti-)affinity domain counts), and writes one: the Warning events of the
+solver's integrity quarantines (``kube/events.py``). This is the in-memory
+store that serves them — the test and benchmark substrate.
 
 Every mutation (``create``, ``update``, ``delete``, ``bind``, ``seed``)
 bumps one store version; ``version()`` reads it, and the resident solve
-path keys its topology-plan reuse on it. There are no watches.
+path keys its topology-plan reuse on it. Creating an event is a mutation
+too, as in the reference: the round after a quarantine re-injects. There
+are no watches.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ class NotFound(Exception):
 
 
 class Cluster:
-    """Typed object store: pods, nodes, daemonsets."""
+    """Typed object store: pods, nodes, daemonsets, events."""
 
-    KINDS = ("pods", "nodes", "daemonsets")
+    KINDS = ("pods", "nodes", "daemonsets", "events")
 
     def __init__(self, clock: Optional[Callable[[], float]] = None):
         self._lock = threading.RLock()

@@ -26,7 +26,7 @@ import torch
 from karpenter_tpu_torch.solver import pack_kernel_v2
 from karpenter_tpu_torch.solver.backend import kernel_name
 from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
-from karpenter_tpu_torch.solver.pack_kernel import pack_first_fit
+from karpenter_tpu_torch.solver.pack_kernel import BLOCK, pack_first_fit
 from karpenter_tpu_torch.utils.device import resolve_device
 
 
@@ -71,7 +71,8 @@ def sharded_multi_solve(
     (they are stacked). Returns ``(PackResult, cheapest, route)``: the
     PackResult fields and ``cheapest`` [B, n_max] carry the batch axis, and
     ``route`` reports the reference's keys — the kernel that ran and the
-    shape gates it passed."""
+    shape gates it passed (``v1_shape_eligible`` by the reference's rule,
+    ``v2_shape_eligible`` by the card's table budget)."""
     dev = resolve_device(device)
     arrays = tuple(np.asarray(a) for a in batch_arrays)
     B, P, R = arrays[6].shape
@@ -80,7 +81,14 @@ def sharded_multi_solve(
     route = pack_kernel_v2.fused_route(S, F, R, C)
     report = {
         "route": kernel_name(route, dev),
-        "v1_shape_eligible": S * F <= pack_kernel_v2.PALLAS_UNROLL_BUDGET,
+        # the reference's v1 gate: P a multiple of its lane block and S·F
+        # within the unroll budget (its third term, B divisible by the mesh's
+        # data axis, holds for every B on one card)
+        "v1_shape_eligible": bool(
+            P % BLOCK == 0 and S * F <= pack_kernel_v2.PALLAS_UNROLL_BUDGET
+        ),
+        # deliberately the card's gate, not the reference's VMEM gate: the
+        # per-core tables against the L2 budget, whatever n_max is
         "v2_shape_eligible": pack_kernel_v2.v2_tables_fit(S, F, R, C),
         "S": int(S), "F": int(F), "B": int(B), "P": int(P),
     }

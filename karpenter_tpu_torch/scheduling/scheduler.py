@@ -23,26 +23,33 @@ class Scheduler:
         rng: Optional[random.Random] = None,
         device="cuda",
         solver_delta: Optional[bool] = None,
+        canary_rate: Optional[float] = None,
     ):
         """``device`` is where the ``solver: tpu`` pack runs: ``cuda`` (the
         default) needs a card and raises without one; ``cpu`` runs the
         plain PyTorch version. ``solver_delta`` turns on the resident delta
-        path (None = the ``KARPENTER_SOLVER_DELTA`` env twin)."""
+        path (None = the ``KARPENTER_SOLVER_DELTA`` env twin).
+        ``canary_rate`` is the fraction of kernel-served solves the native
+        packer re-solves and compares (None = the ``KARPENTER_CANARY_RATE``
+        env twin, default 0)."""
         from karpenter_tpu_torch.solver.backend import TorchScheduler
 
         self.cluster = cluster
         self.device = resolve_device(device)
         self.ffd = FFDScheduler(cluster, rng=rng)
         self.torch = TorchScheduler(
-            cluster, rng=rng, device=self.device, solver_delta=solver_delta
+            cluster, rng=rng, device=self.device, solver_delta=solver_delta,
+            canary_rate=canary_rate,
         )
 
     def last_stage_profile(self) -> dict:
         """Per-stage timings of the most recent ``solver: tpu`` solve (sort /
         inject / encode / pack_fetch / decode / validate seconds, each stage
         served from resident state under its ``*_delta_s`` key;
-        pack_dispatches; packer_backend, what served; pack_route, which
-        caller ran it: fused, unfused or the router's native)."""
+        pack_dispatches; packer_backend, what served — on a cpu scheduler
+        ``ffd-degraded`` when the FFD floor did, absent when the signature
+        closure overflowed (a card scheduler raises instead); pack_route,
+        which caller ran it: fused, unfused or the router's native)."""
         return dict(self.torch.last_profile)
 
     def solve(

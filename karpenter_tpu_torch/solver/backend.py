@@ -39,9 +39,34 @@ the CPU their plain versions ``pack_reference`` / ``pack_v2_reference``, or
 ``native``) and which caller ran it (``pack_route``: ``fused``,
 ``unfused``, or ``native`` for the router's native backend). On CUDA
 tensors no path ends in a plain version or in native unless
-``KARPENTER_PACKER`` asks for it: a kernel failure that the ladder cannot
-route around raises, as do ``SignatureOverflow`` and a plan that fails
-validation.
+``KARPENTER_PACKER`` asks for it.
+
+**The degrade ladder** (``solve``), in the reference's order. Each trigger
+is met when the accelerated path failed a batch or answered it wrongly:
+
+- the signature closure overflows twice (the cache-clearing retry
+  included): nothing is recorded;
+- the shape class's pack breaker (``_pack_breakers``, one per
+  ``_route_key``) is open: no pack is attempted;
+- the pack raises at begin or at finish (on the card: both kernels
+  failed): one failure on the breaker;
+- the NaN/bounds screen (``integrity.screen_result``) fails over the raw
+  host result, or the decoded plan fails ``_validate_pack``: the shape
+  class is quarantined (``_quarantine_source``: its breaker tripped, the
+  integrity counter bumped, an ``IntegrityQuarantine`` Warning event).
+
+Each such round logs at ERROR (with the traceback where an exception
+caused it; the reference logs the overflow at WARNING and the open breaker
+not at all). Then a ``device="cpu"`` scheduler serves the batch from the
+host FFD floor (``_ffd_degrade``), as the reference does: ``packer_backend``
+is ``ffd-degraded``, or absent after an overflow. A card scheduler has no
+floor: it raises (``SignatureOverflow``, ``BreakerOpen``, the pack's own
+exception, ``InvalidPackError``), so a kernel that fails or answers wrongly
+shows as a failed round, never as a slower plan made on the host. A valid
+plan served by a kernel or its plain version is re-solved, at
+``canary_rate``, by the native packer on a daemon thread
+(``_maybe_canary``); a disagreement quarantines the shape class, so its
+next round meets the open breaker.
 
 **Shadow probes** (``device="cpu"`` schedulers only). A probe runs on its
 own daemon thread while the next solve runs. It may touch only state that is safe to share: the batch (read
@@ -89,14 +114,22 @@ from karpenter_tpu_torch.api.objects import NodeSelectorRequirement, Pod
 from karpenter_tpu_torch.api.provisioner import Constraints
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
 from karpenter_tpu_torch.kube.client import Cluster
+from karpenter_tpu_torch.resilience import BreakerBoard, BreakerOpen
 from karpenter_tpu_torch.scheduling.ffd import (
+    FFDScheduler,
     VirtualNode,
     daemon_overhead,
     sort_pods_ffd_with_statics,
 )
-from karpenter_tpu_torch.scheduling.topology import Topology
+from karpenter_tpu_torch.scheduling.topology import (
+    Topology,
+    restore_selectors,
+    snapshot_selectors,
+)
 from karpenter_tpu_torch.solver import encode as enc
-from karpenter_tpu_torch.solver import fused, kernel, native, pack_kernel, pack_kernel_v2
+from karpenter_tpu_torch.solver import (
+    fused, integrity, kernel, native, pack_kernel, pack_kernel_v2,
+)
 from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
 from karpenter_tpu_torch.solver.delta import ResidentEncoder
 from karpenter_tpu_torch.solver.kernel import PackResult
@@ -111,6 +144,13 @@ logger = logging.getLogger("karpenter.solver")
 # P slots (the unfused ladder and native start at max(256, P // 4))
 N_MAX_FIRST = 512
 
+# Per-shape-class pack breaker: two failures of a shape class open it and
+# its solves meet the open breaker at once (no failure latency per batch)
+# until a half-open probe finds the accelerated path healthy again.
+PACK_BREAKER_WINDOW = 6
+PACK_BREAKER_MIN_VOLUME = 2
+PACK_BREAKER_OPEN_SECONDS = 30.0
+
 # (P, S, F, n_max) whose fused dispatch or fetch failed — those shapes take
 # the unfused ladder from then on (pack_kernel._failed_shapes is the
 # ladder's own memo). Written from solve threads and a cpu scheduler's
@@ -124,6 +164,9 @@ KERNELS = {
     "v1": ("pack_first_fit", "pack_reference"),
     "v2": ("pack_first_fit_v2", "pack_v2_reference"),
 }
+# what the reference calls the "device" backend: a kernel or its plain
+# version served the pack (never native). Only such packs are canaried.
+DEVICE_BACKENDS = frozenset(name for pair in KERNELS.values() for name in pair)
 
 
 def pack_unfused(*args, n_max: int, packer: str = "auto") -> Tuple[str, PackResult]:
@@ -163,6 +206,12 @@ def _env_bool(key: str, default: bool = False) -> bool:
     return os.environ.get(key, "true" if default else "false").strip().lower() == "true"
 
 
+def _env_float(key: str, default: float = 0.0) -> float:
+    """The float env contract: unset or blank is ``default``."""
+    raw = os.environ.get(key, "").strip()
+    return float(raw) if raw else default
+
+
 def kernel_name(route: str, device: torch.device) -> str:
     """The kernel a route runs on ``device``: the CUDA kernel on the card,
     its plain version on the CPU."""
@@ -171,7 +220,8 @@ def kernel_name(route: str, device: torch.device) -> str:
 
 
 class InvalidPackError(RuntimeError):
-    """A decoded plan broke a host-checked invariant."""
+    """A pack result failed the integrity screen, or its decoded plan broke
+    a host-checked invariant (raised on the card, which has no floor)."""
 
 
 def _with_hostname(reqs, hostname: str, cache: dict):
@@ -218,10 +268,36 @@ class TorchScheduler:
         rng: Optional[random.Random] = None,
         device="cuda",
         solver_delta: Optional[bool] = None,
+        canary_rate: Optional[float] = None,
     ):
         self.device = resolve_device(device)
         self.cluster = cluster
+        # the canary cross-check rate: the fraction of kernel-served solves
+        # re-solved on the native packer off the hot path and compared.
+        # None = the env twin
+        self.canary_rate = (
+            float(canary_rate) if canary_rate is not None
+            else _env_float("KARPENTER_CANARY_RATE")
+        )
+        # seeded so a run's canary sampling is reproducible; the rate, not
+        # the sequence, is the contract
+        self._canary_rng = random.Random(0xCA7A17)  # guarded-by: self._canary_lock
+        self._canary_thread: Optional[threading.Thread] = None  # guarded-by: self._canary_lock
+        self._canary_lock = threading.Lock()
         self.topology = Topology(cluster, rng=rng)
+        # the degrade ladder's floor, sharing the topology's rng. Only a cpu
+        # scheduler has one: on the card a failed or wrong pack raises
+        self._floor_serves = self.device.type != "cuda"
+        self._ffd_fallback = FFDScheduler(cluster, rng=rng) if self._floor_serves else None
+        # per-shape-class breakers over the whole accelerated pack: a shape
+        # whose pack keeps failing meets the open breaker at once instead
+        # of re-paying the failure latency every solve
+        self._pack_breakers = BreakerBoard(
+            window=PACK_BREAKER_WINDOW,
+            min_volume=PACK_BREAKER_MIN_VOLUME,
+            failure_rate=0.5,
+            open_seconds=PACK_BREAKER_OPEN_SECONDS,
+        )
         # solve-invariant encode state (signature table, capacity matrix),
         # reused across this scheduler's batches
         self._encode_cache = enc.EncodeCache()
@@ -316,22 +392,66 @@ class TorchScheduler:
             "inject_delta_s" if (not topo or plan_reused) else "inject_s"
         ] = time.perf_counter() - t0
 
+        def degrade() -> List[VirtualNode]:
+            return self._ffd_degrade(constraints, instance_types, pods, daemon, plan)
+
         t0 = time.perf_counter()
-        if resident is not None:
-            batch, enc_kind = self._resident_encode(
-                constraints, instance_types, pods, sts, daemon, plan,
-                topo=topo, plan_reused=plan_reused,
-            )
-        else:
-            batch = self._encode_retry(constraints, instance_types, pods, daemon, plan)
-            enc_kind = "full"
+        try:
+            if resident is not None:
+                batch, enc_kind = self._resident_encode(
+                    constraints, instance_types, pods, sts, daemon, plan,
+                    topo=topo, plan_reused=plan_reused,
+                )
+            else:
+                batch = self._encode_retry(constraints, instance_types, pods, daemon, plan)
+                enc_kind = "full"
+        except SignatureOverflow as e:
+            # as the reference: no packer_backend is recorded for the round
+            return self._fail(e, prof, degrade, "signature closure overflowed",
+                              backend=None, exc_info=True)
         prof["encode_delta_s" if enc_kind != "full" else "encode_s"] = (
             time.perf_counter() - t0
         )
 
+        # the shape class's pack breaker: while open, no pack is attempted.
+        # A closed (or half-open-probing) breaker sees the pack's outcome.
+        breaker = self._pack_breakers.get(self._breaker_key(batch))
+        if not breaker.allow():
+            return self._fail(
+                BreakerOpen(breaker.dependency, breaker.retry_in()), prof, degrade,
+                f"pack breaker {breaker.dependency} is open",
+            )
+        # begin and finish are two guarded steps, as the reference's
+        # dispatch and fetch are
         t0 = time.perf_counter()
-        result, typemask = self._pack(batch, prof)()
+        try:
+            finish = self._pack(batch, prof)
+        except Exception as e:
+            breaker.record_failure()
+            return self._fail(e, prof, degrade, "accelerated pack failed", exc_info=True)
+        try:
+            result, typemask = finish()
+        except Exception as e:
+            breaker.record_failure()
+            return self._fail(e, prof, degrade, "accelerated pack failed", exc_info=True)
         prof["pack_fetch_s"] = time.perf_counter() - t0
+
+        # the NaN/bounds screen over the RAW result, before decode can
+        # launder non-finite totals into a plausible-looking plan; it runs
+        # on every accelerated solve, so detection never depends on the
+        # sampled canary
+        screen = integrity.screen_result(result, n_pods=batch.n_pods)
+        if screen:
+            integrity.record_screen_failure("")
+            self._quarantine_source("screen", screen, batch)
+            return self._fail(
+                InvalidPackError(
+                    f"{prof.get('packer_backend')} failed the integrity screen: {screen}"
+                ),
+                prof, degrade,
+                f"accelerated pack failed the integrity screen ({screen}); source quarantined",
+            )
+        breaker.record_success()
 
         t0 = time.perf_counter()
         nodes = self._decode(batch, result, typemask, constraints, instance_types)
@@ -358,10 +478,129 @@ class TorchScheduler:
                 self._validate_memo = (self._dec_memo, pods, dict(daemon))
             prof["validate_s"] = time.perf_counter() - t0
         if violation:
-            raise InvalidPackError(
-                f"{prof['packer_backend']} produced an invalid plan: {violation}"
+            # a correctness failure: the shape class is quarantined at once
+            self._quarantine_source("invalid_pack", violation, batch)
+            return self._fail(
+                InvalidPackError(
+                    f"{prof.get('packer_backend')} produced an invalid plan: {violation}"
+                ),
+                prof, degrade,
+                f"accelerated pack produced an invalid plan ({violation}); source quarantined",
             )
+        # the canary cross-check: a sampled fraction of kernel-served solves
+        # is re-solved on the native packer off the hot path and compared —
+        # the layer that catches a plausible-shaped, screen-clean wrong pack
+        self._maybe_canary(batch, result, prof)
         return nodes
+
+    @staticmethod
+    def _breaker_key(batch: enc.EncodedBatch) -> str:
+        return "pack:" + "x".join(map(str, TorchScheduler._route_key(batch)))
+
+    def _fail(self, error: Exception, prof: Dict, degrade, what: str,
+              backend: Optional[str] = "ffd-degraded", exc_info: bool = False):
+        """The end of every degrade trigger, after its bookkeeping: log
+        ``what`` at ERROR, then serve the batch from the FFD floor on a cpu
+        scheduler (recording ``backend`` as what served, None for nothing)
+        or raise ``error`` on the card. ``exc_info`` from an ``except``
+        block puts the traceback in the log."""
+        logger.error(
+            "%s; %s", what,
+            "FFD floor serves this batch" if self._floor_serves else "the round fails",
+            exc_info=exc_info,
+        )
+        if not self._floor_serves:
+            raise error
+        if backend is not None:
+            prof["packer_backend"] = backend
+        return degrade()
+
+    def _ffd_degrade(self, constraints, instance_types, pods, daemon, plan) -> List[VirtualNode]:
+        """The degrade ladder's floor: materialize the topology plan into
+        the pods' selectors (restored afterwards — the accelerated path's
+        never-mutate contract) and serve the batch with the host FFD."""
+        saved = snapshot_selectors(pods)
+        try:
+            plan.materialize(list(pods))
+            return self._ffd_fallback.solve_injected(
+                constraints, instance_types, pods, daemon
+            )
+        finally:
+            restore_selectors(pods, saved)
+
+    # -- integrity ------------------------------------------------------------
+
+    def _integrity_event(self, reason: str, detail: str) -> None:
+        """Every quarantine is a cluster Warning event: an operator sees
+        'this source produced corrupt data' next to the pods it almost
+        mis-scheduled."""
+        try:
+            from karpenter_tpu_torch.kube.events import recorder_for
+
+            recorder_for(self.cluster).event(
+                "Solver", "in-process", "IntegrityQuarantine",
+                f"pack integrity violation ({reason}): {detail} — "
+                "docs/integrity.md has the runbook",
+                type="Warning",
+            )
+        except Exception:
+            logger.debug("integrity event write failed", exc_info=True)
+
+    def _quarantine_source(self, reason: str, detail: str, batch: enc.EncodedBatch) -> None:
+        """Quarantine what produced a corrupt pack RESULT (screen, canary,
+        invalid decoded plan): on the in-process path that is the shape
+        class's pack breaker, tripped at once (local corruption has no
+        address to blame)."""
+        self._pack_breakers.get(self._breaker_key(batch)).trip()
+        integrity.record_quarantine("", reason, detail)
+        self._integrity_event(reason, detail)
+
+    def _maybe_canary(self, batch: enc.EncodedBatch, result, prof: Dict) -> None:
+        """Start the canary cross-check for a ``canary_rate`` fraction of
+        the solves a kernel (or its plain version) served: re-solve the
+        SAME encoded batch on the native packer OFF the hot path (a daemon
+        thread, at most one in flight) and compare. Native packs are never
+        canaried. A caller that reads the counters joins
+        ``_canary_thread`` first."""
+        if self.canary_rate <= 0 or prof.get("packer_backend") not in DEVICE_BACKENDS:
+            return
+        if not native.native_available():
+            return
+        with self._canary_lock:
+            if self._canary_rng.random() >= self.canary_rate:
+                return
+            if self._canary_thread is not None and self._canary_thread.is_alive():
+                return  # previous canary still comparing; sample the next draw
+            t = threading.Thread(
+                target=self._canary_check, args=(batch, result),
+                name="karpenter-integrity-canary", daemon=True,
+            )
+            self._canary_thread = t
+            # started under the lock, like the shadow probe: is_alive() is
+            # False for an assigned-but-unstarted thread
+            t.start()
+
+    def _canary_check(self, batch: enc.EncodedBatch, result) -> None:
+        """The canary body (synchronous; tests call it directly): a native
+        re-solve on host arrays at the served result's node-table size, an
+        exact compare, the shape class quarantined on disagreement."""
+        try:
+            n_max = int(np.asarray(result[1]).shape[0])  # node_sig is [n_max]
+            reference = native.pack_native(*batch.pack_args(), n_max=n_max)
+            diff = integrity.compare_results(result, reference, n_pods=batch.n_pods)
+        except Exception:
+            # a canary that cannot run proves nothing either way — it must
+            # never fail a healthy solve
+            logger.debug("integrity canary re-solve failed", exc_info=True)
+            return
+        integrity.record_canary("", mismatch=diff is not None)
+        if diff is None:
+            return
+        logger.error(
+            "integrity canary mismatch (%s) for pack served in-process; "
+            "quarantining", diff,
+        )
+        self._quarantine_source("canary", diff, batch)
 
     def _resident_encode(
         self, constraints, instance_types, pods, sts, daemon, plan,
@@ -389,7 +628,8 @@ class TorchScheduler:
         """Encode with the reusable cache; a cached table accumulates
         signatures across batches, so an overflow may be an accumulation
         artifact — drop the cache and retry fresh. A second overflow means
-        the batch itself is too diverse, and raises."""
+        the batch itself is too diverse, and raises: ``solve`` then serves
+        the batch from the FFD floor, or raises on the card."""
         try:
             return enc.encode(
                 constraints, instance_types, pods, daemon, cache=self._encode_cache,

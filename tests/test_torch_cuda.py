@@ -1,6 +1,9 @@
 """Card-only tests of the PyTorch port: the CUDA kernels against their plain
 versions, and the port's cuda paths (single solve on both routes,
-multi-solve) against its cpu paths. Every comparison is exact.
+multi-solve) against its cpu paths, and the degrade ladder on the card,
+which raises where a cpu scheduler serves its FFD floor (both kernels
+failing, the canary over a full-width kernel result, a NaN in the fetched
+buffer). Every comparison is exact.
 
 Marked ``cuda``; each skips without a CUDA device (decided in a fixture,
 never at import). This file imports neither JAX nor the JAX package, so it
@@ -525,3 +528,129 @@ def test_auto_on_card_never_consults_the_router(cuda, monkeypatch):
         assert (prof["packer_backend"], prof["pack_route"]) == ("pack_first_fit", "fused"), r
     assert sched.torch.router.report() == {} and native.calls == calls
     assert sched.torch._probe_thread is None
+
+
+# -- the degrade ladder on the card ---------------------------------------------
+
+
+def _break_both_kernels(monkeypatch):
+    """Both kernels raise wherever the card's paths call them (the fused
+    route imports pack_first_fit by name); returns the list of calls."""
+    calls = []
+
+    def broken(*a, **kw):
+        calls.append(1)
+        raise RuntimeError("kernel launch failed (test)")
+
+    monkeypatch.setattr(fused, "pack_first_fit", broken)
+    monkeypatch.setattr(pack_kernel, "pack_first_fit", broken)
+    monkeypatch.setattr(pack_kernel_v2, "pack_first_fit_v2", broken)
+    return calls
+
+
+def test_both_kernels_failing_raise_then_the_breaker_opens(cuda, monkeypatch):
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.resilience import BreakerOpen
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import integrity
+
+    monkeypatch.delenv("KARPENTER_PACKER", raising=False)
+    prov, catalog, pods = scenario("karpenter_tpu_torch", "diverse", 700, 42, 50)
+    calls = _break_both_kernels(monkeypatch)
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    launches = (pack_kernel.launches, pack_kernel_v2.launches)
+    seen = []
+    for r in range(2):
+        with pytest.raises(RuntimeError, match="no kernel served"):
+            sched.solve(prov, catalog, pods)
+        seen.append(len(calls))
+    with pytest.raises(BreakerOpen, match="pack:"):
+        sched.solve(prov, catalog, pods)
+    seen.append(len(calls))
+    # round 1: the fused v1 dispatch at n_max 512, then the ladder's v1 and
+    # v2 at the same 512 slots; round 2: the failed-fused memo sends the
+    # shape to the ladder at once, which starts at max(256, P // 4) = 256
+    # slots, a table its own memo has not seen, so v1 and v2 are tried
+    # again; round 3: the breaker is open and nothing is called
+    assert seen == [3, 5, 5]
+    assert (pack_kernel.launches, pack_kernel_v2.launches) == launches
+    (key,) = sched.torch._pack_breakers.open_dependencies()
+    assert key.startswith("pack:")
+    assert integrity.totals()["quarantines"] == 0
+
+
+@pytest.mark.parametrize("name", ["headline", "team mix"])
+def test_canary_holds_a_full_width_kernel_result(cuda, monkeypatch, name):
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import integrity, native
+    from karpenter_tpu_torch.testing import diverse_pods, make_pod, make_provisioner
+
+    monkeypatch.delenv("KARPENTER_PACKER", raising=False)
+    assert native.native_available(wait=180)
+    if name == "headline":
+        catalog, pods = instance_types(400), diverse_pods(10000, random.Random(42))
+    else:
+        rng = random.Random(9)
+        catalog = instance_types_tradeoff(400)
+        pods = [make_pod(requests={"cpu": f"{rng.choice([0.25, 0.5, 1])}"},
+                         node_selector={"team": f"t{i % 64}"}) for i in range(10000)]
+    sched = Scheduler(Cluster(), rng=random.Random(1), canary_rate=0.0)
+    served = []
+    real = sched.torch._pack
+
+    def keep(batch, prof):
+        finish = real(batch, prof)
+
+        def done():
+            out = finish()
+            served.append((batch, out[0]))
+            return out
+        return done
+
+    sched.torch._pack = keep
+    sched.solve(make_provisioner(solver="tpu"), catalog, pods)
+    kernel = "pack_first_fit" if name == "headline" else "pack_first_fit_v2"
+    assert sched.last_stage_profile()["packer_backend"] == kernel
+    (batch, result), = served
+    sched.torch._canary_check(batch, result)
+    totals = integrity.totals()
+    assert totals["canary_solves"] == 1 and totals["canary_mismatches"] == 0
+    assert totals["quarantines"] == 0 and not sched.torch._pack_breakers.open_dependencies()
+
+
+def test_nan_in_the_fetched_buffer_is_screened_and_quarantined(cuda, monkeypatch):
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.resilience import BreakerOpen
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import integrity
+    from karpenter_tpu_torch.solver.backend import InvalidPackError
+
+    monkeypatch.delenv("KARPENTER_PACKER", raising=False)
+    prov, catalog, pods = scenario("karpenter_tpu_torch", "diverse", 700, 42, 50)
+    real = fused.split_fused
+
+    def nan_in_buffer(*a, **kw):
+        result, typemask = real(*a, **kw)
+        result.node_req[0, 0] = np.nan  # a view into the fetched host buffer
+        return result, typemask
+
+    monkeypatch.setattr(fused, "split_fused", nan_in_buffer)
+    cluster = Cluster()
+    sched = Scheduler(cluster, rng=random.Random(1))
+    before = pack_kernel.launches
+    with pytest.raises(InvalidPackError, match="failed the integrity screen"):
+        sched.solve(prov, catalog, pods)
+    assert pack_kernel.launches == before + 1  # the kernel ran; its result was refused
+    assert sched.last_stage_profile()["packer_backend"] == "pack_first_fit"
+    totals = integrity.totals()
+    assert totals["screen_failures"] == 1 and totals["quarantines"] == 1
+    assert len(sched.torch._pack_breakers.open_dependencies()) == 1
+    (event,) = cluster.list("events")
+    assert (event.type, event.reason) == ("Warning", "IntegrityQuarantine")
+    assert "node_req contains non-finite values" in event.message
+    # the quarantined shape's next round meets the open breaker: no launch
+    with pytest.raises(BreakerOpen):
+        sched.solve(prov, catalog, pods)
+    assert pack_kernel.launches == before + 1

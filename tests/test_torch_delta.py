@@ -427,25 +427,30 @@ def test_memo_hit_nodes_are_independent_copies():
 
 def test_failed_validation_raises_and_never_arms_the_skip_memo():
     """A bad plan is re-validated every round no matter how often it
-    repeats bit for bit: the skip memo arms only on a pass. The port raises
-    where the reference quarantines."""
+    repeats bit for bit: the skip memo arms only on a pass. The scheduler
+    is set up as a card's, which raises where the reference serves its
+    floor; the quarantine is stubbed, as the reference's test stubs it, so
+    the tripped breaker does not refuse later rounds before validation."""
     from karpenter_tpu_torch.solver.backend import InvalidPackError
 
     env = Topo("karpenter_tpu_torch")
     env.solve()
     sched = env.backend
     sched._validate_memo = None
-    calls = []
+    sched._floor_serves = False
+    calls, quarantines = [], []
 
     def failing(nodes, pods, daemon):
         calls.append(1)
         return "forced violation (test)"
 
     sched._validate_pack = failing
+    sched._quarantine_source = lambda reason, detail, batch: quarantines.append(reason)
     for rnd in range(3):
         with pytest.raises(InvalidPackError, match="forced violation"):
             env.solve()
         assert len(calls) == rnd + 1
+        assert quarantines == ["invalid_pack"] * (rnd + 1)
         assert sched._validate_memo is None
         assert "validate_s" in env.sched.last_stage_profile()
     assert "decode_delta_s" in env.sched.last_stage_profile()

@@ -9,9 +9,8 @@ forcing, against the JAX package's.
 - every ``KARPENTER_PACKER`` value through ``Scheduler.solve`` on both
   packages: ``auto``, ``fused``, ``native`` and ``scan`` give the JAX
   package's plan under the same value; ``pallas`` raises on the CPU in the
-  JAX package's ``pack_best`` and the port's ``pack_unfused`` (the JAX
-  scheduler then takes its FFD floor, which the port does not have: its
-  scheduler raises);
+  JAX package's ``pack_best`` and the port's ``pack_unfused``, and both
+  schedulers then serve the reference's FFD floor plan (``ffd-degraded``);
 - a batch whose ids do not fit the compact int16 table takes the unfused
   route with the JAX package's plan;
 - the host typemask decode (``typemask None``) gives the fused typemask's
@@ -147,16 +146,19 @@ def test_every_packer_value_gives_the_jax_plan(native_built, value, route):
 
 @pytest.mark.parametrize("route", sorted(SHAPES))
 def test_pallas_raises_without_a_card(route):
+    """The forced rung raises without a card in both packages' unfused
+    ladders; each scheduler then serves the batch from its FFD floor."""
     f = team_fields() if route == "v2" else pinned_fields()
     with packer("pallas"):
         with pytest.raises(RuntimeError, match="KARPENTER_PACKER=pallas"):
             jax_pallas.pack_best(*kernel_args(f), n_max=64)
     with pytest.raises(RuntimeError, match="KARPENTER_PACKER=pallas"):
         backend.pack_unfused(*cpu_args(f), n_max=64, packer="pallas")
-    with pytest.raises(RuntimeError, match="KARPENTER_PACKER=pallas"):
-        solve("karpenter_tpu_torch", *SHAPES[route], "pallas")
-    _, ref_prof = solve("karpenter_tpu", *SHAPES[route], "pallas")
-    assert ref_prof["packer_backend"] == "ffd-degraded"  # the reference's floor
+    out, prof = solve("karpenter_tpu_torch", *SHAPES[route], "pallas")
+    ref, ref_prof = solve("karpenter_tpu", *SHAPES[route], "pallas")
+    assert ref_prof["packer_backend"] == prof["packer_backend"] == "ffd-degraded"
+    assert len(out) == len(ref) > 0
+    assert out == ref  # the reference's floor plan
 
 
 def test_cpu_ladder_takes_native_when_built_else_the_plain_version(native_built, monkeypatch):

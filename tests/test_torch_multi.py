@@ -73,6 +73,23 @@ def test_multi_solve_matches_jax(n_types, tradeoff, route):
     assert report["v2_shape_eligible"]
 
 
+@pytest.mark.parametrize("n_pods,P", [(50, 64), (1250, 2048)])
+def test_route_report_v1_gate_matches_jax(n_pods, P):
+    """``v1_shape_eligible`` by the reference's rule (P a multiple of 128,
+    S·F within the unroll budget, B divisible by the data axis) on a stack
+    at the smallest pod bucket and on one at the multi-solve's bench size.
+    ``v2_shape_eligible`` keeps the card's table gate (a deliberate
+    difference), so it is not compared."""
+    arrays, mask, usable, prices = stack("karpenter_tpu", n_pods, 24, (100, 101), False)
+    assert arrays[6].shape[1] == P
+    _, _, ref_route = jax_sharding.sharded_multi_solve(
+        jax_sharding.make_solver_mesh(1), arrays, mask, usable, prices, n_max=64
+    )
+    _, _, report = sharding.sharded_multi_solve("cpu", arrays, mask, usable, prices, n_max=64)
+    assert report["v1_shape_eligible"] == ref_route["v1_shape_eligible"] == (P % 128 == 0)
+    assert report["S"] * report["F"] <= 1024
+
+
 def test_multi_solve_stacks_port_encoded_batches_like_jax():
     # the port's own encode gives the arrays the JAX stack is built from
     ref = stack("karpenter_tpu", 200, 40, (7, 8), True)

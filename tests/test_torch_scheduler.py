@@ -104,7 +104,9 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'karpenter_tpu' or m.startswith('karpenter_tpu.'))\n"
         "n = sum(1 for m in sys.modules if m.startswith('karpenter_tpu_torch.'))\n"
-        "new = all(f'karpenter_tpu_torch.solver.{m}' in sys.modules for m in ('router', 'native'))\n"
+        "new = all(f'karpenter_tpu_torch.{m}' in sys.modules for m in (\n"
+        "    'solver.router', 'solver.native', 'solver.integrity', 'resilience.breaker',\n"
+        "    'kube.events'))\n"
         "print(n, new, bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

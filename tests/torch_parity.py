@@ -71,11 +71,27 @@ def interpret(monkeypatch):
     clear()
 
 
+def _reset_integrity():
+    """Both packages' integrity counters zeroed. The JAX package's module
+    is reset only when a test already imported it: the card-only tests
+    import this module where JAX is absent."""
+    import sys
+
+    from karpenter_tpu_torch.solver import integrity
+
+    integrity.reset()
+    ref = sys.modules.get("karpenter_tpu.solver.integrity")
+    if ref is not None:
+        ref.reset()
+
+
 @pytest.fixture(autouse=True)
 def fresh_router():
     """The port's process-shared cost router reset before and after each
-    test, and the port's two failed-shape memos restored after it, so test
-    order never changes routing. Autouse in every module that imports it."""
+    test, the port's two failed-shape memos restored after it, and both
+    packages' integrity counters zeroed before and after it, so test order
+    never changes routing or the counters a test reads. Autouse in every
+    module that imports it."""
     from karpenter_tpu_torch.solver import backend, pack_kernel, router
 
     memos = (
@@ -87,8 +103,10 @@ def fresh_router():
         with lock:
             saved.append(set(memo))
     router.reset_default()
+    _reset_integrity()
     yield
     router.reset_default()
+    _reset_integrity()
     for (lock, memo), was in zip(memos, saved):
         with lock:
             memo.clear()
