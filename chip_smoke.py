@@ -110,11 +110,35 @@ Phases (any failure exits non-zero; nothing is swallowed):
              node_req[0, 0] after the screen with the canary on — served
              by the kernel, 1 canary mismatch, the shape quarantined, the
              next round BreakerOpen with no launch;
+12. sidecar — (after phase 11) the solver sidecar on the card at full
+             width (the headline and the team mix, nothing cut). (a) always:
+             a warm-up SolverService must turn ready; frames built with the
+             port's codec from each batch's pack_args() go straight to
+             SolverService.open_session_bytes / solve_bytes on the card:
+             the session tensors pinned on the card, 3 untraced rounds at
+             the node table the backend sends a sidecar (max(256, P // 4))
+             whose fused buffers must equal kernel.fuse_result of the
+             in-process backend.pack_unfused on the same tensors byte for
+             byte, one traced round for the sidecar's [solve_s, fetch_s,
+             serialize_s] trailer, served naming pack_first_fit (headline)
+             or pack_first_fit_v2 (team mix) on every dispatch; then one
+             frame each reaching NEEDS_CATALOG, DEADLINE_EXCEEDED,
+             NEEDS_DELTA_BASE, INTEGRITY and OVERLOADED, none dispatched.
+             (b) when grpc imports on this host (else it prints that the
+             CPU tests hold it): serve() on the card and a device="cpu"
+             Scheduler pointed at it under KARPENTER_PACKER=fused: 3
+             headline and 3 team-mix rounds, 3 resident headline rounds
+             (delta establish, elide, elide), a team-mix one-pod swap
+             (delta patch), a checksummed round, and a round after a
+             sidecar restart on the same address (re-opened through
+             NEEDS_CATALOG); every round served by the sidecar with the
+             card's plan, its wire and pack stages printed;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
-             6 and 8 for pack_first_fit_v2), on the unfused route (phase 9),
-             the native packer's time on the same batches, and ``degrade``:
-             phase 11's canary solves and mismatches and its launches under
+             6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
+             and through the sidecar (phase 12, by part), the native
+             packer's time on the same batches, and ``degrade``: phase
+             11's canary solves and mismatches and its launches under
              injection.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
@@ -1247,9 +1271,9 @@ def degrade_phase(card: str, classes: dict) -> dict:
         canary_ms, canary_n_max, screen_ms = [], [], []
         real_check, real_screen = backend.TorchScheduler._canary_check, integrity.screen_result
 
-        def timed_check(self, batch, result):
+        def timed_check(self, batch, result, address=""):
             t0 = time.perf_counter()
-            real_check(self, batch, result)
+            real_check(self, batch, result, address)
             canary_ms.append((time.perf_counter() - t0) * 1e3)
             canary_n_max.append(int(np.asarray(result[1]).shape[0]))
 
@@ -1477,6 +1501,252 @@ def degrade_phase(card: str, classes: dict) -> dict:
 
 
 
+def free_address() -> str:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"127.0.0.1:{port}"
+
+
+def sidecar_phase(dev, card: str, classes: dict) -> dict:
+    """Phase 12: the solver sidecar on the card, at full width. (a) the
+    device half, byte level: frames built with the port's codec from each
+    batch's pack_args() go straight to a SolverService on the card; every
+    untraced response's fused buffer must equal kernel.fuse_result of the
+    in-process backend.pack_unfused on the same tensors, and every status
+    is reached once. (b) when grpc imports on this host: a device="cpu"
+    scheduler (a controller has no card) against serve() on the card,
+    every round served by the sidecar with the in-process card plan.
+    ``classes`` holds phases 3 and 6's pods and device="cpu" plans (equal
+    to the card plans there). Returns each kernel's launches by part."""
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import backend, integrity, kernel, pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.solver import service as svc_mod
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+
+    S = svc_mod
+    prov = make_provisioner(solver="tpu")
+    catalogs = {"headline": instance_types(400), "team mix": instance_types_tradeoff(400)}
+    batches = {"headline": headline_batch(10000, 400, 42),
+               "team mix": encode_batch(catalogs["team mix"], team_pods(10000, 9))}
+    kernel_of = {"headline": "pack_first_fit", "team mix": "pack_first_fit_v2"}
+    modules = {"pack_first_fit": pack_kernel, "pack_first_fit_v2": pack_kernel_v2}
+    out = {name: {} for name in modules}
+
+    def zero():
+        for m in modules.values():
+            m.launches = 0
+
+    def counts():
+        return {name: m.launches for name, m in modules.items()}
+
+    def key_arr(key):
+        return np.frombuffer(key, np.int32)
+
+    def status_of(resp):
+        return int(S.unpack_arrays(resp)[0].reshape(-1)[0])
+
+    # -- (a) the device half, byte level -------------------------------------
+    svc = S.SolverService()
+    warm = S.SolverService()
+    t0 = time.perf_counter()
+    warm.warmup()
+    if not warm.ready.is_set():
+        raise AssertionError(f"sidecar warm-up left the service unready ({warm.served})")
+    log(f"[sidecar] (a) warm-up {time.perf_counter() - t0:.3f}s: ready, served {warm.served}")
+    frames = {}
+    for cls, batch in batches.items():
+        args = [np.ascontiguousarray(a) for a in batch.pack_args()]
+        P = len(args[0])
+        n_max = max(256, P // 4)  # what TorchScheduler sends a sidecar
+        key = S.catalog_session_key(*args[7:])
+        opened = S.unpack_arrays(svc.open_session_bytes(S.pack_arrays([key_arr(key)] + args[7:])))
+        if int(opened[0][0]) != S.STATUS_OK or int(opened[1][0]) != S.SIDECAR_FEATURES:
+            raise AssertionError(f"sidecar {cls}: open answered {opened}")
+        pinned = svc.session_tensors(key)
+        if any(t.device.type != dev.type for t in pinned):
+            raise AssertionError(f"sidecar {cls}: session tensors not on the card")
+        gpu = device_args(batch, dev)
+        ref_name, ref = backend.pack_unfused(*gpu, n_max=n_max)
+        want = kernel.fuse_result(ref).cpu().numpy().tobytes()
+        if ref_name != kernel_of[cls]:
+            raise AssertionError(f"sidecar {cls}: in-process pack_unfused served {ref_name}")
+        frame = S.pack_arrays([key_arr(key), np.asarray([n_max, 1], np.int32)] + args[:7])
+        frames[cls] = (args, key, n_max, frame)
+        zero()
+        before = dict(svc.served)
+        walls = []
+        for r in range(3):
+            t0 = time.perf_counter()
+            resp = svc.solve_bytes(frame)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            arrays = S.unpack_arrays(resp)
+            if int(arrays[0][0]) != S.STATUS_OK or arrays[1].tobytes() != want:
+                raise AssertionError(f"sidecar {cls} round {r}: status {int(arrays[0][0])}, "
+                                     "fused buffer differs from the in-process pack_unfused")
+            log(f"[sidecar] (a) {cls} untraced round {r}: {walls[-1]:.3f} ms solve_bytes, "
+                f"{len(resp)} bytes, == in-process pack_unfused ({ref_name}, n_max={n_max})")
+        ctx = S._trace_ctx_array(S.TraceContext("5a" * 16, "a5" * 8))
+        t0 = time.perf_counter()
+        resp = svc.solve_bytes(S.pack_arrays(
+            [key_arr(key), np.asarray([n_max, 1], np.int32)] + args[:7] + [ctx]))
+        wall = (time.perf_counter() - t0) * 1e3
+        arrays = S.unpack_arrays(resp)
+        if arrays[1].tobytes() != want:
+            raise AssertionError(f"sidecar {cls}: traced round's buffer differs")
+        solve_s, fetch_s, ser_s = (float(x) for x in arrays[2])
+        log(f"[sidecar] (a) {cls} traced round: {wall:.3f} ms solve_bytes; stage trailer "
+            f"solve_s={solve_s * 1e3:.3f}ms fetch_s={fetch_s * 1e3:.3f}ms "
+            f"serialize_s={ser_s * 1e3:.3f}ms; card {card}")
+        launched = counts()
+        got = {k: svc.served.get(k, 0) - before.get(k, 0) for k in svc.served}
+        got = {k: v for k, v in got.items() if v}
+        if got != {kernel_of[cls]: 4} or launched[kernel_of[cls]] < 4:
+            raise AssertionError(f"sidecar {cls}: served {got}, launches {launched}")
+        out[kernel_of[cls]]["launches_sidecar_device"] = launched[kernel_of[cls]]
+        out[kernel_of[cls]]["sidecar_solve_bytes_ms"] = walls
+    # every refusal once, none of them dispatched
+    args, key, n_max, frame = frames["headline"]
+    dispatches = svc.dispatches
+    head = [key_arr(key), np.asarray([n_max, 1], np.int32)]
+    refusals = {
+        S.STATUS_NEEDS_CATALOG: svc.solve_bytes(S.pack_arrays(
+            [key_arr(bytes(16)), head[1]] + args[:7])),
+        S.STATUS_DEADLINE_EXCEEDED: svc.solve_bytes(S.pack_arrays(
+            head + args[:7] + [np.asarray([0.0], np.float32)])),
+        S.STATUS_NEEDS_DELTA_BASE: svc.solve_bytes(S.pack_arrays(
+            [head[0], np.asarray([n_max, 1, S.PACK_FLAG_DELTA], np.int32),
+             S.delta_header(S.DELTA_ELIDE, 0, bytes(16), bytes(range(16)))])),
+    }
+    corrupt = bytearray(S.append_checksum(frame))
+    corrupt[len(corrupt) // 2] ^= 0x01
+    refusals[S.STATUS_INTEGRITY] = svc.solve_bytes(bytes(corrupt))
+    full = S.SolverService(max_inflight=1, queue_depth=0)
+    if full.admission.enter() != "admitted":
+        raise AssertionError("sidecar: could not hold the one admission slot")
+    try:
+        refusals[S.STATUS_OVERLOADED] = full.solve_bytes(frame)
+    finally:
+        full.admission.leave()
+    for want_status, resp in refusals.items():
+        if status_of(resp) != want_status:
+            raise AssertionError(f"sidecar: expected status {want_status}, got {status_of(resp)}")
+    if svc.dispatches != dispatches or full.dispatches:
+        raise AssertionError("sidecar: a refused frame reached the device")
+    log(f"[sidecar] (a) statuses NEEDS_CATALOG, DEADLINE_EXCEEDED, NEEDS_DELTA_BASE, "
+        f"INTEGRITY, OVERLOADED each answered, 0 dispatched; shed {svc.shed}, "
+        f"checksum failures {svc.checksum_failures}; sessions {svc.session_count()} pinning "
+        f"{svc.resident_bytes()} bytes, device headroom "
+        f"{S.publish_device_headroom(dev)} bytes")
+
+    # -- (b) the client and the transport ------------------------------------
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        log("[sidecar] grpc not installed on this host: (b) is held by the CPU tests")
+        log(f"[sidecar] served {svc.served}, dispatches {svc.dispatches}")
+        return out
+    address = free_address()
+    server = S.serve(address, service=S.SolverService())
+    os.environ["KARPENTER_PACKER"] = "fused"
+    try:
+        # the card plan of the swapped team mix (phases 3 and 6 held the
+        # card's plans of the other batches equal to the cpu plans)
+        team = classes["team mix"]["pods"]
+        last = team[-1]
+        other = next(p.spec.node_selector["team"] for p in team
+                     if p.spec.node_selector["team"] != last.spec.node_selector["team"])
+        swapped = team[:-1] + [make_pod(
+            requests={"cpu": str(last.spec.containers[0].requests["cpu"])},
+            node_selector={"team": other})]
+        card_sched = Scheduler(Cluster(), rng=random.Random(1))
+        swapped_plan = plan_of(card_sched.solve(prov, catalogs["team mix"], swapped), swapped)
+        served(card_sched, "pack_first_fit_v2", "sidecar swapped team mix card plan")
+
+        def sidecar_round(sched, cls, pods, want_plan, what):
+            if not sched.torch.solver_delta:
+                sched.torch.topology.rng = random.Random(1)
+            svc_now = server.solver_service
+            before = dict(svc_now.served)
+            t0 = time.perf_counter()
+            nodes = sched.solve(prov, catalogs[cls], pods)
+            wall = (time.perf_counter() - t0) * 1e3
+            prof = served(sched, "sidecar", f"sidecar {what}")
+            got = {k: svc_now.served.get(k, 0) - before.get(k, 0) for k in svc_now.served}
+            got = {k: v for k, v in got.items() if v}
+            if got != {kernel_of[cls]: prof["pack_dispatches"]}:
+                raise AssertionError(f"sidecar {what}: the sidecar served {got}")
+            if plan_of(nodes, pods) != want_plan:
+                raise AssertionError(f"sidecar {what}: plan differs from the card plan")
+            log(f"[sidecar] (b) {what}: {wall:.3f} ms, nodes={len(nodes)}, "
+                f"wire_ser_s={prof['wire_ser_s'] * 1e3:.3f}ms "
+                f"wire_deser_s={prof['wire_deser_s'] * 1e3:.3f}ms "
+                f"pack_fetch_s={prof['pack_fetch_s'] * 1e3:.3f}ms "
+                f"delta_kind={prof.get('delta_kind')} served {got}; {stage_line(prof)}")
+            return prof
+
+        zero()
+        sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                          solver_service_address=address)
+        for cls in ("headline", "team mix"):
+            for r in range(3):
+                sidecar_round(sched, cls, classes[cls]["pods"], classes[cls]["cpu_plan"],
+                              f"{cls} round {r}")
+        res = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                        solver_service_address=address, solver_delta=True)
+        kinds = [sidecar_round(res, "headline", classes["headline"]["pods"],
+                               classes["headline"]["cpu_plan"],
+                               f"resident headline round {r}").get("delta_kind")
+                 for r in range(3)]
+        if kinds != ["establish", "elide", "elide"]:
+            raise AssertionError(f"sidecar resident headline: delta kinds {kinds}")
+        churn = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                          solver_service_address=address, solver_delta=True)
+        kinds = [sidecar_round(churn, "team mix", pods, plan, f"team mix churn {what}")
+                 .get("delta_kind") for pods, plan, what in (
+                     (team, classes["team mix"]["cpu_plan"], "base"),
+                     (swapped, swapped_plan, "one-pod swap"))]
+        if kinds != ["establish", "patch"]:
+            raise AssertionError(f"sidecar team mix churn: delta kinds {kinds}")
+        checked = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                            solver_service_address=address, pack_checksum=True)
+        sidecar_round(checked, "headline", classes["headline"]["pods"],
+                      classes["headline"]["cpu_plan"], "checksummed headline round")
+        if integrity.totals()["checksum_failures"] or server.solver_service.checksum_failures:
+            raise AssertionError("sidecar: checksum failures on a healthy wire")
+        # a restart on the same address: the next round re-opens through
+        # NEEDS_CATALOG and the new sidecar serves it
+        old = server.solver_service
+        log(f"[sidecar] (b) before restart: served {old.served}, dispatches {old.dispatches}")
+        server.stop(grace=None)
+        server = S.serve(address, service=S.SolverService())
+        uploads = sched.torch._remote.session_uploads
+        sidecar_round(sched, "headline", classes["headline"]["pods"],
+                      classes["headline"]["cpu_plan"], "headline round after a restart")
+        if sched.torch._remote.session_uploads != uploads + 1:
+            raise AssertionError("sidecar restart: no re-open")
+        launched = counts()
+        for name in modules:
+            if not launched[name]:
+                raise AssertionError(f"sidecar (b): {name} never launched")
+            out[name]["launches_sidecar_wire"] = launched[name]
+        log(f"[sidecar] (b) kernel launches {launched}; after restart served "
+            f"{server.solver_service.served}, dispatches {server.solver_service.dispatches}; "
+            f"card {card}")
+    finally:
+        os.environ.pop("KARPENTER_PACKER", None)
+        server.stop(grace=None)
+    log(f"[sidecar] served {svc.served}, dispatches {svc.dispatches} (device half)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1677,7 +1947,14 @@ def main() -> int:
     log(f"[degrade] before phase 11: integrity {totals}")
     degrade = degrade_phase(card, classes)
 
+    # -- 12. sidecar ------------------------------------------------------
+    sidecar = sidecar_phase(dev, card, classes)
+
     # -- 10. kernels ------------------------------------------------------
+    def sidecar_launches(name):
+        return {k.replace("launches_", ""): v for k, v in sidecar[name].items()
+                if k.startswith("launches_")}
+
     kernels = [{
         "name": "pack_first_fit",
         "route": "cuda",
@@ -1685,7 +1962,8 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": main_launches + resident["pack_first_fit"],
         "launches_by_path": {"main": main_launches, "resident": resident["pack_first_fit"],
-                             "route": route["pack_first_fit"]["launches_route"]},
+                             "route": route["pack_first_fit"]["launches_route"],
+                             **sidecar_launches("pack_first_fit")},
         **{k: v for k, v in route["pack_first_fit"].items() if k != "launches_route"},
         "degrade": degrade["pack_first_fit"],
         "max_abs_err": worst,
@@ -1704,7 +1982,8 @@ def main() -> int:
         **v2,
         "launches": v2["launches"] + resident["pack_first_fit_v2"],
         "launches_by_path": {"diverse": v2["launches"], "resident": resident["pack_first_fit_v2"],
-                             "route": route["pack_first_fit_v2"]["launches_route"]},
+                             "route": route["pack_first_fit_v2"]["launches_route"],
+                             **sidecar_launches("pack_first_fit_v2")},
         **{k: v for k, v in route["pack_first_fit_v2"].items() if k != "launches_route"},
         "degrade": degrade["pack_first_fit_v2"],
         "library_ms": None,

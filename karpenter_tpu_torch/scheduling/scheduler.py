@@ -24,6 +24,8 @@ class Scheduler:
         device="cuda",
         solver_delta: Optional[bool] = None,
         canary_rate: Optional[float] = None,
+        solver_service_address: Optional[str] = None,
+        pack_checksum: Optional[bool] = None,
     ):
         """``device`` is where the ``solver: tpu`` pack runs: ``cuda`` (the
         default) needs a card and raises without one; ``cpu`` runs the
@@ -31,7 +33,11 @@ class Scheduler:
         path (None = the ``KARPENTER_SOLVER_DELTA`` env twin).
         ``canary_rate`` is the fraction of kernel-served solves the native
         packer re-solves and compares (None = the ``KARPENTER_CANARY_RATE``
-        env twin, default 0)."""
+        env twin, default 0). ``solver_service_address`` sends the pack to
+        a solver sidecar (``python -m karpenter_tpu_torch.solver.service``)
+        at that ``host:port``; ``pack_checksum`` turns on the wire's frame
+        checksums toward it (None = the ``KARPENTER_PACK_CHECKSUM`` env
+        twin)."""
         from karpenter_tpu_torch.solver.backend import TorchScheduler
 
         self.cluster = cluster
@@ -39,14 +45,17 @@ class Scheduler:
         self.ffd = FFDScheduler(cluster, rng=rng)
         self.torch = TorchScheduler(
             cluster, rng=rng, device=self.device, solver_delta=solver_delta,
-            canary_rate=canary_rate,
+            canary_rate=canary_rate, service_address=solver_service_address,
+            pack_checksum=pack_checksum,
         )
 
     def last_stage_profile(self) -> dict:
         """Per-stage timings of the most recent ``solver: tpu`` solve (sort /
         inject / encode / pack_fetch / decode / validate seconds, each stage
         served from resident state under its ``*_delta_s`` key;
-        pack_dispatches; packer_backend, what served — on a cpu scheduler
+        pack_dispatches; packer_backend, what served — ``sidecar`` for a
+        pack the solver sidecar served (with wire_ser_s, wire_deser_s and
+        solver_address), on a cpu scheduler
         ``ffd-degraded`` when the FFD floor did, absent when the signature
         closure overflowed (a card scheduler raises instead); pack_route,
         which caller ran it: fused, unfused or the router's native)."""

@@ -68,6 +68,23 @@ plan served by a kernel or its plain version is re-solved, at
 (``_maybe_canary``); a disagreement quarantines the shape class, so its
 next round meets the open breaker.
 
+**The sidecar** (``service_address``, the reference's
+``--solver-service-address``). While a sidecar is configured and its
+breaker admits calls, the sidecar owns the card: no fused route is taken
+in process, and each unfused dispatch ships the batch's host arrays
+(``pack_args()``) to the sidecar over the v3 wire
+(``service.RemoteSolver``); ``packer_backend`` is ``sidecar`` and
+``solver_address`` names it. A failed sidecar opens its breaker
+(``_remote_breaker``) and the batch packs in process (the kernel ladder on
+a card scheduler, the host rungs on a cpu one); an overloaded one packs in
+process without touching the breaker; a corrupt exchange (an
+``IntegrityError``) trips it. A shed for the round's deadline
+(``DeadlineExceededError``) moves no breaker: a cpu scheduler serves the
+batch from the floor, a card scheduler raises. A screen failure, an
+invalid plan or a canary mismatch on a sidecar round quarantines the
+sidecar (its breaker tripped). A comma-separated address (a pool) is not
+ported and raises.
+
 **Shadow probes** (``device="cpu"`` schedulers only). A probe runs on its
 own daemon thread while the next solve runs. It may touch only state that is safe to share: the batch (read
 only), ``DeviceInvariants`` and the router (both locked), the two
@@ -114,7 +131,14 @@ from karpenter_tpu_torch.api.objects import NodeSelectorRequirement, Pod
 from karpenter_tpu_torch.api.provisioner import Constraints
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
 from karpenter_tpu_torch.kube.client import Cluster
-from karpenter_tpu_torch.resilience import BreakerBoard, BreakerOpen
+from karpenter_tpu_torch.resilience import (
+    BreakerBoard,
+    BreakerOpen,
+    CircuitBreaker,
+    DeadlineExceededError,
+    IntegrityError,
+    OverloadedError,
+)
 from karpenter_tpu_torch.scheduling.ffd import (
     FFDScheduler,
     VirtualNode,
@@ -141,8 +165,14 @@ from karpenter_tpu_torch.utils.device import resolve_device
 logger = logging.getLogger("karpenter.solver")
 
 # first node-table size of the fused route; a saturated table retries at
-# P slots (the unfused ladder and native start at max(256, P // 4))
+# P slots (the unfused ladder, the sidecar and native start at
+# max(256, P // 4))
 N_MAX_FIRST = 512
+
+# Sidecar RPC budget: a short deadline and an open circuit after a failure,
+# so a dead sidecar costs one bounded stall, not one per batch.
+REMOTE_SOLVE_TIMEOUT = 5.0
+REMOTE_BREAKER_SECONDS = 30.0
 
 # Per-shape-class pack breaker: two failures of a shape class open it and
 # its solves meet the open breaker at once (no failure latency per batch)
@@ -165,8 +195,10 @@ KERNELS = {
     "v2": ("pack_first_fit_v2", "pack_v2_reference"),
 }
 # what the reference calls the "device" backend: a kernel or its plain
-# version served the pack (never native). Only such packs are canaried.
+# version served the pack (never native). Such packs, and the sidecar's
+# (packer_backend "sidecar"), are canaried.
 DEVICE_BACKENDS = frozenset(name for pair in KERNELS.values() for name in pair)
+SIDECAR = "sidecar"
 
 
 def pack_unfused(*args, n_max: int, packer: str = "auto") -> Tuple[str, PackResult]:
@@ -269,9 +301,34 @@ class TorchScheduler:
         device="cuda",
         solver_delta: Optional[bool] = None,
         canary_rate: Optional[float] = None,
+        service_address: Optional[str] = None,
+        pack_checksum: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self.cluster = cluster
+        # the solver sidecar (service.py); None = the in-process pack. A
+        # comma-separated address is a sidecar pool, not ported yet
+        if service_address and "," in service_address:
+            raise NotImplementedError(
+                f"solver_service_address {service_address!r} names a sidecar "
+                "pool; the pool is not ported yet: give one address"
+            )
+        self.service_address = service_address
+        # per-frame wire checksums toward the sidecar (capability-gated);
+        # None = the env twin
+        self.pack_checksum = (
+            bool(pack_checksum) if pack_checksum is not None
+            else _env_bool("KARPENTER_PACK_CHECKSUM")
+        )
+        self._remote = None  # guarded-by: self._remote_init_lock
+        self._remote_init_lock = threading.Lock()
+        # window 1 / min_volume 1: a dead sidecar opens the breaker on ANY
+        # failure and costs one bounded stall; half-open probes re-admit it
+        self._remote_breaker = CircuitBreaker(
+            dependency=f"solver-service:{service_address}" if service_address else "",
+            window=1, min_volume=1, failure_rate=0.5,
+            open_seconds=REMOTE_BREAKER_SECONDS,
+        )
         # the canary cross-check rate: the fraction of kernel-served solves
         # re-solved on the native packer off the hot path and compared.
         # None = the env twin
@@ -423,27 +480,42 @@ class TorchScheduler:
             )
         # begin and finish are two guarded steps, as the reference's
         # dispatch and fetch are
+        # a typed shed is backpressure, not a shape failure: the breaker
+        # stays as it is (the single-sidecar path packs an overload in
+        # process, so what arrives here is the round's expired deadline)
         t0 = time.perf_counter()
         try:
             finish = self._pack(batch, prof)
+        except (OverloadedError, DeadlineExceededError) as e:
+            return self._fail(e, prof, degrade, f"accelerated pack shed ({e})")
         except Exception as e:
             breaker.record_failure()
             return self._fail(e, prof, degrade, "accelerated pack failed", exc_info=True)
         try:
             result, typemask = finish()
+        except (OverloadedError, DeadlineExceededError) as e:
+            return self._fail(e, prof, degrade, f"accelerated pack shed ({e})")
         except Exception as e:
             breaker.record_failure()
             return self._fail(e, prof, degrade, "accelerated pack failed", exc_info=True)
-        prof["pack_fetch_s"] = time.perf_counter() - t0
+        # the wire's serialization is attributed apart (wire_ser_s and
+        # wire_deser_s, set by the sidecar client), so pack_fetch_s is the
+        # dispatch and in-flight wait alone
+        prof["pack_fetch_s"] = max(
+            time.perf_counter() - t0
+            - prof.get("wire_ser_s", 0.0) - prof.get("wire_deser_s", 0.0),
+            0.0,
+        )
 
         # the NaN/bounds screen over the RAW result, before decode can
         # launder non-finite totals into a plausible-looking plan; it runs
         # on every accelerated solve, so detection never depends on the
         # sampled canary
         screen = integrity.screen_result(result, n_pods=batch.n_pods)
+        address = str(prof.get("solver_address") or "")
         if screen:
-            integrity.record_screen_failure("")
-            self._quarantine_source("screen", screen, batch)
+            integrity.record_screen_failure(address)
+            self._quarantine_source("screen", screen, batch, address=address)
             return self._fail(
                 InvalidPackError(
                     f"{prof.get('packer_backend')} failed the integrity screen: {screen}"
@@ -478,8 +550,8 @@ class TorchScheduler:
                 self._validate_memo = (self._dec_memo, pods, dict(daemon))
             prof["validate_s"] = time.perf_counter() - t0
         if violation:
-            # a correctness failure: the shape class is quarantined at once
-            self._quarantine_source("invalid_pack", violation, batch)
+            # a correctness failure: its source is quarantined at once
+            self._quarantine_source("invalid_pack", violation, batch, address=address)
             return self._fail(
                 InvalidPackError(
                     f"{prof.get('packer_backend')} produced an invalid plan: {violation}"
@@ -530,7 +602,7 @@ class TorchScheduler:
 
     # -- integrity ------------------------------------------------------------
 
-    def _integrity_event(self, reason: str, detail: str) -> None:
+    def _integrity_event(self, reason: str, detail: str, address: str = "") -> None:
         """Every quarantine is a cluster Warning event: an operator sees
         'this source produced corrupt data' next to the pods it almost
         mis-scheduled."""
@@ -538,7 +610,7 @@ class TorchScheduler:
             from karpenter_tpu_torch.kube.events import recorder_for
 
             recorder_for(self.cluster).event(
-                "Solver", "in-process", "IntegrityQuarantine",
+                "Solver", address or "in-process", "IntegrityQuarantine",
                 f"pack integrity violation ({reason}): {detail} — "
                 "docs/integrity.md has the runbook",
                 type="Warning",
@@ -546,33 +618,42 @@ class TorchScheduler:
         except Exception:
             logger.debug("integrity event write failed", exc_info=True)
 
-    def _quarantine_source(self, reason: str, detail: str, batch: enc.EncodedBatch) -> None:
-        """Quarantine what produced a corrupt pack RESULT (screen, canary,
-        invalid decoded plan): on the in-process path that is the shape
-        class's pack breaker, tripped at once (local corruption has no
-        address to blame)."""
-        self._pack_breakers.get(self._breaker_key(batch)).trip()
-        integrity.record_quarantine("", reason, detail)
-        self._integrity_event(reason, detail)
+    def _quarantine_source(
+        self, reason: str, detail: str, batch: Optional[enc.EncodedBatch] = None,
+        address: str = "",
+    ) -> None:
+        """Quarantine what produced corrupt data (a wire integrity failure,
+        the screen, the canary, an invalid decoded plan), by the pack's
+        provenance: the sidecar's breaker, tripped at once, when the pack
+        names the sidecar's address; the shape class's pack breaker on the
+        in-process path (local corruption has no address to blame)."""
+        if address and self.service_address:
+            self._remote_breaker.trip()
+        elif batch is not None:
+            self._pack_breakers.get(self._breaker_key(batch)).trip()
+        integrity.record_quarantine(address, reason, detail)
+        self._integrity_event(reason, detail, address)
 
     def _maybe_canary(self, batch: enc.EncodedBatch, result, prof: Dict) -> None:
         """Start the canary cross-check for a ``canary_rate`` fraction of
-        the solves a kernel (or its plain version) served: re-solve the
-        SAME encoded batch on the native packer OFF the hot path (a daemon
-        thread, at most one in flight) and compare. Native packs are never
-        canaried. A caller that reads the counters joins
+        the solves a kernel (or its plain version) or the sidecar served:
+        re-solve the SAME encoded batch on the native packer OFF the hot
+        path (a daemon thread, at most one in flight) and compare. Native
+        packs are never canaried. A caller that reads the counters joins
         ``_canary_thread`` first."""
-        if self.canary_rate <= 0 or prof.get("packer_backend") not in DEVICE_BACKENDS:
+        backend = prof.get("packer_backend")
+        if self.canary_rate <= 0 or (backend not in DEVICE_BACKENDS and backend != SIDECAR):
             return
         if not native.native_available():
             return
+        address = str(prof.get("solver_address") or "")
         with self._canary_lock:
             if self._canary_rng.random() >= self.canary_rate:
                 return
             if self._canary_thread is not None and self._canary_thread.is_alive():
                 return  # previous canary still comparing; sample the next draw
             t = threading.Thread(
-                target=self._canary_check, args=(batch, result),
+                target=self._canary_check, args=(batch, result, address),
                 name="karpenter-integrity-canary", daemon=True,
             )
             self._canary_thread = t
@@ -580,10 +661,11 @@ class TorchScheduler:
             # False for an assigned-but-unstarted thread
             t.start()
 
-    def _canary_check(self, batch: enc.EncodedBatch, result) -> None:
+    def _canary_check(self, batch: enc.EncodedBatch, result, address: str = "") -> None:
         """The canary body (synchronous; tests call it directly): a native
         re-solve on host arrays at the served result's node-table size, an
-        exact compare, the shape class quarantined on disagreement."""
+        exact compare, the serving source (the sidecar at ``address``, else
+        the shape class) quarantined on disagreement."""
         try:
             n_max = int(np.asarray(result[1]).shape[0])  # node_sig is [n_max]
             reference = native.pack_native(*batch.pack_args(), n_max=n_max)
@@ -593,14 +675,14 @@ class TorchScheduler:
             # never fail a healthy solve
             logger.debug("integrity canary re-solve failed", exc_info=True)
             return
-        integrity.record_canary("", mismatch=diff is not None)
+        integrity.record_canary(address, mismatch=diff is not None)
         if diff is None:
             return
         logger.error(
-            "integrity canary mismatch (%s) for pack served in-process; "
-            "quarantining", diff,
+            "integrity canary mismatch (%s) for pack served by %s; "
+            "quarantining", diff, address or "in-process",
         )
-        self._quarantine_source("canary", diff, batch)
+        self._quarantine_source("canary", diff, batch, address=address)
 
     def _resident_encode(
         self, constraints, instance_types, pods, sts, daemon, plan,
@@ -684,6 +766,9 @@ class TorchScheduler:
                     return finish_native
                 try:
                     device_finish = self._pack_device(batch, prof, packer)
+                except (OverloadedError, DeadlineExceededError):
+                    # a shed is backpressure, not a path failure: no penalty
+                    raise
                 except Exception:
                     self.router.record_failure(key, backend)
                     raise
@@ -691,6 +776,8 @@ class TorchScheduler:
                 def finish_device():
                     try:
                         out = device_finish()
+                    except (OverloadedError, DeadlineExceededError):
+                        raise  # a shed, not a failure: no penalty
                     except Exception:
                         self.router.record_failure(key, backend)
                         raise
@@ -810,32 +897,37 @@ class TorchScheduler:
         table, and real packings open far fewer nodes than pods) and
         retries at full P on saturation (table full with unscheduled pods).
         A fused dispatch or fetch failure puts the shape in the failed-fused
-        memo and takes the unfused ladder. ``probe`` (a shadow probe) keeps
-        the call off ``PodResidency``."""
+        memo and takes the unfused ladder. With a sidecar configured and
+        its breaker available there is no fused route: the unfused
+        dispatch goes to the sidecar (``_pack_once_begin``). ``probe`` (a
+        shadow probe) keeps the call off ``PodResidency`` and out of the
+        session hit rate, as a saturation re-dispatch is."""
         p = len(batch.pod_valid)
-        route0 = self._fused_route(batch, packer)
+        route0 = self._device_route(batch, packer)
         n_max0 = min(p, N_MAX_FIRST) if route0 else max(256, p // 4)
         prof["pack_dispatches"] = 0
         args_box: list = [None]
+        rec_box: list = [not probe]  # consumed by the first dispatch
 
-        def unfused(n_max: int):
+        def local_args():
             if args_box[0] is None:
                 args_box[0] = self._device_args(batch)
-            return self._pack_local_begin(args_box[0], p, n_max, prof, packer)
+            return args_box[0]
 
         def dispatch(n_max: int, route: Optional[str]):
             """One dispatch → ``(fetch, route-or-None)``. A fused DISPATCH
             failure blacklists the shape and falls straight to the unfused
             ladder."""
             prof["pack_dispatches"] += 1
+            rec, rec_box[0] = rec_box[0], False
             if route:
                 try:
-                    fetch = self._pack_fused_begin(batch, n_max, route, prof, probe)
+                    fetch = self._pack_fused_begin(batch, n_max, route, prof, probe, record=rec)
                 except Exception:
                     self._fused_blacklist(batch, n_max, route)
                 else:
                     return fetch, route
-            return unfused(n_max), None
+            return self._pack_once_begin(batch, local_args, p, n_max, prof, packer, rec), None
 
         fetch0, taken0 = dispatch(n_max0, route0)
 
@@ -852,7 +944,11 @@ class TorchScheduler:
                     # ladder (which routes around its own failed kernels)
                     self._fused_blacklist(batch, n_max, taken)
                     prof["pack_dispatches"] += 1
-                    fetch, taken = unfused(n_max), None
+                    # record=False: this solve already counted at dispatch
+                    fetch = self._pack_once_begin(
+                        batch, local_args, p, n_max, prof, packer, False
+                    )
+                    taken = None
                     continue
                 saturated = int(result.n_nodes) == n_max and bool(
                     (np.asarray(result.assignment)[: batch.n_pods] < 0).any()
@@ -861,9 +957,113 @@ class TorchScheduler:
                     return result, typemask
                 n_max = p
                 # re-derive the route for the full-table retry
-                fetch, taken = dispatch(n_max, self._fused_route(batch, packer))
+                fetch, taken = dispatch(n_max, self._device_route(batch, packer))
 
         return finish
+
+    def _device_route(self, batch: enc.EncodedBatch, packer: str) -> Optional[str]:
+        """``_fused_route``, or None while a sidecar is configured and its
+        breaker would admit a call: the sidecar owns the card then, so no
+        fused route is taken in process."""
+        if self.service_address and self._remote_breaker.available():
+            return None
+        return self._fused_route(batch, packer)
+
+    def _remote_or_init(self):
+        if self._remote is None:
+            # under the lock: a shadow probe can reach here beside a solve
+            with self._remote_init_lock:
+                if self._remote is None:
+                    from karpenter_tpu_torch.solver.service import RemoteSolver
+
+                    self._remote = RemoteSolver(
+                        self.service_address, timeout=REMOTE_SOLVE_TIMEOUT,
+                        checksum=self.pack_checksum, delta=self.solver_delta,
+                    )
+        return self._remote
+
+    def _remote_failure(self, e: Exception) -> None:
+        """Open the circuit: a dead sidecar must not stall every batch for a
+        full RPC deadline; half-open probes re-admit it once it answers."""
+        self._remote_breaker.record_failure()
+        logger.error(
+            "solver service %s failed (%s); in-process pack for %.0fs",
+            self.service_address, e, REMOTE_BREAKER_SECONDS,
+        )
+
+    def _remote_integrity_failure(self, e: IntegrityError) -> None:
+        """Corruption attributed to the sidecar: quarantine it (``trip()``,
+        the immediate-open edge) and let the caller pack in process."""
+        logger.error(
+            "solver service %s quarantined for corruption (%s); in-process "
+            "pack for %.0fs", self.service_address, e, REMOTE_BREAKER_SECONDS,
+        )
+        self._quarantine_source(
+            e.kind, str(e), address=e.address or self.service_address or ""
+        )
+
+    def _pack_once_begin(
+        self, batch: enc.EncodedBatch, local_args, p: int, n_max: int, prof: Dict,
+        packer: str, record: bool = True,
+    ):
+        """One unfused dispatch, returning ``fetch()`` → ``(PackResult,
+        None)``: the sidecar's Pack future when a sidecar is configured and
+        its breaker admits the call, else the in-process ladder over
+        ``local_args()``. The sidecar gets the batch's host arrays
+        (``pack_args()``), never a card upload. A shed for the round's
+        deadline raises (the round fails, or a cpu scheduler takes its
+        floor); an overload or a failed sidecar packs in process, a failure
+        opening the breaker and a corrupt exchange tripping it. ``record``
+        rides to the sidecar, so probes and retries stay out of its
+        hit-rate stats."""
+        def local():
+            return self._pack_local_begin(local_args(), p, n_max, prof, packer)
+
+        if self.service_address and self._remote_breaker.allow():
+            try:
+                pending = self._remote_or_init().pack_begin(
+                    *batch.pack_args(), n_max=n_max, prof=prof, record=record
+                )
+            except DeadlineExceededError:
+                raise  # the round's budget expired: no breaker, no re-solve
+            except OverloadedError as e:
+                # the sidecar is full, not broken: its breaker stays closed
+                logger.info(
+                    "solver service %s overloaded (retry after %.2fs); "
+                    "in-process pack serves this batch",
+                    self.service_address, e.retry_after,
+                )
+            except IntegrityError as e:
+                self._remote_integrity_failure(e)
+            except Exception as e:
+                self._remote_failure(e)
+            else:
+                def fetch_remote():
+                    try:
+                        result = pending()
+                    except DeadlineExceededError:
+                        raise  # a shed, not a failure
+                    except OverloadedError as e:
+                        logger.info(
+                            "solver service %s shed the solve (overloaded, "
+                            "retry after %.2fs); in-process pack serves it",
+                            self.service_address, e.retry_after,
+                        )
+                        return local()()
+                    except IntegrityError as e:
+                        # the corrupt bytes never reach decode
+                        self._remote_integrity_failure(e)
+                        return local()()
+                    except Exception as e:
+                        self._remote_failure(e)
+                        return local()()
+                    self._remote_breaker.record_success()
+                    prof["packer_backend"] = SIDECAR
+                    prof["pack_route"] = "unfused"
+                    return result, None
+
+                return fetch_remote
+        return local()
 
     def _fused_blacklist(self, batch: enc.EncodedBatch, n_max: int, route: str) -> None:
         shape = self._fused_shape(batch, n_max)
@@ -899,10 +1099,12 @@ class TorchScheduler:
         return pack_kernel_v2.fused_route(S, F, R, batch.join_table.shape[1])
 
     def _pack_fused_begin(
-        self, batch: enc.EncodedBatch, n_max: int, route: str, prof: Dict, probe: bool = False
+        self, batch: enc.EncodedBatch, n_max: int, route: str, prof: Dict,
+        probe: bool = False, record: bool = True,
     ):
         """Launch one fused solve on ``route`` and return ``fetch()``, which
-        blocks until its buffer is on the host and splits it."""
+        blocks until its buffer is on the host and splits it. ``record``
+        gates the invariants lookup's session hit rate."""
         dev = self.device
         if self._pod_residency is not None and not probe:
             # a no-churn round reuses the resident upload by batch identity
@@ -919,10 +1121,13 @@ class TorchScheduler:
         if route == "v2":
             F, R = batch.frontiers.shape[1], batch.frontiers.shape[2]
             buf = fused.fused_solve_v2(
-                *pod_side, *self._invariants.get_v2(batch), n_max=n_max, F=F, R=R
+                *pod_side, *self._invariants.get_v2(batch, record=record),
+                n_max=n_max, F=F, R=R,
             )
         else:
-            buf = fused.fused_solve(*pod_side, *self._invariants.get(batch), n_max=n_max)
+            buf = fused.fused_solve(
+                *pod_side, *self._invariants.get(batch, record=record), n_max=n_max
+            )
         prof["packer_backend"] = kernel_name(route, dev)
         prof["pack_route"] = "fused"
         wait = self._to_host(buf)

@@ -35,7 +35,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.solver import pack_kernel_v2
+from karpenter_tpu_torch.solver import pack_kernel_v2, session_stats
 from karpenter_tpu_torch.solver.kernel import PackResult
 from karpenter_tpu_torch.solver.pack_kernel import pack_first_fit
 
@@ -133,6 +133,7 @@ class DeviceInvariants:
             dead = self._order.pop(0)
             self._cache.pop(dead, None)
             self._cache_v2.pop(dead, None)
+            session_stats.record_eviction()
 
     @staticmethod
     def _arrays(batch) -> tuple:
@@ -144,29 +145,39 @@ class DeviceInvariants:
             np.ascontiguousarray(batch.usable, np.float32),
         )
 
-    def get(self, batch) -> tuple:
-        """(join, frontiers, daemon, mask, usable) tensors on the device."""
+    def get(self, batch, record: bool = True) -> tuple:
+        """(join, frontiers, daemon, mask, usable) tensors on the device.
+        ``record=False`` keeps the lookup out of the session-residency hit
+        rate (``session_stats``): shadow probes and saturation re-dispatches
+        are not solves."""
         arrays = self._arrays(batch)
         key = self._digest(arrays)
         with self._lock:
             hit = self._cache.get(key)
+        if record:
+            session_stats.record(hit is not None)
         if hit is None:
+            session_stats.record_upload()  # a real transfer, whoever asked
             hit = tuple(torch.tensor(a, device=self.device) for a in arrays)
         with self._lock:
             self._cache[key] = hit
             self._touch_locked(key)
         return hit
 
-    def get_v2(self, batch) -> tuple:
+    def get_v2(self, batch, record: bool = True) -> tuple:
         """(front_j, compat_j, jvals, frontiers, daemon, mask, usable,
         front_s) tensors on the device: the v2 route's per-core tables and
         the signature-major copy of the limits the kernel walks, computed
-        once per closure under the same digest as ``get``."""
+        once per closure under the same digest as ``get``. ``record`` as in
+        :meth:`get`."""
         arrays = self._arrays(batch)
         key = self._digest(arrays)
         with self._lock:
             hit = self._cache_v2.get(key)
+        if record:
+            session_stats.record(hit is not None)
         if hit is None:
+            session_stats.record_upload()  # a real transfer, whoever asked
             join, frontiers = arrays[0], arrays[1]
             front_j, compat_j, jvals, _ = pack_kernel_v2._precompute(join, frontiers)
             hit = tuple(

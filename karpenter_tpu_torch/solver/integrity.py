@@ -11,6 +11,9 @@ the shared accounting they report into:
   C++ packer is bit-identical to both kernels by contract, so a canary
   re-solve that disagrees with the served pack is evidence of corruption,
   not of tie-breaking drift.
+- :func:`record_checksum_failure` / :func:`record_session_mismatch` — the
+  sidecar wire's own detections (a frame whose checksum failed, a Pack that
+  echoed the wrong catalog session), attributed to the sidecar's address.
 - :func:`snapshot` / :func:`totals` — the counters, read without a scrape.
 
 Counters are process-global (one scheduler per worker, many workers per
@@ -27,6 +30,8 @@ import numpy as np
 
 _mu = threading.Lock()
 _counts: Dict[str, Dict[str, int]] = {
+    "checksum_failures": {},
+    "session_mismatches": {},
     "canary_solves": {},
     "canary_mismatches": {},
     "screen_failures": {},
@@ -41,6 +46,14 @@ def _bump(kind: str, address: str) -> None:
     with _mu:
         table = _counts[kind]
         table[key] = table.get(key, 0) + 1
+
+
+def record_checksum_failure(address: str) -> None:
+    _bump("checksum_failures", address)
+
+
+def record_session_mismatch(address: str) -> None:
+    _bump("session_mismatches", address)
 
 
 def record_canary(address: str, mismatch: bool) -> None:

@@ -81,8 +81,10 @@ _LAUNCH_ARGTYPES = {
     "pack_first_fit_v2": [_vp] * 12 + [_ci] * 12 + [_vp],
 }
 
-# kernel launches made by pack_first_fit (CPU calls do not count)
-launches = 0
+# kernel launches made by pack_first_fit (CPU calls do not count); the
+# sidecar launches from several threads, so both wrappers count under the lock
+launches = 0  # guarded-by: launch_count_lock
+launch_count_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _build_lock
 _build_logs: Dict[str, str] = {}  # guarded-by: _build_lock
@@ -336,7 +338,8 @@ def pack_first_fit(*args, n_max: int, plan: Optional[LaunchPlan] = None) -> Pack
             plan.threads, plan.G, int(plan.node_state_in_smem), plan.smem_bytes, stream,
         )
     check_launch("pack_first_fit", err)
-    launches += 1
+    with launch_count_lock:
+        launches += 1
     return out
 
 

@@ -57,7 +57,7 @@ PALLAS_UNROLL_BUDGET = 1024
 V2_TABLE_BUDGET = 32 << 20
 
 # kernel launches made by pack_first_fit_v2 (CPU calls do not count)
-launches = 0
+launches = 0  # guarded-by: pack_kernel.launch_count_lock
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -271,5 +271,6 @@ def pack_first_fit_v2(
             plan.threads, plan.G, int(plan.node_state_in_smem), plan.smem_bytes, stream,
         )
     pack_kernel.check_launch("pack_first_fit_v2", err)
-    launches += 1
+    with pack_kernel.launch_count_lock:
+        launches += 1
     return out

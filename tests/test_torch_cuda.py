@@ -654,3 +654,92 @@ def test_nan_in_the_fetched_buffer_is_screened_and_quarantined(cuda, monkeypatch
     with pytest.raises(BreakerOpen):
         sched.solve(prov, catalog, pods)
     assert pack_kernel.launches == before + 1
+
+
+# -- the solver sidecar on the card ------------------------------------------
+
+
+def sidecar_frames(name, n_pods, n_types):
+    """(open frame, pack frame, key, pack_args) of a port-encoded batch, at
+    the node table the backend sends a sidecar."""
+    from karpenter_tpu_torch.solver import service as S
+
+    pkg = "karpenter_tpu_torch"
+    batch = encode_scenario(pkg, *scenario(pkg, name, n_pods, 42, n_types))
+    args = [np.ascontiguousarray(a) for a in batch.pack_args()]
+    key = S.catalog_session_key(*args[7:])
+    n_max = max(256, len(args[0]) // 4)
+    key_arr = np.frombuffer(key, np.int32)
+    return (S.pack_arrays([key_arr] + args[7:]),
+            S.pack_arrays([key_arr, np.asarray([n_max, 1], np.int32)] + args[:7]),
+            key, args, n_max)
+
+
+def test_sidecar_pins_session_tensors_on_card(cuda):
+    from karpenter_tpu_torch.solver import service as S
+
+    open_frame, _, key, args, _ = sidecar_frames("diverse", 700, 50)
+    svc = S.SolverService()
+    assert int(S.unpack_arrays(svc.open_session_bytes(open_frame))[0][0]) == S.STATUS_OK
+    tensors = svc.session_tensors(key)
+    assert all(t.device.type == "cuda" for t in tensors)
+    assert svc.resident_bytes() == sum(a.nbytes for a in args[7:])
+
+
+@pytest.mark.parametrize("name,n_pods,n_types,want", [
+    ("diverse", 700, 50, "pack_first_fit"), ("teams", 2000, 64, "pack_first_fit_v2")])
+def test_sidecar_serves_through_a_kernel(cuda, name, n_pods, n_types, want):
+    from karpenter_tpu_torch.solver import backend, kernel
+    from karpenter_tpu_torch.solver import service as S
+
+    open_frame, frame, _, args, n_max = sidecar_frames(name, n_pods, n_types)
+    on_card, on_cpu = S.SolverService(), S.SolverService(device="cpu")
+    responses = []
+    for svc in (on_card, on_cpu):
+        svc.open_session_bytes(open_frame)
+        responses.append(svc.solve_bytes(frame))
+    assert on_card.served == {want: 1}
+    gpu = [torch.tensor(a, dtype=dt, device=cuda) for a, (_, dt) in
+           zip(args, carry.PACK_ARG_DTYPES)]
+    served, result = backend.pack_unfused(*gpu, n_max=n_max)
+    assert served == want
+    buf = S.unpack_arrays(responses[0])[1]
+    assert buf.tobytes() == kernel.fuse_result(result).cpu().numpy().tobytes()
+    assert responses[0] == responses[1]
+
+
+def test_two_concurrent_sidecar_packs_equal_sequential(cuda):
+    from concurrent.futures import ThreadPoolExecutor
+
+    from karpenter_tpu_torch.solver import service as S
+
+    cases = [sidecar_frames("diverse", 700, 50), sidecar_frames("teams", 2000, 64)]
+    svc = S.SolverService()
+    for open_frame, *_ in cases:
+        svc.open_session_bytes(open_frame)
+    sequential = [svc.solve_bytes(frame) for _, frame, *_ in cases]
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for _ in range(3):
+            futures = [pool.submit(svc.solve_bytes, frame) for _, frame, *_ in cases]
+            assert [f.result(timeout=120) for f in futures] == sequential
+    assert svc.served == {"pack_first_fit": 4, "pack_first_fit_v2": 4}
+
+
+def test_sidecar_warmup_ready_only_after_a_kernel_served(cuda, monkeypatch):
+    from karpenter_tpu_torch.solver import service as S
+
+    svc = S.SolverService()
+    svc.warmup()
+    assert svc.ready.is_set() and set(svc.served) <= {"pack_first_fit", "pack_first_fit_v2"}
+    monkeypatch.setenv("KARPENTER_PACKER", "native")
+    native_only = S.SolverService()
+    native_only.warmup()
+    assert native_only.served == {"native": 1} and not native_only.ready.is_set()
+    assert native_only.health_bytes(b"") == S.NOT_SERVING
+
+
+def test_publish_device_headroom_is_an_int(cuda):
+    from karpenter_tpu_torch.solver import service as S
+
+    headroom = S.publish_device_headroom(cuda)
+    assert isinstance(headroom, int) and 0 < headroom <= torch.cuda.mem_get_info(cuda)[1]

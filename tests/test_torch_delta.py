@@ -445,7 +445,7 @@ def test_failed_validation_raises_and_never_arms_the_skip_memo():
         return "forced violation (test)"
 
     sched._validate_pack = failing
-    sched._quarantine_source = lambda reason, detail, batch: quarantines.append(reason)
+    sched._quarantine_source = lambda reason, detail, batch, address="": quarantines.append(reason)
     for rnd in range(3):
         with pytest.raises(InvalidPackError, match="forced violation"):
             env.solve()
