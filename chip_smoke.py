@@ -133,13 +133,40 @@ Phases (any failure exits non-zero; nothing is swallowed):
              sidecar restart on the same address (re-opened through
              NEEDS_CATALOG); every round served by the sidecar with the
              card's plan, its wire and pack stages printed;
+13. stream — (after phase 12) the sidecar's persistent stream at full
+             width. (a) always: 8 headline and 4 team-mix Pack frames of
+             equal shapes and different content (a different seeded 1% of
+             each one's pods invalid) parsed by stream_parse_solve and
+             served by solve_stream_group as groups of 8 and 3 (padded to
+             B=4) headline and 4 team mix: each group is ONE launch of its
+             kernel (pack_first_fit, pack_first_fit_v2) over the batch
+             axis, every answer equals that frame's solve_bytes answer
+             byte for byte, the coalesced counters move by the group; each
+             group's time and its traced dispatch_s / fetch_s beside its
+             frames' single solve_bytes times, and the catalog tensors'
+             copy to the batch axis; a headline frame through a ShmArena
+             descriptor, byte-equal; an expired deadline shed with no
+             launch. (b) when grpc imports: serve(shm_dir=...) on the card
+             and device="cpu" controllers with solver_stream under
+             KARPENTER_PACKER=fused: 3 headline and 3 team-mix rounds on
+             the stream, 3 headline rounds through the arena (wire_ser_s
+             beside phase 12's), 3 resident headline rounds (establish,
+             elide, elide), a round after a restart re-opened over the
+             re-established stream, an 8-client salvo repeated until a
+             group coalesces (every result the card's), a two-member pool
+             whose session member is killed (failover through
+             NEEDS_CATALOG, the outer breaker closed), and two threads on
+             one scheduler through a chaos-slowed (0.5 s) sidecar in under
+             2 floors; every round served by the sidecar with the card's
+             plan, its transport and wire and pack stages printed;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
-             and through the sidecar (phase 12, by part), the native
-             packer's time on the same batches, and ``degrade``: phase
-             11's canary solves and mismatches and its launches under
-             injection.
+             and through the sidecar and the stream (phases 12 and 13, by
+             part), the native packer's time on the same batches,
+             ``degrade``: phase 11's canary solves and mismatches and its
+             launches under injection, and ``stream``: phase 13's launches
+             by part and the B of each coalesced launch.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -1511,7 +1538,19 @@ def free_address() -> str:
     return f"127.0.0.1:{port}"
 
 
-def sidecar_phase(dev, card: str, classes: dict) -> dict:
+def sidecar_inputs() -> tuple:
+    """Phases 12 and 13's catalogs and encoded batches at full width: the
+    headline (instance_types(400) x diverse_pods(10000, Random(42))) and
+    the team mix (instance_types_tradeoff(400) x 10,000 pods, 64 teams)."""
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+
+    catalogs = {"headline": instance_types(400), "team mix": instance_types_tradeoff(400)}
+    batches = {"headline": headline_batch(10000, 400, 42),
+               "team mix": encode_batch(catalogs["team mix"], team_pods(10000, 9))}
+    return catalogs, batches
+
+
+def sidecar_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict) -> dict:
     """Phase 12: the solver sidecar on the card, at full width. (a) the
     device half, byte level: frames built with the port's codec from each
     batch's pack_args() go straight to a SolverService on the card; every
@@ -1521,10 +1560,9 @@ def sidecar_phase(dev, card: str, classes: dict) -> dict:
     scheduler (a controller has no card) against serve() on the card,
     every round served by the sidecar with the in-process card plan.
     ``classes`` holds phases 3 and 6's pods and device="cpu" plans (equal
-    to the card plans there). Returns each kernel's launches by part."""
-    import torch
-
-    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    to the card plans there). Returns each kernel's launches by part, and
+    the knob-off rounds' ``wire_ser_s`` (ms) by batch under
+    ``"wire_ser_ms"``."""
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.scheduling.scheduler import Scheduler
     from karpenter_tpu_torch.solver import backend, integrity, kernel, pack_kernel, pack_kernel_v2
@@ -1533,12 +1571,10 @@ def sidecar_phase(dev, card: str, classes: dict) -> dict:
 
     S = svc_mod
     prov = make_provisioner(solver="tpu")
-    catalogs = {"headline": instance_types(400), "team mix": instance_types_tradeoff(400)}
-    batches = {"headline": headline_batch(10000, 400, 42),
-               "team mix": encode_batch(catalogs["team mix"], team_pods(10000, 9))}
     kernel_of = {"headline": "pack_first_fit", "team mix": "pack_first_fit_v2"}
     modules = {"pack_first_fit": pack_kernel, "pack_first_fit_v2": pack_kernel_v2}
     out = {name: {} for name in modules}
+    out["wire_ser_ms"] = {cls: [] for cls in kernel_of}
 
     def zero():
         for m in modules.values():
@@ -1697,8 +1733,9 @@ def sidecar_phase(dev, card: str, classes: dict) -> dict:
                           solver_service_address=address)
         for cls in ("headline", "team mix"):
             for r in range(3):
-                sidecar_round(sched, cls, classes[cls]["pods"], classes[cls]["cpu_plan"],
-                              f"{cls} round {r}")
+                prof = sidecar_round(sched, cls, classes[cls]["pods"], classes[cls]["cpu_plan"],
+                                     f"{cls} round {r}")
+                out["wire_ser_ms"][cls].append(prof["wire_ser_s"] * 1e3)
         res = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
                         solver_service_address=address, solver_delta=True)
         kinds = [sidecar_round(res, "headline", classes["headline"]["pods"],
@@ -1744,6 +1781,448 @@ def sidecar_phase(dev, card: str, classes: dict) -> dict:
         os.environ.pop("KARPENTER_PACKER", None)
         server.stop(grace=None)
     log(f"[sidecar] served {svc.served}, dispatches {svc.dispatches} (device half)")
+    return out
+
+
+def wait_for(predicate, timeout: float, what: str) -> None:
+    """Poll ``predicate`` every 20 ms; raise after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout:.0f}s waiting for {what}")
+        time.sleep(0.02)
+
+
+def stream_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict,
+                 wire_ser_unary: dict) -> dict:
+    """Phase 13: the sidecar's persistent stream at full width. (a) the
+    device half, byte level: distinct headline and team-mix frames parsed
+    by stream_parse_solve and served by solve_stream_group in groups of 8,
+    3 (padded to 4) and 4; each group is ONE launch of its kernel with
+    B > 1 and answers every entry with its solve_bytes bytes; an arena
+    descriptor solve; an expired deadline shed with no launch. (b) when
+    grpc imports: device="cpu" controllers against serve() on the card
+    over the stream, the arena, the resident delta frames, a restart, an
+    8-client salvo that coalesces, a two-member pool that fails over, and
+    two threads on one scheduler overlapping a chaos-slowed sidecar.
+    Returns per kernel its launches by part and the B of each coalesced
+    launch."""
+    import shutil
+    import threading
+
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import kernel, native, pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.solver import service as S
+    from karpenter_tpu_torch.solver import stream as ST
+    from karpenter_tpu_torch.solver.pool import HashRing
+    from karpenter_tpu_torch.testing import make_provisioner
+    from karpenter_tpu_torch.testing.chaos import ChaosPolicy, chaos_wrap
+
+    prov = make_provisioner(solver="tpu")
+    kernel_of = {"headline": "pack_first_fit", "team mix": "pack_first_fit_v2"}
+    modules = {"pack_first_fit": pack_kernel, "pack_first_fit_v2": pack_kernel_v2}
+    out = {name: {"coalesced_B": []} for name in modules}
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           f"stream-smoke-{os.getpid()}")
+    os.makedirs(scratch, exist_ok=True)
+
+    def zero():
+        for m in modules.values():
+            m.launches = 0
+
+    def counts():
+        return {name: m.launches for name, m in modules.items()}
+
+    def key_arr(key):
+        return np.frombuffer(key, np.int32)
+
+    def status_of(resp):
+        return int(S.unpack_arrays(resp)[0].reshape(-1)[0])
+
+    def bucket(n):
+        return next(b for b in (1, 2, 4, 8) if b >= n)
+
+    # -- (a) the device half, byte level -------------------------------------
+    if not native.native_available(wait=180):
+        raise AssertionError("the native packer did not build (g++ -O3 -shared -fPIC)")
+    svc = S.SolverService()
+    rng = np.random.default_rng(13)
+    inputs = {}
+    zero()
+    for cls, n_frames, groups in (("headline", 8, ([*range(8)], [0, 1, 2])),
+                                  ("team mix", 4, ([*range(4)],))):
+        args = [np.ascontiguousarray(a) for a in batches[cls].pack_args()]
+        P, R = args[6].shape
+        n_max = max(256, P // 4)  # what TorchScheduler sends a sidecar
+        key = S.catalog_session_key(*args[7:])
+        opened = S.unpack_arrays(svc.open_session_bytes(S.pack_arrays([key_arr(key)] + args[7:])))
+        if int(opened[0][0]) != S.STATUS_OK or int(opened[1][0]) != S.PROTO_FEATURES:
+            raise AssertionError(f"stream {cls}: open answered {opened}")
+        head = [key_arr(key), np.asarray([n_max, 1], np.int32)]
+        # equal shapes, different content: a different seeded 1% of the
+        # valid rows cleared in each, so a demultiplexing error shows
+        pods_of = []
+        for _ in range(n_frames):
+            pods = [a.copy() for a in args[:7]]
+            valid = np.flatnonzero(pods[0])
+            pods[0][rng.choice(valid, max(1, len(valid) // 100), replace=False)] = False
+            pods_of.append(pods)
+        frames = [S.pack_arrays(head + pods) for pods in pods_of]
+        unary, unary_ms = [], []
+        for f in frames:
+            t0 = time.perf_counter()
+            unary.append(svc.solve_bytes(f))
+            unary_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(set(unary)) != n_frames or any(status_of(r) != S.STATUS_OK for r in unary):
+            raise AssertionError(f"stream {cls}: the {n_frames} frames' answers are not distinct")
+        # the unmodified pods' answer: what the arena and the salvo send
+        inputs[cls] = (args, key, n_max, head, svc.solve_bytes(S.pack_arrays(head + args[:7])))
+        kern = kernel_of[cls]
+        for idx in groups:
+            B = bucket(len(idx))
+            answers = {}
+            entries = [svc.stream_parse_solve(frames[i], respond=lambda b, i=i: answers.__setitem__(i, b))
+                       for i in idx]
+            if any(isinstance(e, bytes) for e in entries):
+                raise AssertionError(f"stream {cls}: a frame was refused at parse")
+            stats0 = dict(svc.stream_stats)
+            served0 = svc.served.get(kern, 0)
+            before = counts()
+            t0 = time.perf_counter()
+            svc.solve_stream_group(entries)
+            wall = (time.perf_counter() - t0) * 1e3
+            launched = {k: v - before[k] for k, v in counts().items()}
+            if launched != {k: int(k == kern) for k in modules}:
+                raise AssertionError(f"stream {cls} group of {len(idx)}: launches {launched}")
+            if [answers.get(i) for i in idx] != [unary[i] for i in idx]:
+                raise AssertionError(f"stream {cls} group of {len(idx)}: an answer differs "
+                                     "from solve_bytes")
+            if idx is groups[0]:
+                # each demultiplexed answer against the native packer (a
+                # plain version, bit-exact with both kernels: phase 9) on
+                # host copies of that entry's own frame
+                t0 = time.perf_counter()
+                for i in idx:
+                    plain = kernel.fuse_result(host_result(
+                        native.pack_native(*pods_of[i], *args[7:], n_max=n_max)))
+                    if S.unpack_arrays(answers[i])[1].tobytes() != plain.numpy().tobytes():
+                        raise AssertionError(f"stream {cls} group of {len(idx)}: entry {i} "
+                                             "differs from the native packer")
+                log(f"[stream] (a) {cls} group of {len(idx)}: every answer == the native "
+                    f"packer on its own frame ({(time.perf_counter() - t0) * 1e3:.3f} ms "
+                    "on the host)")
+            moved = (svc.stream_stats["coalesced_dispatches"] - stats0["coalesced_dispatches"],
+                     svc.stream_stats["coalesced_solves"] - stats0["coalesced_solves"])
+            if moved != (1, len(idx)) or svc.served.get(kern, 0) != served0 + 1:
+                raise AssertionError(f"stream {cls}: coalesced counters moved {moved}")
+            # the same group traced: the shared [dispatch_s, fetch_s, 0] trailer
+            ctx = S._trace_ctx_array(S.TraceContext("5a" * 16, "a5" * 8))
+            traced = []
+            svc.solve_stream_group([
+                svc.stream_parse_solve(S.pack_arrays(head + pods_of[i] + [ctx]), respond=traced.append)
+                for i in idx])
+            dispatch_s, fetch_s, _ = (float(x) for x in S.unpack_arrays(traced[0])[2])
+            out[kern]["coalesced_B"] += [B, B]
+            log(f"[stream] (a) {cls} group of {len(idx)} (B={B}): one {kern} launch, "
+                f"{len(idx)} answers == solve_bytes byte for byte; group {wall:.3f} ms "
+                f"(traced: dispatch_s={dispatch_s * 1e3:.3f}ms fetch_s={fetch_s * 1e3:.3f}ms); "
+                f"{len(idx)} single solve_bytes {sum(unary_ms[i] for i in idx):.3f} ms "
+                f"({', '.join(f'{unary_ms[i]:.3f}' for i in idx)}); card {card}")
+        resident = svc.session_tensors(key)
+        for B in sorted({bucket(len(idx)) for idx in groups}):
+            ms = events_ms(lambda: [t.expand(B, *t.shape).contiguous() for t in resident], 10)
+            log(f"[stream] (a) {cls}: the session's catalog tensors to B={B} "
+                f"({B * sum(t.nbytes for t in resident)} bytes, expand().contiguous()) "
+                f"{ms:.4f} ms (CUDA events, mean of 10)"
+                + (f"; the v2 tables stacked B times hold "
+                   f"{B * pack_kernel_v2.v2_table_bytes(*resident[1].shape[:2], R, resident[0].shape[1])}"
+                   " bytes" if kern == "pack_first_fit_v2" else ""))
+    out["pack_first_fit"]["launches_stream_device"] = counts()["pack_first_fit"]
+    out["pack_first_fit_v2"]["launches_stream_device"] = counts()["pack_first_fit_v2"]
+
+    # the arena: one headline frame's pod arrays through a ShmArena
+    args, key, n_max, head, want = inputs["headline"]
+    arena = ST.ShmArena(scratch, size=64 << 20)
+    reader = ST.ShmArenaReader(arena.path)
+    try:
+        t0 = time.perf_counter()
+        token, desc = arena.write(args[:7])
+        write_ms = (time.perf_counter() - t0) * 1e3
+        got = []
+        entry = svc.stream_parse_solve(S.pack_arrays(head + [desc]), respond=got.append,
+                                       arena=reader)
+        if isinstance(entry, bytes) or not entry.shm:
+            raise AssertionError("stream arena: the descriptor frame was refused")
+        svc.solve_stream_group([entry])
+        if got != [want]:
+            raise AssertionError("stream arena: the answer differs from solve_bytes")
+        arena.free(token)
+        log(f"[stream] (a) arena: the headline pod arrays written in {write_ms:.3f} ms, the "
+            f"descriptor solve == solve_bytes byte for byte ({arena.live_blocks()} live blocks)")
+    finally:
+        reader.close()
+        arena.close()
+    # an expired deadline is shed at parse time, with no launch
+    got = []
+    entry = svc.stream_parse_solve(S.pack_arrays(head + args[:7] + [np.asarray([0.0], np.float32)]),
+                                   respond=got.append)
+    dispatches, before = svc.dispatches, counts()
+    shed = svc.shed_if_expired(entry)
+    if shed is None or status_of(shed) != S.STATUS_DEADLINE_EXCEEDED or counts() != before \
+            or svc.dispatches != dispatches:
+        raise AssertionError("stream: the expired solve was not shed before the card")
+    log(f"[stream] (a) expired deadline shed by shed_if_expired, 0 launches; stream_stats "
+        f"{svc.stream_stats}, served {svc.served}")
+
+    # -- (b) the transport -----------------------------------------------------
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        log("[stream] grpc not installed on this host: (b) is held by the CPU tests")
+        shutil.rmtree(scratch, ignore_errors=True)
+        return out
+    # every open stream holds one of the gRPC server's worker threads for
+    # its life, so a sidecar serving N streaming clients needs more than N
+    # workers (serve's default is 4): phase 13 keeps up to 12 streams open
+    workers = 32
+    address = free_address()
+    servers = {address: S.serve(address, max_workers=workers, service=S.SolverService(),
+                                shm_dir=scratch, coalesce_window_s=0.25)}
+    os.environ["KARPENTER_PACKER"] = "fused"
+    closers = []  # the controllers and clients to close
+
+    def close_all():
+        for c in closers:
+            remote = c.torch._remote if hasattr(c, "torch") else c
+            if remote is not None:
+                remote.close()
+        closers.clear()
+
+    try:
+        def stream_round(sched, cls, pods, want_plan, what, transport):
+            if not sched.torch.solver_delta:
+                sched.torch.topology.rng = random.Random(1)
+            t0 = time.perf_counter()
+            nodes = sched.solve(prov, catalogs[cls], pods)
+            wall = (time.perf_counter() - t0) * 1e3
+            prof = served(sched, "sidecar", f"stream {what}")
+            if transport is not None and prof["solver_transport"] != transport:
+                raise AssertionError(f"stream {what}: carried by {prof['solver_transport']}, "
+                                     f"expected {transport}")
+            if plan_of(nodes, pods) != want_plan:
+                raise AssertionError(f"stream {what}: plan differs from the card plan")
+            log(f"[stream] (b) {what}: {wall:.3f} ms, transport={prof['solver_transport']} "
+                f"nodes={len(nodes)} wire_ser_s={prof['wire_ser_s'] * 1e3:.3f}ms "
+                f"wire_deser_s={prof['wire_deser_s'] * 1e3:.3f}ms "
+                f"pack_fetch_s={prof['pack_fetch_s'] * 1e3:.3f}ms "
+                f"delta_kind={prof.get('delta_kind')} address={prof['solver_address']}; "
+                f"{stage_line(prof)}")
+            return prof
+
+        def controller(address_spec, **kw):
+            sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                              solver_service_address=address_spec, solver_stream=True, **kw)
+            closers.append(sched)
+            return sched
+
+        zero()
+        streamed = controller(address)
+        for cls in ("headline", "team mix"):
+            for r in range(3):
+                stream_round(streamed, cls, classes[cls]["pods"], classes[cls]["cpu_plan"],
+                             f"{cls} streamed round {r}", "stream")
+        shm = controller(address, solver_shm_dir=scratch)
+        head_pods, head_plan = classes["headline"]["pods"], classes["headline"]["cpu_plan"]
+        stream_round(shm, "headline", head_pods, head_plan, "headline shm warm-up", None)
+        wait_for(lambda: shm.torch._remote._stream.shm_active, 20, "the arena's ack")
+        shm_ser = [stream_round(shm, "headline", head_pods, head_plan,
+                                f"headline shm round {r}", "stream_shm")["wire_ser_s"] * 1e3
+                   for r in range(3)]
+        log(f"[stream] (b) wire_ser_s through the arena {', '.join(f'{x:.3f}' for x in shm_ser)} "
+            f"ms against phase 12's unary headline rounds "
+            f"{', '.join(f'{x:.3f}' for x in wire_ser_unary['headline'])} ms; card {card}")
+        res = controller(address, solver_delta=True)
+        kinds = [stream_round(res, "headline", head_pods, head_plan,
+                              f"resident headline round {r}", "stream").get("delta_kind")
+                 for r in range(3)]
+        if kinds != ["establish", "elide", "elide"]:
+            raise AssertionError(f"stream resident headline: delta kinds {kinds}")
+        # a restart on the same address: the stream re-establishes and the
+        # re-open (NEEDS_CATALOG) rides it
+        client = streamed.torch._remote
+        established, uploads = client._stream.established_count, client.session_uploads
+        servers.pop(address).stop(grace=None)
+        servers[address] = S.serve(address, max_workers=workers, service=S.SolverService(),
+                                   shm_dir=scratch, coalesce_window_s=0.25)
+        wait_for(lambda: client._stream.established_count > established and client._stream.up,
+                 30, "the stream's re-establishment")
+        stream_round(streamed, "headline", head_pods, head_plan,
+                     "headline round after a restart", "stream")
+        opens = servers[address].stream_server_box[0].snapshot()["stream_opens"]
+        if client.session_uploads != uploads + 1 or opens < 1:
+            raise AssertionError(f"stream restart: uploads {client.session_uploads}, "
+                                 f"streamed opens {opens}")
+        launched = counts()
+        if not all(launched.values()):
+            raise AssertionError(f"stream (b): launches {launched}")
+
+        # the salvo: 8 clients on one session, until a group coalesces
+        args, key, n_max, head, want = inputs["headline"]
+        P, R = args[6].shape
+        want_result = kernel.split_result(S.unpack_arrays(want)[1], P, n_max, R)
+        clients = [S.RemoteSolver(address, timeout=30, cold_timeout=120, stream=True)
+                   for _ in range(8)]
+        closers.extend(clients)
+        for c in clients:
+            c.pack(*args, n_max=n_max)
+        wait_for(lambda: all(c._stream is not None and c._stream.up for c in clients), 20,
+                 "8 streams")
+        svc_b = servers[address].solver_service
+        stats0, before = dict(svc_b.stream_stats), counts()
+        for salvo in range(10):
+            waits, errs = [None] * 8, []
+            gate = threading.Barrier(8, timeout=30)
+
+            def fire(i):
+                try:
+                    gate.wait()
+                    waits[i] = clients[i].pack_begin(*args, n_max=n_max)
+                except Exception as e:
+                    errs.append(e)
+
+            threads = [threading.Thread(target=fire, args=(i,), daemon=True) for i in range(8)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            if errs or any(w is None for w in waits):
+                raise AssertionError(f"stream salvo {salvo}: {errs}")
+            for w in waits:
+                if any(not np.array_equal(a, b) for a, b in zip(w(), want_result)):
+                    raise AssertionError(f"stream salvo {salvo}: a result differs from the card's")
+            wall = (time.perf_counter() - t0) * 1e3
+            dd = svc_b.stream_stats["coalesced_dispatches"] - stats0["coalesced_dispatches"]
+            ds = svc_b.stream_stats["coalesced_solves"] - stats0["coalesced_solves"]
+            log(f"[stream] (b) salvo {salvo}: 8 clients, {wall:.3f} ms, every result == the card's; "
+                f"coalesced dispatches {dd} carrying {ds} solves so far")
+            if dd:
+                break
+        else:
+            raise AssertionError("stream salvo: 10 salvos and no group coalesced")
+        salvo_launches = {k: v - before[k] for k, v in counts().items()}
+        if dd == 1:
+            out["pack_first_fit"]["coalesced_B"].append(bucket(ds))
+        out["pack_first_fit"]["salvo"] = {"coalesced_dispatches": dd, "coalesced_solves": ds,
+                                          "launches": salvo_launches["pack_first_fit"]}
+        log(f"[stream] (b) salvo: {salvo_launches['pack_first_fit']} pack_first_fit launches "
+            f"for {8 * (salvo + 1)} solves")
+
+        # the pool: two members on the one card. The earlier controllers
+        # and clients close first: their streams would all reconnect to the
+        # restarted survivor below and hold its channel in backoff
+        close_all()
+        second = free_address()
+        servers[second] = S.serve(second, max_workers=workers, service=S.SolverService())
+        members = [address, second]
+        pool_sched = controller(",".join(members))
+        profs = [stream_round(pool_sched, "headline", head_pods, head_plan,
+                              f"pool headline round {r}", "stream") for r in range(2)]
+        owner = profs[0]["solver_address"]
+        if owner != HashRing(members).route(bytes.fromhex(profs[0]["session_key"])) or \
+                profs[1]["solver_address"] != owner:
+            raise AssertionError(f"stream pool: rounds served by {owner}, not the ring's member")
+        survivor = next(a for a in members if a != owner)
+        pool = pool_sched.torch._remote
+        # the survivor's client holds the session as open while its store is
+        # empty (a restart): the failover re-opens it through NEEDS_CATALOG
+        key = bytes.fromhex(profs[0]["session_key"])
+        catalog_side = next(arrays for arrays, k in pool._key_memo._memo.values() if k == key)
+        pool._client(survivor)._open_session(key, catalog_side, timeout=30)
+        servers.pop(survivor).stop(grace=None)
+        servers[survivor] = S.serve(survivor, max_workers=workers, service=S.SolverService(),
+                                    shm_dir=scratch)
+        servers.pop(owner).stop(grace=None)
+        uploads = pool._client(survivor).session_uploads
+        prof = stream_round(pool_sched, "headline", head_pods, head_plan,
+                            "pool round after killing the session's member", None)
+        if prof["solver_address"] != survivor or pool.failovers != 1 or \
+                pool._client(survivor).session_uploads != uploads + 1:
+            raise AssertionError(f"stream pool failover: served by {prof['solver_address']}, "
+                                 f"failovers {pool.failovers}")
+        if pool_sched.torch._remote_breaker.state != "closed":
+            raise AssertionError("stream pool failover: the outer remote breaker moved")
+        log(f"[stream] (b) pool: {owner} owned the session (the ring's member), killed; "
+            f"failover to {survivor} through NEEDS_CATALOG, plan equal, outer breaker closed")
+
+        # the pipeline: two threads on one scheduler, a 0.5 s chaos floor,
+        # one solving the headline and one the team mix at full width
+        floor = 0.5
+        pipe_addr = free_address()
+        servers[pipe_addr] = S.serve(pipe_addr, max_workers=workers, service=chaos_wrap(
+            S.SolverService(), ChaosPolicy(
+            latency_floor=floor, methods=frozenset({"solve_bytes", "solve_stream_group"}))))
+        pipe = controller(pipe_addr)
+        for cls in ("headline", "team mix"):  # warm: both sessions, the stream
+            stream_round(pipe, cls, classes[cls]["pods"], classes[cls]["cpu_plan"],
+                         f"pipeline warm-up {cls}", None)
+        results, profs_of, errs = {}, {}, []
+
+        def run(cls):
+            try:
+                pods = classes[cls]["pods"]
+                nodes = pipe.solve(prov, catalogs[cls], pods)
+                results[cls] = plan_of(nodes, pods)
+                profs_of[cls] = pipe.last_stage_profile()
+            except Exception as e:
+                errs.append(e)
+
+        # only the headline's topology draws hostnames: reseeded once, the
+        # rng gives it the device="cpu" plan's draws whichever thread
+        # encodes first
+        pipe.torch.topology.rng = random.Random(1)
+        threads = [threading.Thread(target=run, args=(cls,), daemon=True)
+                   for cls in ("headline", "team mix")]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        wall = time.perf_counter() - t0
+        if errs or any(results.get(cls) != classes[cls]["cpu_plan"] for cls in results) \
+                or len(results) != 2 \
+                or any(p["packer_backend"] != "sidecar" for p in profs_of.values()):
+            raise AssertionError(f"stream pipeline: {errs} {profs_of}")
+        host = {cls: {k: v for k, v in p.items() if k.endswith("_s") and k.split("_")[0] in
+                      ("sort", "inject", "encode", "decode", "validate")}
+                for cls, p in profs_of.items()}
+        host_s = {cls: sum(h.values()) for cls, h in host.items()}
+        bar = 2 * floor + max(host_s.values())
+        log(f"[stream] (b) pipeline: the headline and the team mix on one scheduler, two "
+            f"threads, through a sidecar with a {floor}s floor: wall {wall:.3f}s against "
+            f"2 x floor + the larger thread's host stages = {bar:.3f}s (serial >= "
+            f"{2 * floor + sum(host_s.values()):.3f}s); host stages "
+            + "; ".join(f"{cls} {host_s[cls] * 1e3:.3f} ms ("
+                        + ", ".join(f"{k}={v * 1e3:.3f}" for k, v in host[cls].items()) + ")"
+                        for cls in host)
+            + "; " + ", ".join(f"{cls} pack_fetch_s={p['pack_fetch_s'] * 1e3:.3f}ms "
+                               f"transport={p['solver_transport']}"
+                               for cls, p in profs_of.items())
+            + f"; card {card}")
+        if wall >= bar:
+            raise AssertionError(f"stream pipeline: {wall:.3f}s >= {bar:.3f}s, the host "
+                                 "stages did not overlap the other solve in flight")
+        launched = counts()
+        for name in modules:
+            out[name]["launches_stream_wire"] = launched[name]
+        log(f"[stream] (b) kernel launches {launched}; card {card}")
+    finally:
+        os.environ.pop("KARPENTER_PACKER", None)
+        close_all()
+        for server in servers.values():
+            server.stop(grace=None)
+        shutil.rmtree(scratch, ignore_errors=True)
     return out
 
 
@@ -1948,11 +2427,16 @@ def main() -> int:
     degrade = degrade_phase(card, classes)
 
     # -- 12. sidecar ------------------------------------------------------
-    sidecar = sidecar_phase(dev, card, classes)
+    catalogs, batches = sidecar_inputs()
+    sidecar = sidecar_phase(dev, card, classes, catalogs, batches)
+
+    # -- 13. stream -------------------------------------------------------
+    stream = stream_phase(dev, card, classes, catalogs, batches, sidecar["wire_ser_ms"])
 
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
-        return {k.replace("launches_", ""): v for k, v in sidecar[name].items()
+        return {k.replace("launches_", ""): v
+                for part in (sidecar[name], stream[name]) for k, v in part.items()
                 if k.startswith("launches_")}
 
     kernels = [{
@@ -1966,6 +2450,7 @@ def main() -> int:
                              **sidecar_launches("pack_first_fit")},
         **{k: v for k, v in route["pack_first_fit"].items() if k != "launches_route"},
         "degrade": degrade["pack_first_fit"],
+        "stream": stream["pack_first_fit"],
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -1986,6 +2471,7 @@ def main() -> int:
                              **sidecar_launches("pack_first_fit_v2")},
         **{k: v for k, v in route["pack_first_fit_v2"].items() if k != "launches_route"},
         "degrade": degrade["pack_first_fit_v2"],
+        "stream": stream["pack_first_fit_v2"],
         "library_ms": None,
         "parity": "bit-exact",
     }]

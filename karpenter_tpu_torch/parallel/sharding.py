@@ -47,17 +47,6 @@ def _cheapest_multi(node_req, node_sig, sig_type_mask, usable, prices) -> torch.
     return torch.where(ok.any(-1), first, -1).to(torch.int32)
 
 
-def _v2_args(pack_args) -> tuple:
-    """``pack_first_fit_v2``'s stacked inputs from the stacked
-    ``pack_args()`` tensors: each problem's per-core tables from
-    ``_precompute`` on the host, its fresh-node fits on the device."""
-    per_problem = [
-        pack_kernel_v2.v2_args(*(a[b] for a in pack_args))
-        for b in range(pack_args[0].shape[0])
-    ]
-    return tuple(torch.stack(col) for col in zip(*per_problem))
-
-
 def sharded_multi_solve(
     device,
     batch_arrays: Tuple,  # stacked [B, ...] host arrays, in pack_args() order
@@ -97,7 +86,8 @@ def sharded_multi_solve(
         for a, (_, dtype) in zip(arrays, PACK_ARG_DTYPES)
     )
     if route == "v2":
-        result = pack_kernel_v2.pack_first_fit_v2(*_v2_args(args), n_max=n_max, F=F, R=R)
+        result = pack_kernel_v2.pack_first_fit_v2(
+            *pack_kernel_v2.v2_args(*args), n_max=n_max, F=F, R=R)
     else:
         result = pack_first_fit(*args, n_max=n_max)
     cheapest = _cheapest_multi(

@@ -21,7 +21,8 @@ class OverloadedError(RuntimeError):
     """The sidecar shed this request under load: it is alive and will
     recover, so retry after the hint or serve elsewhere. ``kind`` names the
     bound that fired (``"admission"``: the sidecar's bounded queue or its
-    device-headroom floor)."""
+    device-headroom floor; ``"credits"``: the stream's credit window, empty
+    at the sender)."""
 
     def __init__(
         self, message: str, retry_after: float = 1.0, kind: str = "admission"

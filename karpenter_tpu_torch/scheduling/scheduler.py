@@ -26,6 +26,8 @@ class Scheduler:
         canary_rate: Optional[float] = None,
         solver_service_address: Optional[str] = None,
         pack_checksum: Optional[bool] = None,
+        solver_stream: Optional[bool] = None,
+        solver_shm_dir: Optional[str] = None,
     ):
         """``device`` is where the ``solver: tpu`` pack runs: ``cuda`` (the
         default) needs a card and raises without one; ``cpu`` runs the
@@ -35,9 +37,14 @@ class Scheduler:
         packer re-solves and compares (None = the ``KARPENTER_CANARY_RATE``
         env twin, default 0). ``solver_service_address`` sends the pack to
         a solver sidecar (``python -m karpenter_tpu_torch.solver.service``)
-        at that ``host:port``; ``pack_checksum`` turns on the wire's frame
-        checksums toward it (None = the ``KARPENTER_PACK_CHECKSUM`` env
-        twin)."""
+        at that ``host:port``, or to a pool of them for a comma-separated
+        list; ``pack_checksum`` turns on the wire's frame checksums toward
+        it (None = the ``KARPENTER_PACK_CHECKSUM`` env twin).
+        ``solver_stream`` sends the solves over one persistent stream per
+        sidecar and ``solver_shm_dir`` passes the pod arrays through a
+        shared-memory arena in that directory when the sidecar shares it
+        (None = the ``KARPENTER_SOLVER_STREAM`` and
+        ``KARPENTER_SOLVER_SHM_DIR`` env twins)."""
         from karpenter_tpu_torch.solver.backend import TorchScheduler
 
         self.cluster = cluster
@@ -46,20 +53,23 @@ class Scheduler:
         self.torch = TorchScheduler(
             cluster, rng=rng, device=self.device, solver_delta=solver_delta,
             canary_rate=canary_rate, service_address=solver_service_address,
-            pack_checksum=pack_checksum,
+            pack_checksum=pack_checksum, solver_stream=solver_stream,
+            solver_shm_dir=solver_shm_dir,
         )
 
     def last_stage_profile(self) -> dict:
-        """Per-stage timings of the most recent ``solver: tpu`` solve (sort /
+        """Per-stage timings of the calling thread's most recently completed
+        ``solver: tpu`` solve (else the latest of any thread; never one
+        still in flight) (sort /
         inject / encode / pack_fetch / decode / validate seconds, each stage
         served from resident state under its ``*_delta_s`` key;
         pack_dispatches; packer_backend, what served — ``sidecar`` for a
-        pack the solver sidecar served (with wire_ser_s, wire_deser_s and
-        solver_address), on a cpu scheduler
+        pack the solver sidecar served (with wire_ser_s, wire_deser_s,
+        solver_address and solver_transport), on a cpu scheduler
         ``ffd-degraded`` when the FFD floor did, absent when the signature
         closure overflowed (a card scheduler raises instead); pack_route,
         which caller ran it: fused, unfused or the router's native)."""
-        return dict(self.torch.last_profile)
+        return self.torch.completed_profile()
 
     def solve(
         self,

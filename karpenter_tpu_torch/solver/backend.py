@@ -82,8 +82,26 @@ process without touching the breaker; a corrupt exchange (an
 (``DeadlineExceededError``) moves no breaker: a cpu scheduler serves the
 batch from the floor, a card scheduler raises. A screen failure, an
 invalid plan or a canary mismatch on a sidecar round quarantines the
-sidecar (its breaker tripped). A comma-separated address (a pool) is not
-ported and raises.
+sidecar (its breaker tripped). A comma-separated address is a pool
+(``pool.SolverPool``): members chosen by the session key's hash ring,
+each with its own breaker and quarantine (an ``IntegrityQuarantine``
+event through ``_integrity_event``), failover along the ring; the outer
+breaker moves only when the whole pool refused. ``solver_stream`` and
+``solver_shm_dir`` (env ``KARPENTER_SOLVER_STREAM`` and
+``KARPENTER_SOLVER_SHM_DIR``) put the sidecar's solves on the persistent
+stream and its shared-memory arena.
+
+**The solve lock** (``_solve_lock``) covers the host prepare stages
+(inject, encode), the pack breaker's check and the pack's non-blocking
+begin, and publishes ``last_profile``. The fetch, the screen, the decode,
+the validation and the canary run outside it, so a second thread's encode
+overlaps the first one's pack in flight, on the card or on the wire. Each
+begin owns its output and its pinned staging buffer, and the kernels run
+on one stream in launch order. What runs off the lock is per thread or
+published as one object: the decode memo's hit flag (``_dec_tl``), the
+memos (one tuple each), and ``completed_profile()``, this thread's last
+finished profile (``last_completed_profile``: the latest of any thread).
+A floor round after the begin takes the lock back.
 
 **Shadow probes** (``device="cpu"`` schedulers only). A probe runs on its
 own daemon thread while the next solve runs. It may touch only state that is safe to share: the batch (read
@@ -202,8 +220,8 @@ SIDECAR = "sidecar"
 
 
 def pack_unfused(*args, n_max: int, packer: str = "auto") -> Tuple[str, PackResult]:
-    """The reference's ``pack_best`` rungs over one problem's ``pack_args()``
-    tensors → ``(what served, PackResult)``. ``packer`` (the solve's
+    """The reference's ``pack_best`` rungs over ``pack_args()`` tensors →
+    ``(what served, PackResult)``. ``packer`` (the solve's
     ``KARPENTER_PACKER``) forces a rung: ``native`` blocks for the native
     build and packs on the host (its result is host numpy arrays); ``scan``
     runs the plain version on the tensors' device (a force, never a
@@ -212,12 +230,16 @@ def pack_unfused(*args, n_max: int, packer: str = "auto") -> Tuple[str, PackResu
     card's kernel ladder (``pack_kernel.pack_best``), which never ends off
     the card, and CPU tensors, as the reference without a TPU, the native
     packer when it is built (its failure falls to the plain version), else
-    the plain version."""
+    the plain version. ``scan``, ``pallas`` and the card's ladder also take
+    the tensors with a shared leading batch axis (a coalesced group), the
+    kernels in one launch."""
     if packer == "native":
         native.native_available(wait=180)  # forced: block for the g++ build
         return "native", native.pack_native(*args, n_max=n_max)
     if packer == "scan":
-        return "pack_reference", kernel.pack_reference(*args, n_max=n_max)
+        batch = args[6].shape[0] if args[6].dim() == 3 else None
+        return "pack_reference", pack_kernel.per_problem(
+            kernel.pack_reference, args, batch, n_max=n_max)
     on_card = args[6].device.type == "cuda"
     if packer == "pallas":
         # forced means forced: no silent fallback when the card is absent
@@ -303,17 +325,24 @@ class TorchScheduler:
         canary_rate: Optional[float] = None,
         service_address: Optional[str] = None,
         pack_checksum: Optional[bool] = None,
+        solver_stream: Optional[bool] = None,
+        solver_shm_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.cluster = cluster
-        # the solver sidecar (service.py); None = the in-process pack. A
-        # comma-separated address is a sidecar pool, not ported yet
-        if service_address and "," in service_address:
-            raise NotImplementedError(
-                f"solver_service_address {service_address!r} names a sidecar "
-                "pool; the pool is not ported yet: give one address"
-            )
+        # the solver sidecar (service.py), or a pool of them for a
+        # comma-separated address (pool.py); None = the in-process pack
         self.service_address = service_address
+        # the persistent stream toward the sidecar(s), and the shared-memory
+        # arena when they share a host; None = the env twins
+        self.solver_stream = (
+            bool(solver_stream) if solver_stream is not None
+            else _env_bool("KARPENTER_SOLVER_STREAM")
+        )
+        self.solver_shm_dir = (
+            solver_shm_dir if solver_shm_dir is not None
+            else os.environ.get("KARPENTER_SOLVER_SHM_DIR", "")
+        )
         # per-frame wire checksums toward the sidecar (capability-gated);
         # None = the env twin
         self.pack_checksum = (
@@ -376,19 +405,27 @@ class TorchScheduler:
         # decode residency: when the SAME resident batch solves to a
         # bit-identical result under compatible constraints, the
         # VirtualNodes are rebuilt from the previous decode's derived
-        # per-node rows. One tuple snapshot; the hit flag is a plain
-        # attribute because this scheduler runs one solve at a time (no
-        # solve lock, no decode off a lock, no thread-local state)
+        # per-node rows. Decode runs off the solve lock: the memo is one
+        # tuple snapshot (a losing racer pays a full decode) and the hit
+        # flag is per thread
         self._dec_memo: Optional[tuple] = None
-        self._dec_hit = False
+        self._dec_tl = threading.local()
         # validation memo: (decode memo generation, pods list, daemon) of
         # the last PASSED _validate_pack. A decode served from the memo is
         # bit-identical to the plan that passed; a FAILED validation never
         # arms it, so a bad result is re-checked every round no matter how
         # often the device repeats it bit for bit
         self._validate_memo: Optional[tuple] = None
-        # per-stage timings of the most recent solve
+        # the host stages and the pack's begin; the fetch, decode, validate
+        # and canary run outside it (module docstring)
+        self._solve_lock = threading.Lock()
+        # per-stage timings of the most recent solve, published at its
+        # begin (so possibly mid-flight)
         self.last_profile: Dict[str, float] = {}
+        # the most recent completed solve's profile, published after its
+        # last stage write; the thread-local holds each thread's own
+        self.last_completed_profile: Dict[str, float] = {}
+        self._completed_tl = threading.local()
         # measured-cost routing of a device="cpu" scheduler (router.py),
         # shared by every scheduler of the process; at most one shadow
         # probe in flight per scheduler
@@ -405,7 +442,22 @@ class TorchScheduler:
         if not pods:
             return []
         prof: Dict[str, float] = {}
-        self.last_profile = prof
+        try:
+            return self._solve(constraints, instance_types, pods, prof)
+        finally:
+            # after every stage write, the floor's included; one assignment
+            # each, so a reader never sees a concurrent solve's partial dict
+            self.last_completed_profile = prof
+            self._completed_tl.profile = prof
+
+    def completed_profile(self) -> Dict[str, float]:
+        """This thread's most recently completed solve profile (else the
+        latest of any thread): what a caller sharing this scheduler with
+        other threads reads."""
+        prof = getattr(self._completed_tl, "profile", None)
+        return dict(prof if prof is not None else self.last_completed_profile)
+
+    def _solve(self, constraints, instance_types, pods, prof: Dict[str, float]):
         resident = self._resident
         t0 = time.perf_counter()
         constraints = constraints.clone()
@@ -416,7 +468,20 @@ class TorchScheduler:
             sort_hit = False
         instance_types = sorted(instance_types, key=lambda it: it.effective_price())
         prof["sort_delta_s" if sort_hit else "sort_s"] = time.perf_counter() - t0
+        with self._solve_lock:
+            # published under the lock, with the stages that write it
+            self.last_profile = prof
+            out = self._prepare_and_begin(constraints, instance_types, pods, sts, prof)
+        if isinstance(out, list):
+            return out  # the round ended before the pack was in flight
+        return self._finish(*out, prof)
 
+    def _prepare_and_begin(self, constraints, instance_types, pods, sts, prof):
+        """The stages under the solve lock: inject, encode, the pack
+        breaker's check and the pack's begin. Returns the finished nodes
+        when the round ends here (a floor or a raise), else what
+        ``_finish`` needs."""
+        resident = self._resident
         # topology decisions land in the plan, never in the pods' selectors
         t0 = time.perf_counter()
         topo = True
@@ -481,8 +546,8 @@ class TorchScheduler:
         # begin and finish are two guarded steps, as the reference's
         # dispatch and fetch are
         # a typed shed is backpressure, not a shape failure: the breaker
-        # stays as it is (the single-sidecar path packs an overload in
-        # process, so what arrives here is the round's expired deadline)
+        # stays as it is (an overloaded sidecar or pool packs in process,
+        # so what arrives here is the round's expired deadline)
         t0 = time.perf_counter()
         try:
             finish = self._pack(batch, prof)
@@ -491,6 +556,19 @@ class TorchScheduler:
         except Exception as e:
             breaker.record_failure()
             return self._fail(e, prof, degrade, "accelerated pack failed", exc_info=True)
+        begin_s = time.perf_counter() - t0
+        return (constraints, instance_types, pods, daemon, plan, batch, breaker, finish, begin_s)
+
+    def _finish(self, constraints, instance_types, pods, daemon, plan, batch, breaker,
+                finish, begin_s: float, prof: Dict[str, float]) -> List[VirtualNode]:
+        """The stages off the solve lock: the fetch, the screen, decode,
+        validation and the canary. A round that falls to the floor here
+        takes the lock back (the floor shares the scheduler's state)."""
+        def degrade() -> List[VirtualNode]:
+            with self._solve_lock:
+                return self._ffd_degrade(constraints, instance_types, pods, daemon, plan)
+
+        t0 = time.perf_counter()
         try:
             result, typemask = finish()
         except (OverloadedError, DeadlineExceededError) as e:
@@ -502,7 +580,7 @@ class TorchScheduler:
         # wire_deser_s, set by the sidecar client), so pack_fetch_s is the
         # dispatch and in-flight wait alone
         prof["pack_fetch_s"] = max(
-            time.perf_counter() - t0
+            begin_s + time.perf_counter() - t0
             - prof.get("wire_ser_s", 0.0) - prof.get("wire_deser_s", 0.0),
             0.0,
         )
@@ -527,7 +605,8 @@ class TorchScheduler:
 
         t0 = time.perf_counter()
         nodes = self._decode(batch, result, typemask, constraints, instance_types)
-        prof["decode_delta_s" if self._dec_hit else "decode_s"] = time.perf_counter() - t0
+        dec_hit = getattr(self._dec_tl, "hit", False)
+        prof["decode_delta_s" if dec_hit else "decode_s"] = time.perf_counter() - t0
 
         # a decode-memo hit is bit-identical to a previously decoded plan;
         # when THAT plan passed this guard (the memo is only armed on a
@@ -536,7 +615,7 @@ class TorchScheduler:
         t0 = time.perf_counter()
         vmemo = self._validate_memo
         if (
-            self._dec_hit
+            dec_hit
             and vmemo is not None
             and vmemo[0] is self._dec_memo
             and vmemo[1] is pods
@@ -602,7 +681,7 @@ class TorchScheduler:
 
     # -- integrity ------------------------------------------------------------
 
-    def _integrity_event(self, reason: str, detail: str, address: str = "") -> None:
+    def _integrity_event(self, reason: str, address: str, detail: str) -> None:
         """Every quarantine is a cluster Warning event: an operator sees
         'this source produced corrupt data' next to the pods it almost
         mis-scheduled."""
@@ -626,13 +705,20 @@ class TorchScheduler:
         the screen, the canary, an invalid decoded plan), by the pack's
         provenance: the sidecar's breaker, tripped at once, when the pack
         names the sidecar's address; the shape class's pack breaker on the
-        in-process path (local corruption has no address to blame)."""
+        in-process path (local corruption has no address to blame). A
+        pool's member is quarantined by the pool (its own breaker tripped,
+        the event through ``on_quarantine``), so one bad member does not
+        close the whole remote path."""
+        remote = self._remote
+        if address and remote is not None and hasattr(remote, "quarantine"):
+            remote.quarantine(address, reason, detail)
+            return
         if address and self.service_address:
             self._remote_breaker.trip()
         elif batch is not None:
             self._pack_breakers.get(self._breaker_key(batch)).trip()
         integrity.record_quarantine(address, reason, detail)
-        self._integrity_event(reason, detail, address)
+        self._integrity_event(reason, address, detail)
 
     def _maybe_canary(self, batch: enc.EncodedBatch, result, prof: Dict) -> None:
         """Start the canary cross-check for a ``canary_rate`` fraction of
@@ -974,12 +1060,23 @@ class TorchScheduler:
             # under the lock: a shadow probe can reach here beside a solve
             with self._remote_init_lock:
                 if self._remote is None:
-                    from karpenter_tpu_torch.solver.service import RemoteSolver
-
-                    self._remote = RemoteSolver(
-                        self.service_address, timeout=REMOTE_SOLVE_TIMEOUT,
-                        checksum=self.pack_checksum, delta=self.solver_delta,
+                    knobs = dict(
+                        timeout=REMOTE_SOLVE_TIMEOUT, checksum=self.pack_checksum,
+                        stream=self.solver_stream, shm_dir=self.solver_shm_dir,
+                        delta=self.solver_delta,
                     )
+                    if "," in self.service_address:
+                        from karpenter_tpu_torch.solver.pool import SolverPool
+
+                        pool = SolverPool(self.service_address.split(","), **knobs)
+                        # the pool has no cluster handle: its quarantines
+                        # reach the cluster as events through the scheduler
+                        pool.on_quarantine = self._integrity_event
+                        self._remote = pool
+                    else:
+                        from karpenter_tpu_torch.solver.service import RemoteSolver
+
+                        self._remote = RemoteSolver(self.service_address, **knobs)
         return self._remote
 
     def _remote_failure(self, e: Exception) -> None:
@@ -1229,7 +1326,7 @@ class TorchScheduler:
         # batch under compatible constraints rebuilds the nodes from the
         # previous decode's derived rows. Gated with the rest of the
         # resident machinery, so the knob-off path measures the full decode.
-        self._dec_hit = False
+        self._dec_tl.hit = False
         memo_on = self._resident is not None
         if memo_on:
             nodes = self._decode_from_memo(
@@ -1237,7 +1334,7 @@ class TorchScheduler:
                 typemask, constraints, instance_types,
             )
             if nodes is not None:
-                self._dec_hit = True
+                self._dec_tl.hit = True
                 return nodes
 
         # group pods per node (order-preserving, like FFD append order);

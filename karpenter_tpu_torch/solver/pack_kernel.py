@@ -28,11 +28,12 @@ launches the kernel or raises; for CPU tensors it runs the plain version
 ``kernel.pack_reference`` (per problem). It counts its launches in
 ``launches``.
 
-``pack_best`` is the card's unfused kernel ladder over one problem's
-``pack_args()`` tensors: ``pack_first_fit`` or the unfused v2 caller by
-shape, the other kernel when a launch raises (its shape memoized in
-``_failed_shapes``). Which rung a solve asks for (``KARPENTER_PACKER``) and
-the host packers are the backend's (``backend.pack_unfused``).
+``pack_best`` is the card's unfused kernel ladder over ``pack_args()``
+tensors (one problem, or a stack of them in one launch): ``pack_first_fit``
+or the unfused v2 caller by shape, the other kernel when a launch raises
+(its shape memoized in ``_failed_shapes``). Which rung a solve asks for
+(``KARPENTER_PACKER``) and the host packers are the backend's
+(``backend.pack_unfused``).
 """
 
 from __future__ import annotations
@@ -356,28 +357,31 @@ _failed_shapes: set = set()  # guarded-by: _failed_shapes_lock
 
 def pack_best(*args, n_max: int) -> Tuple[str, PackResult]:
     """The card's kernel ladder: ``kernel.pack_reference``'s contract over
-    one problem's ``pack_args()`` tensors → ``(kernel that served,
-    PackResult)``. On CUDA tensors: ``pack_first_fit`` when P % 128 == 0
-    and S·F ≤ 1024, else the unfused v2 caller when the v2 tables fit the
+    ``pack_args()`` tensors, each optionally with a shared leading batch
+    axis → ``(kernel that served, PackResult)``, one launch for the whole
+    batch. On CUDA tensors: ``pack_first_fit`` when P % 128 == 0 and
+    S·F ≤ 1024, else the unfused v2 caller when the v2 tables fit the
     card's budget, else ``pack_first_fit`` (where the reference falls to
     lax.scan). A kernel whose launch raises puts its shape in the failed
     memo and the ladder moves to the other kernel; it never ends in the
     plain version, and raises when no kernel served. On CPU tensors, the
-    plain version (``pack_reference``)."""
+    plain version (``pack_reference``, per problem)."""
     if args[6].device.type != "cuda":
-        return "pack_reference", pack_reference(*args, n_max=n_max)
+        batch = args[6].shape[0] if args[6].dim() == 3 else None
+        return "pack_reference", per_problem(pack_reference, args, batch, n_max=n_max)
     return _kernel_ladder(*args, n_max=n_max)
 
 
 def _kernel_ladder(*args, n_max: int) -> Tuple[str, PackResult]:
     """``pack_best``'s rungs for CUDA tensors: the two kernels in the
-    shape's order, each skipped once its shape failed; raises when neither
-    served."""
+    shape's order (read from the trailing axes, so a stacked batch is one
+    launch of one rung), each skipped once its shape failed; raises when
+    neither served."""
     from karpenter_tpu_torch.solver import pack_kernel_v2
 
-    P, R = args[6].shape
-    S, F = args[8].shape[0], args[8].shape[1]
-    C = args[7].shape[1]
+    P, R = args[6].shape[-2:]
+    S, F = args[8].shape[-3], args[8].shape[-2]
+    C = args[7].shape[-1]
     v2_fits = pack_kernel_v2.v2_tables_fit(S, F, R, C)
     if P % BLOCK == 0 and S * F <= pack_kernel_v2.PALLAS_UNROLL_BUDGET:
         order = ("v1", "v2") if v2_fits else ("v1",)

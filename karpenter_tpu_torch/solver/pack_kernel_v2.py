@@ -24,10 +24,11 @@ in ``launches``.
 function of the tables' shapes.
 
 ``pack_unfused_v2`` is the unfused caller (the reference's
-``pack_pallas_v2``): from one problem's ``pack_args()`` tensors it builds
-the tables on the host per call and the kernel's inputs (``v2_args``, which
-the multi-solve shares) and launches ``pack_first_fit_v2``;
-``pack_kernel.pack_best`` takes it for batches the fused route does not.
+``pack_pallas_v2``): from ``pack_args()`` tensors, one problem or a stack
+of them, it builds the tables on the host per call and the kernel's inputs
+(``v2_args``, which the multi-solve shares) and launches
+``pack_first_fit_v2`` once; ``pack_kernel.pack_best`` takes it for batches
+the fused route does not.
 """
 
 from __future__ import annotations
@@ -147,25 +148,39 @@ def v2_args(
     pod_valid, pod_open_sig, pod_core, pod_host, pod_host_in_base, pod_open_host,
     pod_req, join_table, frontiers, daemon,
 ) -> tuple:
-    """``pack_first_fit_v2``'s seven inputs for one problem from its
-    ``pack_args()`` tensors: the per-core tables from ``_precompute`` on
-    the host (per call, nothing cached), the rest by ``kernel_inputs`` on
-    the tensors' device."""
+    """``pack_first_fit_v2``'s seven inputs from ``pack_args()`` tensors,
+    each optionally with a shared leading batch axis: the per-core tables
+    from ``_precompute`` on the host (per call, nothing cached; once per
+    distinct catalog of a batch), the rest by ``kernel_inputs`` on the
+    tensors' device, stacked per problem."""
+    args = (pod_valid, pod_open_sig, pod_core, pod_host, pod_host_in_base, pod_open_host,
+            pod_req, join_table, frontiers, daemon)
     dev = pod_req.device
-    tables = _precompute(join_table.cpu().numpy(), frontiers.cpu().numpy())[:3]
-    return kernel_inputs(
-        pod_valid, pod_open_sig, pod_core, pod_host, pod_host_in_base, pod_open_host,
-        pod_req, frontiers, daemon, *(torch.from_numpy(t).to(dev) for t in tables),
-    )
+    joins, fronts = join_table.cpu().numpy(), frontiers.cpu().numpy()
+    if pod_req.dim() == 2:
+        tables = _precompute(joins, fronts)[:3]
+        return kernel_inputs(*args[:7], frontiers, daemon,
+                             *(torch.from_numpy(t).to(dev) for t in tables))
+    built = []  # (join_table, frontiers, tables on dev) per distinct catalog
+    per_problem = []
+    for b in range(pod_req.shape[0]):
+        tables = next((t for j, f, t in built
+                       if np.array_equal(j, joins[b]) and np.array_equal(f, fronts[b])), None)
+        if tables is None:
+            tables = [torch.from_numpy(t).to(dev) for t in _precompute(joins[b], fronts[b])[:3]]
+            built.append((joins[b], fronts[b], tables))
+        per_problem.append(kernel_inputs(*(a[b] for a in args[:7]), frontiers[b], daemon[b],
+                                         *tables))
+    return tuple(torch.stack(col) for col in zip(*per_problem))
 
 
 def pack_unfused_v2(*args, n_max: int) -> PackResult:
-    """The unfused v2 caller (the reference's ``pack_pallas_v2``):
-    ``kernel.pack_reference``'s contract over one problem's ``pack_args()``
-    tensors. Builds the v2 inputs (``v2_args``) and runs
-    ``pack_first_fit_v2``, which on the card walks a signature-major copy of
-    the limits made for this call."""
-    F, R = args[8].shape[1], args[8].shape[2]
+    """The unfused caller (the reference's ``pack_pallas_v2``):
+    ``kernel.pack_reference``'s contract over ``pack_args()`` tensors,
+    each optionally with a shared leading batch axis. Builds the v2 inputs
+    (``v2_args``) and runs ``pack_first_fit_v2`` once, which on the card
+    walks a signature-major copy of the limits made for this call."""
+    F, R = args[8].shape[-2], args[8].shape[-1]
     return pack_first_fit_v2(*v2_args(*args), n_max=n_max, F=F, R=R)
 
 

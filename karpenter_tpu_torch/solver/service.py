@@ -64,9 +64,15 @@ its device, uploads the 7 pod-side arrays per Pack, packs through
 ``pack_kernel.pack_best``), and makes one device→host copy of the fused
 result. ``served`` counts what served each dispatch.
 
-The persistent stream (``PROTO_STREAM``) is not part of this module: the
-sidecar does not advertise it, so every client, of either package, is
-served over unary calls.
+**The persistent stream** (``PROTO_STREAM``, ``stream.py``): a client
+built with ``stream=True`` multiplexes its solves and session opens over
+one ``SolveStream`` call per sidecar, with credits and an optional shared
+memory arena (``shm_dir``) for the pod arrays; a broken or absent stream
+falls back to unary calls. The sidecar parses each streamed solve with
+``stream_parse_solve`` (the unary verification ladder) and serves groups
+of concurrent solves that share a session, pod shapes and ``n_max`` with
+``solve_stream_group``: on the card one launch of ``pack_first_fit`` or
+``pack_first_fit_v2`` over a leading batch axis, one device→host copy.
 """
 
 from __future__ import annotations
@@ -100,6 +106,7 @@ MAGIC = b"KTPU"
 VERSION = 3
 METHOD = "/karpenter.solver.v1.Solver/Pack"
 OPEN_SESSION_METHOD = "/karpenter.solver.v1.Solver/OpenSession"
+STREAM_METHOD = "/karpenter.solver.v1.Solver/SolveStream"
 HEALTH_METHOD = "/karpenter.solver.v1.Solver/Health"
 SERVING = b"SERVING"
 NOT_SERVING = b"NOT_SERVING"
@@ -130,9 +137,8 @@ PROTO_FEATURES = (
     PROTO_TRACE_TRAILER | PROTO_DEADLINE | PROTO_CHECKSUM | PROTO_STREAM
     | PROTO_DELTA
 )
-# what this package's sidecar advertises: every bit but the persistent
-# stream, which it does not serve
-SIDECAR_FEATURES = PROTO_FEATURES & ~PROTO_STREAM
+# what this package's sidecar advertises by default: every bit
+SIDECAR_FEATURES = PROTO_FEATURES
 
 # Pack-request flags (the optional third word of the n_max array): bit 0
 # asks the sidecar to echo the session key it solved against; bit 1 marks
@@ -554,6 +560,11 @@ class AdmissionGate:
             self._inflight = max(self._inflight - 1, 0)
             self._cv.notify()
 
+    def depth(self) -> int:
+        """Solves admitted or queued right now."""
+        with self._cv:
+            return self._inflight + self._waiting
+
 
 # ---------------------------------------------------------------------------
 # server (the sidecar)
@@ -594,14 +605,16 @@ class SolverService:
         overload_retry_after: float = OVERLOAD_RETRY_AFTER_S,
         hbm_floor_bytes: int = 0,
         device="cuda",
+        features: int = SIDECAR_FEATURES,
     ):
         self.device = resolve_device(device)
         self.ready = threading.Event()
         self.session_max = session_max
         self.session_ttl = session_ttl
         self._clock = clock
-        # the capability word advertised in OpenSession responses
-        self.features = SIDECAR_FEATURES
+        # the capability word advertised in OpenSession responses (a test
+        # lowers it to stand for an older build)
+        self.features = int(features)
         self.admission = AdmissionGate(max_inflight, queue_depth, clock=clock)
         self.overload_retry_after = float(overload_retry_after)
         self.hbm_floor_bytes = int(hbm_floor_bytes)
@@ -614,6 +627,12 @@ class SolverService:
         }  # guarded-by: self._stats_lock
         # request frames rejected for a checksum mismatch, by method
         self.checksum_failures: dict = {}  # guarded-by: self._stats_lock
+        # streamed dispatches: groups, the solves they carried, and those
+        # of them served by one batched launch
+        self.stream_stats: dict = {
+            "coalesced_dispatches": 0, "coalesced_solves": 0,
+            "stream_dispatches": 0, "stream_solves": 0,
+        }  # guarded-by: self._stats_lock
         self._stats_lock = threading.Lock()
         # what served the calling thread's last solve (the warm-up reads it)
         self._served_tl = threading.local()
@@ -1016,7 +1035,7 @@ class SolverService:
             self.admission.leave()
 
     def _solve_admitted(self, arrays: List[np.ndarray], ctx) -> bytes:
-        from karpenter_tpu_torch.solver import backend, kernel, session_stats
+        from karpenter_tpu_torch.solver import backend, session_stats
         from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
 
         key_arr, n_max_arr = arrays[0], arrays[1]
@@ -1067,11 +1086,7 @@ class SolverService:
             self.served[served] = self.served.get(served, 0) + 1
         self._served_tl.name = served
         t0 = time.perf_counter()
-        if not isinstance(result.assignment, torch.Tensor):
-            # native serves host arrays
-            result = kernel.PackResult(*(torch.as_tensor(np.asarray(a)) for a in result))
-        # one device→host copy of the fused buffer, on the current stream
-        buf = kernel.fuse_result(result).cpu().numpy()
+        buf = self._fetch(result)
         fetch_s = time.perf_counter() - t0
         if ctx is None:
             return _status_response(STATUS_OK, [buf, *echo])
@@ -1091,6 +1106,242 @@ class SolverService:
             + response[tail:]
         )
 
+    @staticmethod
+    def _fetch(result) -> np.ndarray:
+        """One device→host copy of ``result`` fused into one i32 buffer, on
+        the current stream (native serves host arrays: no copy)."""
+        from karpenter_tpu_torch.solver import kernel
+
+        if not isinstance(result.assignment, torch.Tensor):
+            result = kernel.PackResult(*(torch.as_tensor(np.asarray(a)) for a in result))
+        return kernel.fuse_result(result).cpu().numpy()
+
+    # -- the streamed transport (stream.py) -----------------------------------
+
+    def stream_parse_solve(self, payload: bytes, respond, arena=None):
+        """Verify and parse one streamed solve into a
+        :class:`~karpenter_tpu_torch.solver.stream.StreamSolve` awaiting
+        dispatch, or return the immediate refusal frame. The verification
+        ladder is ``solve_bytes``'s (the payload is a unary frame); only
+        admission and dispatch move to the coalescer.
+
+        ``arena`` (a ``ShmArenaReader``) marks the shared-memory variant:
+        the frame carries one i32 descriptor in place of the 7 pod arrays,
+        which are read as views onto the mapped arena."""
+        from karpenter_tpu_torch.solver.stream import StreamSolve
+
+        try:
+            verdict, arrays = verify_and_unpack(payload)
+        except ValueError as e:
+            if "version" in str(e) or "magic" in str(e):
+                raise  # version skew stays loud: it breaks the stream
+            return self._reject_corrupt("stream_pack")
+        except Exception:
+            return self._reject_corrupt("stream_pack")
+        if verdict == "mismatch":
+            return self._reject_corrupt("stream_pack")
+        checksummed = verdict == "ok"
+        # structural guards before any positional indexing: a malformed
+        # payload fails this message with the typed refusal, never the
+        # reader thread (which would tear down every solve on the stream)
+        if len(arrays) < 3 or np.asarray(arrays[1]).reshape(-1).size < 1:
+            return self._seal(_status_response(STATUS_INTEGRITY), checksummed)
+        key_arr, n_max_arr = arrays[0], arrays[1]
+        vals = n_max_arr.reshape(-1)
+        flags = int(vals[2]) if vals.size > 2 else 0
+        if arena is not None:
+            trailer = arrays[3:]
+            try:
+                pod_arrays = arena.read(arrays[2])
+            except ValueError as e:
+                logger.error("shm descriptor rejected: %s", e)
+                return self._seal(_status_response(STATUS_INTEGRITY), checksummed)
+            if len(pod_arrays) != N_POD_ARRAYS:
+                return self._seal(_status_response(STATUS_INTEGRITY), checksummed)
+        elif flags & PACK_FLAG_DELTA:
+            # a delta frame resolves to concrete pod arrays here, at parse
+            # time, so the coalescer's group keys and the batched launch
+            # never see one; a refusal answers from the reader thread
+            pod_arrays, refusal = self._resolve_delta(arrays)
+            if refusal is not None:
+                return self._seal(_status_response(refusal), checksummed)
+            trailer = arrays[2 + _delta_span(arrays):]
+        else:
+            pod_arrays = arrays[2:2 + N_POD_ARRAYS]
+            trailer = arrays[2 + N_POD_ARRAYS:]
+            if len(pod_arrays) != N_POD_ARRAYS:
+                return self._seal(_status_response(STATUS_INTEGRITY), checksummed)
+        ctx, deadline_s = _parse_trailers(trailer)
+        return StreamSolve(
+            key=key_arr.tobytes(),
+            n_max=int(vals[0]),
+            record=bool(vals[1]) if vals.size > 1 else True,
+            flags=flags,
+            pod_arrays=[np.asarray(a) for a in pod_arrays],
+            ctx=ctx,
+            deadline=None if deadline_s is None else self._clock() + max(deadline_s, 0.0),
+            checksummed=checksummed,
+            respond=respond,
+            shm=arena is not None,
+        )
+
+    # the deadline shed is a constant frame (sealed or not), built once
+    _SHED_RESPONSES: dict = {}
+
+    def shed_if_expired(self, entry) -> Optional[bytes]:
+        """The stream reader's early deadline shed: an expired solve is
+        answered ``STATUS_DEADLINE_EXCEEDED`` from the reader thread, with
+        no dispatcher hop and no admission slot (``solve_stream_group``
+        re-checks for budgets that expire while queued)."""
+        if entry.deadline is None or self._clock() < entry.deadline:
+            return None
+        self._count_shed("deadline")
+        cached = self._SHED_RESPONSES.get(entry.checksummed)
+        if cached is None:
+            cached = self._SHED_RESPONSES[entry.checksummed] = self._seal(
+                _status_response(STATUS_DEADLINE_EXCEEDED), entry.checksummed
+            )
+        return cached
+
+    # a coalesced group is padded to the next bucket by repeating its last
+    # entry, so the batched launch sees few distinct batch sizes
+    _COALESCE_BUCKETS = (1, 2, 4, 8)
+
+    def solve_stream_group(self, entries) -> None:
+        """Serve one group of streamed solves (same session key, pod shapes
+        and ``n_max``: the coalescer's group key) under ONE admission slot,
+        answering each entry with its own response frame.
+
+        Per entry, as the unary solve does: the deadline is re-checked
+        after queueing, an unknown session answers ``NEEDS_CATALOG``
+        (unsealed), and hits are counted as solves happen; the TTL sweep
+        runs here too, since a steady stream sends no unary traffic.
+
+        More than one live entry on a device route (``KARPENTER_PACKER``
+        forcing ``scan`` or ``pallas``, or not ``native`` with the session
+        on the card) is one launch over the group padded to its bucket
+        (``_launch_group``) and one device→host copy; otherwise each entry
+        packs through ``backend.pack_unfused`` as in ``solve_bytes``. A
+        traced entry's stage trailer is ``[dispatch_s, fetch_s, 0.0]``,
+        shared across the group."""
+        from karpenter_tpu_torch.solver import backend, session_stats
+        from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
+
+        if self.admission.enter() != "admitted":
+            for e in entries:
+                self._count_shed("queue_full")
+                e.reply(self._seal(self._overloaded_response(), e.checksummed))
+            return
+        try:
+            now = self._clock()
+            live = []
+            for e in entries:
+                if e.deadline is not None and now >= e.deadline:
+                    self._count_shed("deadline")
+                    e.reply(self._seal(
+                        _status_response(STATUS_DEADLINE_EXCEEDED), e.checksummed))
+                else:
+                    live.append(e)
+            if not live:
+                return
+            key = live[0].key
+            hits = 0
+            with self._sessions_lock:
+                hit = self._sessions.get(key)
+                if hit is not None:
+                    hit[1] = self._clock()
+                    self._sessions.move_to_end(key)
+                    resident = hit[0]
+                    for e in live:
+                        if e.record:
+                            if hit[2]:
+                                hit[2] = False  # the fresh upload was the miss
+                            else:
+                                hits += 1
+                self._evict_sessions_locked()
+            if hit is None:
+                for e in live:
+                    # unsealed, as on the unary path: NEEDS_CATALOG is the
+                    # capability renegotiation channel
+                    e.reply(_status_response(STATUS_NEEDS_CATALOG))
+                return
+            for _ in range(hits):
+                session_stats.record(True)
+            packer = os.environ.get("KARPENTER_PACKER", "auto").lower()
+            device_route = packer in ("scan", "pallas") or (
+                packer != "native" and resident[0].device.type == "cuda"
+            )
+            coalesced = len(live) > 1 and device_route
+            with self._stats_lock:
+                self.dispatches += 1
+                self.stream_stats["stream_dispatches"] += 1
+                self.stream_stats["stream_solves"] += len(live)
+                if coalesced:
+                    self.stream_stats["coalesced_dispatches"] += 1
+                    self.stream_stats["coalesced_solves"] += len(live)
+            n_max = live[0].n_max
+            t0 = time.perf_counter()
+            if coalesced:
+                served, fused = self._launch_group(live, resident, n_max, packer)
+                with self._stats_lock:
+                    self.served[served] = self.served.get(served, 0) + 1
+                dispatch_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                # one device→host copy of the stacked buffers
+                host = fused.cpu().numpy()
+                fetch_s = time.perf_counter() - t0
+                bufs = [host[i] for i in range(len(live))]
+            else:
+                results = []
+                for e in live:
+                    pod = self._upload(e.pod_arrays, PACK_ARG_DTYPES[:N_POD_ARRAYS])
+                    served, result = backend.pack_unfused(
+                        *pod, *resident, n_max=n_max, packer=packer)
+                    with self._stats_lock:
+                        self.served[served] = self.served.get(served, 0) + 1
+                    results.append(result)
+                dispatch_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                bufs = [self._fetch(r) for r in results]
+                fetch_s = time.perf_counter() - t0
+            self._served_tl.name = served
+            for e, buf in zip(live, bufs):
+                payload = [buf]
+                if e.ctx is not None:
+                    payload.append(np.asarray([dispatch_s, fetch_s, 0.0], np.float32))
+                if e.flags & PACK_FLAG_ECHO_SESSION:
+                    payload.append(_key_array(key))
+                e.reply(self._seal(_status_response(STATUS_OK, payload), e.checksummed))
+        finally:
+            self.admission.leave()
+
+    def _launch_group(self, live, resident, n_max: int, packer: str):
+        """One launch for a coalesced group → ``(what served, fused
+        buffers [B, L] on the session's device)``, B the group padded to
+        its bucket by repeating the last entry. The 7 pod arrays are
+        stacked and uploaded once; the session's catalog tensors get the
+        same leading axis as contiguous copies (the kernels take
+        contiguous inputs); ``backend.pack_unfused`` then serves the stack
+        as it serves one problem: the card's kernel ladder in one launch
+        (v2 over the session's tables, built once), ``pallas`` forcing
+        ``pack_first_fit``, ``scan`` the plain version per problem."""
+        from karpenter_tpu_torch.solver import backend, kernel
+        from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
+
+        B = next(b for b in self._COALESCE_BUCKETS if b >= len(live))
+        padded = live + [live[-1]] * (B - len(live))
+        pod = self._upload(
+            [np.stack([e.pod_arrays[i] for e in padded]) for i in range(N_POD_ARRAYS)],
+            PACK_ARG_DTYPES[:N_POD_ARRAYS],
+        )
+        catalog = tuple(t.expand(B, *t.shape).contiguous() for t in resident)
+        served, result = backend.pack_unfused(*pod, *catalog, n_max=n_max, packer=packer)
+        fused = torch.stack([
+            kernel.fuse_result(kernel.PackResult(*(f[b] for f in result)))
+            for b in range(B)
+        ])
+        return served, fused
+
 
 def serve(
     address: str = "127.0.0.1:50051",
@@ -1098,17 +1349,48 @@ def serve(
     health_port: int = 0,
     warmup: bool = False,
     service=None,
+    shm_dir: str = "",
+    coalesce_window_s: Optional[float] = None,
 ):
     """Start the sidecar server; returns the grpc server object.
 
     ``health_port`` > 0 also serves HTTP ``/healthz`` (liveness) and
     ``/readyz`` (503 until the warm-up solve completes). ``warmup`` runs the
     warm-up solve in the background; without it readiness is immediate.
-    ``service`` hands in a pre-built ``SolverService`` (the default builds
-    one on the card)."""
+    ``service`` hands in a pre-built (or chaos-wrapped) ``SolverService``
+    (the default builds one on the card).
+
+    ``shm_dir`` lets clients that share the directory send their pod arrays
+    through a shared-memory arena; ``coalesce_window_s`` is the streamed
+    solves' collection window (``stream.DEFAULT_COALESCE_WINDOW_S`` when
+    None). The stream's threads and executor are built on the first
+    ``SolveStream`` call (``server.stream_server()``; the built one, or
+    None, in ``server.stream_server_box[0]``) and stopped with the
+    server."""
     import grpc
 
     service = service if service is not None else SolverService()
+    stream_box: list = [None]  # guarded-by: stream_lock
+    stream_lock = threading.Lock()
+
+    def stream_server():
+        with stream_lock:
+            if stream_box[0] is None:
+                from karpenter_tpu_torch.solver.stream import (
+                    DEFAULT_COALESCE_WINDOW_S,
+                    StreamServer,
+                )
+
+                stream_box[0] = StreamServer(
+                    service,
+                    max_workers=max_workers,
+                    coalesce_window_s=(
+                        DEFAULT_COALESCE_WINDOW_S
+                        if coalesce_window_s is None else coalesce_window_s
+                    ),
+                    shm_dir=shm_dir,
+                )
+            return stream_box[0]
 
     def unary(fn):
         return grpc.unary_unary_rpc_method_handler(
@@ -1125,6 +1407,13 @@ def serve(
 
     class Handler(grpc.GenericRpcHandler):
         def service(self, handler_call_details):
+            if handler_call_details.method == STREAM_METHOD:
+                return grpc.stream_stream_rpc_method_handler(
+                    lambda request_iterator, ctx: stream_server().handle(
+                        request_iterator, ctx),
+                    request_deserializer=None,
+                    response_serializer=None,
+                )
             fn = handlers.get(handler_call_details.method)
             return None if fn is None else unary(fn)
 
@@ -1145,6 +1434,18 @@ def serve(
     if health_port:
         server.health_server = _serve_health(service, health_port)
     server.solver_service = service
+    server.stream_server = stream_server
+    server.stream_server_box = stream_box
+    # the coalescer thread and the solve executor die with the server
+    grpc_stop = server.stop
+
+    def stop(grace=None):
+        box = stream_box[0]
+        if box is not None:
+            box.stop()
+        return grpc_stop(grace)
+
+    server.stop = stop
     logger.info("solver service listening on %s", address)
     return server
 
@@ -1190,8 +1491,15 @@ class RemoteSolver:
 
     The catalog-side arrays are uploaded once per fingerprint
     (``OpenSession``); every ``pack`` ships the session key plus only the
-    pod-side arrays. ``pack_begin`` dispatches without blocking (a gRPC
-    future) and returns ``wait()``."""
+    pod-side arrays. ``pack_begin`` dispatches without blocking (a gRPC or
+    stream future) and returns ``wait()``: the scheduler releases its
+    solve lock between the two.
+
+    ``stream=True`` multiplexes solves and opens over one persistent
+    stream once the sidecar advertised ``PROTO_STREAM``; ``shm_dir`` also
+    sends the pod arrays through a shared-memory arena once the sidecar
+    accepted it. The transport ladder per solve is stream + arena, stream
+    inline, unary."""
 
     # catalog-key memos retained (bounded; they hold the array refs)
     KEY_MEMO_MAX = 8
@@ -1205,12 +1513,19 @@ class RemoteSolver:
         timeout: float = 30.0,
         cold_timeout: float = 180.0,
         checksum: bool = False,
+        stream: bool = False,
+        shm_dir: str = "",
         delta: bool = False,
     ):
         import grpc
 
         self.address = address
         self.timeout = timeout
+        # the persistent stream (stream.py), used once the sidecar
+        # advertised PROTO_STREAM; shm_dir adds the arena once it is acked
+        self._stream_enabled = bool(stream)
+        self._shm_dir = shm_dir
+        self._stream = None  # guarded-by: self._lock
         # pod-side deltas: when on AND the sidecar advertised PROTO_DELTA,
         # Pack frames establish / elide / patch against a resident base
         self.delta = bool(delta)
@@ -1244,6 +1559,14 @@ class RemoteSolver:
         )
         self._call = self._channel.unary_unary(METHOD)
         self._open_call = self._channel.unary_unary(OPEN_SESSION_METHOD)
+        self._health_call = self._channel.unary_unary(HEALTH_METHOD)
+
+    def health(self, timeout: float = 2.0) -> bool:
+        """True when the sidecar reports SERVING (warm-up done)."""
+        try:
+            return self._health_call(b"", timeout=timeout) == SERVING
+        except Exception:
+            return False
 
     # -- sessions -----------------------------------------------------------
 
@@ -1274,7 +1597,7 @@ class RemoteSolver:
             require = bool(
                 self.checksum and (self._server_features & PROTO_CHECKSUM)
             )
-        response = self._open_call(request, timeout=timeout)
+        response = self._dispatch_open(request, timeout)
         status, payload = self._receive_open(response, require)
         if status == STATUS_OVERLOADED:
             # backpressure, not failure: typed so no breaker trips on it
@@ -1292,6 +1615,41 @@ class RemoteSolver:
             while len(self._opened) > self.OPENED_MAX:
                 self._opened.popitem(last=False)
             self.session_uploads += 1
+
+    # -- the stream ------------------------------------------------------------
+
+    def _stream_for(self, features: int):
+        """The established stream client, or None (off, a sidecar without
+        ``PROTO_STREAM``, or down and re-establishing): the unary path is
+        the wait-free fallback in every case."""
+        if not self._stream_enabled or not (features & PROTO_STREAM):
+            return None
+        with self._lock:
+            client = self._stream
+            if client is None:
+                from karpenter_tpu_torch.solver.stream import StreamClient
+
+                client = self._stream = StreamClient(
+                    self._channel, self.address, shm_dir=self._shm_dir
+                )
+        return client if client.ensure() else None
+
+    def _dispatch_open(self, request: bytes, timeout: float) -> bytes:
+        """OpenSession over the stream when one is up (the NEEDS_CATALOG
+        re-open after a sidecar restart rides the re-established stream),
+        else unary."""
+        from karpenter_tpu_torch.solver.stream import StreamBrokenError, StreamUnavailable
+
+        with self._lock:
+            client = self._stream
+        if client is not None and client.up:
+            try:
+                return client.open(request).result(timeout=timeout + 5.0)
+            except (StreamBrokenError, StreamUnavailable):
+                pass
+            except futures.TimeoutError:
+                client.break_stream("open future timed out")
+        return self._open_call(request, timeout=timeout)
 
     @staticmethod
     def _split_status(response: bytes) -> Tuple[int, List[np.ndarray]]:
@@ -1545,20 +1903,90 @@ class RemoteSolver:
             req = pack_arrays(head + [hdr] + pod_np + trailers)
             return append_checksum(req) if integrity_on else req
 
-        request = build_inline()
-        grpc_future = self._call.future(request, timeout=timeout)
+        # the transport ladder: stream + arena, stream inline, unary. An
+        # empty credit window raises OverloadedError(kind="credits") here,
+        # at the sender; a stream that is not up is never an error
+        from karpenter_tpu_torch.solver.stream import StreamBrokenError, StreamUnavailable
+
+        request: Optional[bytes] = None
+        stream_fut = None
+        arena_token = None
+        transport = "unary"
+        stream = self._stream_for(features)
+        if stream is not None:
+            # delta frames ride inline: a resident base must outlive the
+            # arena slot it would arrive in, and the elide and patch frames
+            # are small anyway
+            wrote = None if delta_on else stream.write_arena(pod_np)
+            if wrote is not None:
+                arena_token, desc = wrote
+                shm_req = pack_arrays(head + [desc] + trailers)
+                if integrity_on:
+                    shm_req = append_checksum(shm_req)
+                try:
+                    stream_fut = stream.solve_shm(shm_req)
+                    transport = "stream_shm"
+                except OverloadedError:
+                    stream.free_arena(arena_token)
+                    raise
+                except StreamUnavailable:
+                    stream.free_arena(arena_token)
+                    arena_token = None
+            if stream_fut is None:
+                request = build_inline()
+                try:
+                    stream_fut = stream.solve(request)
+                    transport = "stream"
+                except StreamUnavailable:
+                    pass  # it went down between ensure() and dispatch
+        grpc_future = None
+        if stream_fut is None:
+            if request is None:
+                request = build_inline()
+            grpc_future = self._call.future(request, timeout=timeout)
         if prof is not None:
             prof["wire_ser_s"] = (
                 prof.get("wire_ser_s", 0.0) + time.perf_counter() - t0
             )
-            prof["solver_transport"] = "unary"
+            prof["solver_transport"] = transport
             prof["session_key"] = key.hex()
 
+        def redispatch(req: bytes) -> bytes:
+            """The synchronous recovery redispatch: over the stream when it
+            is up (the re-open just rode it), else unary."""
+            if stream is not None and stream.up:
+                try:
+                    return stream.solve(req).result(timeout=timeout + 5.0)
+                except (StreamBrokenError, StreamUnavailable):
+                    pass
+                except futures.TimeoutError:
+                    stream.break_stream("retry future timed out")
+            return self._call(req, timeout=timeout)
+
         def wait():
-            nonlocal request
+            nonlocal request, arena_token
             # the slack only bounds a misbehaving transport: the future
             # resolves by ``timeout`` in every healthy case
-            response = grpc_future.result(timeout=timeout + 5.0)
+            if stream_fut is not None:
+                try:
+                    response = stream_fut.result(timeout=timeout + 5.0)
+                except StreamBrokenError:
+                    # the stream died with this solve in flight: retry it
+                    # over unary while the stream re-establishes
+                    if request is None:
+                        request = build_inline()
+                    response = self._call(request, timeout=timeout)
+                except futures.TimeoutError:
+                    stream.break_stream("solve future timed out")
+                    if request is None:
+                        request = build_inline()
+                    response = self._call(request, timeout=timeout)
+                finally:
+                    if arena_token is not None:
+                        stream.free_arena(arena_token)
+                        arena_token = None
+            else:
+                response = grpc_future.result(timeout=timeout + 5.0)
             buf = None
             # integrity expectation for THIS exchange; the forced re-open
             # below may lower it (a sidecar rolled back to an older build)
@@ -1626,7 +2054,9 @@ class RemoteSolver:
                 if delta_on:
                     # every recovery redispatch ships the full pod set
                     request = build_establish()
-                response = self._call(request, timeout=timeout)
+                elif request is None:
+                    request = build_inline()
+                response = redispatch(request)
             else:
                 raise RuntimeError(
                     f"solver {self.address} retry loop exhausted"
@@ -1664,6 +2094,11 @@ class RemoteSolver:
         return self.pack_begin(*inputs, n_max=n_max)()
 
     def close(self) -> None:
+        with self._lock:
+            stream = self._stream
+            self._stream = None
+        if stream is not None:
+            stream.close()
         self._channel.close()
 
 
@@ -1694,6 +2129,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "session uploads are refused STATUS_OVERLOADED "
                          "while resident-session solves keep flowing "
                          "(0 disables)")
+    ap.add_argument("--solver-shm-dir", default="",
+                    help="shared-memory directory: clients on the same host "
+                         "pass pod arrays through an mmap'd arena and the "
+                         "stream carries only a descriptor ('' disables)")
+    ap.add_argument("--solver-coalesce-window", type=float, default=None,
+                    metavar="SECONDS",
+                    help="collection window of the streamed solves: those "
+                         "with the same session, shapes and n_max inside it "
+                         "share one launch (default 0.002; 0 still groups "
+                         "what is already queued)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     server = serve(
@@ -1705,6 +2150,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             overload_retry_after=args.overload_retry_after,
             hbm_floor_bytes=args.hbm_floor_bytes,
         ),
+        shm_dir=args.solver_shm_dir,
+        coalesce_window_s=args.solver_coalesce_window,
     )
     try:
         while True:

@@ -3,7 +3,10 @@ versions, and the port's cuda paths (single solve on both routes,
 multi-solve) against its cpu paths, and the degrade ladder on the card,
 which raises where a cpu scheduler serves its FFD floor (both kernels
 failing, the canary over a full-width kernel result, a NaN in the fetched
-buffer). Every comparison is exact.
+buffer); the sidecar on the card, its coalesced stream groups (one launch
+each, byte-equal to ``solve_bytes`` and to the plain version, the next
+kernel when the first raises) and arena solves, and two threads on one
+card scheduler. Every comparison is exact.
 
 Marked ``cuda``; each skips without a CUDA device (decided in a fixture,
 never at import). This file imports neither JAX nor the JAX package, so it
@@ -743,3 +746,147 @@ def test_publish_device_headroom_is_an_int(cuda):
 
     headroom = S.publish_device_headroom(cuda)
     assert isinstance(headroom, int) and 0 < headroom <= torch.cuda.mem_get_info(cuda)[1]
+
+
+# -- the persistent stream on the card ---------------------------------------
+
+
+def distinct_frames(frame_args, key, n_max, n, seed=5):
+    """``n`` Pack frames over one session whose pod arrays have equal shapes
+    and different content: each clears ``pod_valid`` for a different seeded
+    1% of its rows."""
+    from karpenter_tpu_torch.solver import service as S
+
+    rng = np.random.default_rng(seed)
+    frames = []
+    for _ in range(n):
+        pods = [a.copy() for a in frame_args[:7]]
+        pods[0][rng.choice(len(pods[0]), max(1, len(pods[0]) // 100), replace=False)] = False
+        frames.append(S.pack_arrays(
+            [np.frombuffer(key, np.int32), np.asarray([n_max, 1], np.int32)] + pods))
+    return frames
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("name,n_pods,n_types,want", [
+    ("diverse", 700, 50, "pack_first_fit"), ("teams", 2000, 64, "pack_first_fit_v2")])
+def test_coalesced_group_is_one_launch(cuda, name, n_pods, n_types, want, n):
+    from karpenter_tpu_torch.solver import kernel
+    from karpenter_tpu_torch.solver import service as S
+
+    open_frame, _, key, args, n_max = sidecar_frames(name, n_pods, n_types)
+    svc = S.SolverService()
+    svc.open_session_bytes(open_frame)
+    frames = distinct_frames(args, key, n_max, n)
+    unary = [svc.solve_bytes(f) for f in frames]
+    assert len(set(unary)) > 1
+    modules = {"pack_first_fit": pack_kernel, "pack_first_fit_v2": pack_kernel_v2}
+    responses = {}
+    entries = [svc.stream_parse_solve(f, respond=lambda b, i=i: responses.__setitem__(i, b))
+               for i, f in enumerate(frames)]
+    before = {k: m.launches for k, m in modules.items()}
+    served = dict(svc.served)
+    svc.solve_stream_group(entries)
+    torch.cuda.synchronize()
+    assert {k: m.launches - before[k] for k, m in modules.items()} == {
+        k: int(k == want) for k in modules}
+    assert svc.served[want] == served[want] + 1
+    assert svc.stream_stats["coalesced_dispatches"] == 1
+    assert svc.stream_stats["coalesced_solves"] == n
+    assert [responses[i] for i in range(n)] == unary
+    # each demultiplexed answer against the plain version on its own frame
+    for i, f in enumerate(frames):
+        pods = S.unpack_arrays(f)[2:9]
+        host = [torch.tensor(a, dtype=dt) for a, (_, dt) in
+                zip([*pods, *args[7:]], carry.PACK_ARG_DTYPES)]
+        plain = kernel.fuse_result(pack_reference(*host, n_max=n_max)).numpy()
+        assert S.unpack_arrays(responses[i])[1].tobytes() == plain.tobytes(), i
+
+
+def test_coalesced_group_falls_to_the_next_kernel(cuda, monkeypatch):
+    """A group whose first rung raises at its shape is served by the
+    other kernel in one launch, the shape memoized as on a single solve."""
+    from karpenter_tpu_torch.solver import service as S
+
+    open_frame, _, key, args, n_max = sidecar_frames("diverse", 700, 50)
+    svc = S.SolverService()
+    svc.open_session_bytes(open_frame)
+    frames = distinct_frames(args, key, n_max, 3)
+    unary = [svc.solve_bytes(f) for f in frames]
+    assert svc.served == {"pack_first_fit": 3}
+
+    def broken(*a, **kw):
+        raise RuntimeError("pack_first_fit launch failed (test)")
+
+    monkeypatch.setattr(pack_kernel, "pack_first_fit", broken)
+    responses = {}
+    entries = [svc.stream_parse_solve(f, respond=lambda b, i=i: responses.__setitem__(i, b))
+               for i, f in enumerate(frames)]
+    before = pack_kernel_v2.launches
+    svc.solve_stream_group(entries)
+    assert pack_kernel_v2.launches == before + 1
+    assert svc.served == {"pack_first_fit": 3, "pack_first_fit_v2": 1}
+    P = len(args[0])
+    assert (P, n_max) in pack_kernel._failed_shapes
+    assert [responses[i] for i in range(3)] == unary
+
+
+def test_arena_descriptor_solve_on_card(cuda, tmp_path):
+    from karpenter_tpu_torch.solver import service as S
+    from karpenter_tpu_torch.solver import stream as TS
+
+    open_frame, frame, key, args, n_max = sidecar_frames("diverse", 700, 50)
+    svc = S.SolverService()
+    svc.open_session_bytes(open_frame)
+    arena = TS.ShmArena(str(tmp_path), size=1 << 24)
+    reader = TS.ShmArenaReader(arena.path)
+    try:
+        token, desc = arena.write(args[:7])
+        shm_frame = S.pack_arrays(
+            [np.frombuffer(key, np.int32), np.asarray([n_max, 1], np.int32), desc])
+        got = []
+        entry = svc.stream_parse_solve(shm_frame, respond=got.append, arena=reader)
+        assert entry.shm
+        svc.solve_stream_group([entry])
+        assert got == [svc.solve_bytes(frame)]
+        assert svc.served == {"pack_first_fit": 2}
+        arena.free(token)
+    finally:
+        reader.close()
+        arena.close()
+
+
+def test_two_threads_on_one_card_scheduler_get_their_plans(cuda):
+    """The solve lock on the card: two threads sharing one scheduler each
+    get the plan they get alone."""
+    import threading
+
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+
+    pkg = "karpenter_tpu_torch"
+    cases = {"teams": scenario(pkg, "teams", 2000, 9, 64),
+             "config2": scenario(pkg, "config2", 700, 42, 50)}
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+
+    def plan(name):
+        prov, catalog, pods = cases[name]
+        nodes = sched.solve(prov, catalog, pods)
+        return sorted(sorted(pods.index(p) for p in n.pods) for n in nodes)
+
+    alone = {name: plan(name) for name in cases}
+    for _ in range(3):
+        got, errs = {}, []
+
+        def run(name):
+            try:
+                got[name] = plan(name)
+            except Exception as e:  # pragma: no cover - diagnostic
+                errs.append(e)
+
+        threads = [threading.Thread(target=run, args=(n,), daemon=True) for n in cases]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not errs and got == alone

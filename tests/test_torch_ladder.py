@@ -287,6 +287,42 @@ def test_kernel_ladder_rung_order_and_memo(monkeypatch, shape, broken, tried, se
     assert pack_kernel._failed_shapes == {memo[k] for k in broken}
 
 
+@pytest.mark.parametrize(
+    "shape,broken,tried,served",
+    [
+        ((512, 12, 3), (), ["v1"], "pack_first_fit"),
+        ((512, 12, 3), ("v1",), ["v1", "v2"], "pack_first_fit_v2"),
+        ((200, 12, 3), (), ["v2"], "pack_first_fit_v2"),
+    ],
+    ids=["v1", "v1-failed", "unaligned"],
+)
+def test_kernel_ladder_serves_a_stack_in_one_call(monkeypatch, shape, broken, tried, served):
+    """A coalesced group's stack (three problems, two of them on one
+    catalog) takes the ladder as one problem of its shape does: one call of
+    each rung tried, the failed rung memoized, each problem's answer the
+    JAX package's; the v2 rung builds its tables once per distinct
+    catalog."""
+    P, S, F = shape
+    fs = [synth_fields(P=P, S=S, F=F, R=2, C=4, n_hosts=5, seed=seed) for seed in (3, 4)]
+    third = dict(fs[0], pod_valid=fs[0]["pod_valid"].copy())
+    third["pod_valid"][::7] = False
+    fs.append(third)
+    args = tuple(torch.stack(col) for col in zip(*(cpu_args(f) for f in fs)))
+    spy = _ladder_spy(monkeypatch, broken)
+    built = []
+    real = pack_kernel_v2._precompute
+    monkeypatch.setattr(pack_kernel_v2, "_precompute",
+                        lambda *a: built.append(1) or real(*a))
+    name, out = pack_kernel._kernel_ladder(*args, n_max=32)
+    assert name == served and spy == tried
+    assert len(built) == (2 if served == "pack_first_fit_v2" else 0)
+    memo = {"v1": (P, 32), "v2": ("v2", P, 32)}
+    assert pack_kernel._failed_shapes == {memo[k] for k in broken}
+    for b, f in enumerate(fs):
+        assert_same(jax.device_get(tuple(jax_kernel.pack(*kernel_args(f), n_max=32))),
+                    PackResult(*(o[b] for o in out)))
+
+
 def test_v2_tables_past_the_budget_leave_only_v1(monkeypatch):
     monkeypatch.setattr(pack_kernel_v2, "V2_TABLE_BUDGET", 1)
     f = synth_fields(P=512, S=300, F=4, R=2, C=4, n_hosts=5, seed=3)

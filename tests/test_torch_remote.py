@@ -2,9 +2,10 @@
 
 - the port's ``RemoteSolver`` against the JAX package's ``serve()``, and
   the JAX ``RemoteSolver`` (``stream=True`` included: the port's sidecar
-  does not advertise the stream, so it stays unary) against the port's
-  ``serve()``: results equal the in-process pack, with checksums on and
-  off and with delta frames; session LRU eviction and a restart re-open;
+  advertises the stream, which opens and carries the solves) against the
+  port's ``serve()``: results equal the in-process pack, with checksums on
+  and off and with delta frames; session LRU eviction and a restart
+  re-open;
 - scheduler level: ``Scheduler(..., solver_service_address=...)`` of both
   packages give equal plans; the remote breaker after a killed sidecar; the
   deadline and overload sheds; a canary mismatch on a sidecar round trips
@@ -31,7 +32,7 @@ from torch_parity import (  # noqa: F401
     team_mix,
 )
 
-FEATURES = J.PROTO_FEATURES & ~J.PROTO_STREAM
+FEATURES = J.PROTO_FEATURES
 # what packs in process on a cpu scheduler's unfused ladder
 HOST_RUNGS = ("native", "pack_reference")
 
@@ -98,12 +99,16 @@ def test_cross_package_pack_equals_in_process(scan, name, cli, srv, extra, check
             out = rs.pack_begin(*args, n_max=n_max, prof=prof)()
             assert_result(out, args, n_max)
             assert prof["wire_ser_s"] >= 0 and prof["solver_address"] == address
+            assert prof["solver_transport"] == ("stream" if extra else "unary")
         assert rs.session_uploads == 2
         if srv is T:
             assert server.solver_service.served == {"pack_reference": 2}
             assert rs._server_features == FEATURES
             if extra:
-                assert rs._stream is None  # never opened: no PROTO_STREAM
+                # the port's sidecar advertises PROTO_STREAM: the stream
+                # opened and carried both solves
+                assert rs._stream is not None and rs._stream.up
+                assert server.stream_server_box[0].snapshot()["stream_solves"] == 2
         rs.close()
     finally:
         server.stop(grace=None)
@@ -330,8 +335,21 @@ def test_canary_mismatch_on_a_sidecar_round_trips_the_remote_breaker(pkg, monkey
 
 
 def test_pool_address_is_not_ported():
-    with pytest.raises(NotImplementedError, match="pool"):
-        run_scheduler("karpenter_tpu_torch", "127.0.0.1:1,127.0.0.1:2", diverse)
+    """A comma-separated address is a pool of sidecars now: the round is
+    served through ``SolverPool`` with the plan of one sidecar."""
+    from karpenter_tpu_torch.solver.pool import SolverPool
+
+    (a, sa), (b, sb) = start(T), start(T)
+    try:
+        sched, plans, profs = run_scheduler("karpenter_tpu_torch", f"{a},{b}", diverse)
+        _, single, _ = run_scheduler("karpenter_tpu_torch", a, diverse)
+        assert isinstance(sched.torch._remote, SolverPool)
+        assert plans == single and profs[0]["packer_backend"] == "sidecar"
+        assert profs[0]["solver_address"] in (a, b)
+        sched.torch._remote.close()
+    finally:
+        sa.stop(grace=None)
+        sb.stop(grace=None)
 
 
 def test_health_over_grpc_and_http():

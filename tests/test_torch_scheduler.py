@@ -106,7 +106,8 @@ def test_importing_the_port_loads_no_jax():
         "n = sum(1 for m in sys.modules if m.startswith('karpenter_tpu_torch.'))\n"
         "new = all(f'karpenter_tpu_torch.{m}' in sys.modules for m in (\n"
         "    'solver.router', 'solver.native', 'solver.integrity', 'resilience.breaker',\n"
-        "    'kube.events'))\n"
+        "    'kube.events', 'solver.stream', 'solver.pool', 'testing.chaos'))\n"
+        "bad += ['grpc'] if 'grpc' in sys.modules else []\n"
         "print(n, new, bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -30,7 +30,7 @@ from karpenter_tpu_torch.solver import service as T
 from torch_parity import encode_scenario, fresh_router, scenario  # noqa: F401
 
 SIDES = (J, T)
-FEATURES = J.PROTO_FEATURES & ~J.PROTO_STREAM
+FEATURES = J.PROTO_FEATURES
 
 
 def rng_arrays(seed: int):
@@ -66,7 +66,7 @@ def assert_same_arrays(a, b):
 def test_wire_constants_match():
     names = [n for n in dir(J) if n.isupper() and not n.startswith("_")]
     shared = [n for n in names if hasattr(T, n)]
-    assert {"STREAM_METHOD"} >= set(names) - set(shared)
+    assert set(names) == set(shared)
     for n in shared:
         assert getattr(J, n) == getattr(T, n), n
     assert T.SIDECAR_FEATURES == FEATURES
@@ -388,7 +388,7 @@ def test_default_service_needs_a_card():
 
 def test_main_rejects_unported_flags():
     with pytest.raises(SystemExit):
-        T.main(["--solver-shm-dir", "/tmp/x"])
+        T.main(["--flight-dir", "/tmp/x"])
 
 
 # -- imports without grpc --------------------------------------------------------
