@@ -159,6 +159,63 @@ Phases (any failure exits non-zero; nothing is swallowed):
              one scheduler through a chaos-slowed (0.5 s) sidecar in under
              2 floors; every round served by the sidecar with the card's
              plan, its transport and wire and pack stages printed;
+14. obs    — (after phase 13) the observability plane around both kernels,
+             at full width. Every round launches its kernel once, and each
+             part (a)-(g) reads both kernels' launch counters before and
+             after it and fails where they differ from its rounds; the
+             kernels line reports these measured launches. (a) fresh card
+             schedulers with the ring
+             exporter: a warm-up and 5 traced knob-off rounds of the
+             headline and of the team mix; each round launches its kernel
+             once (its wrapper timed by CUDA events), equals the
+             device="cpu" plan, exports one solver.solve tree with the six
+             stage spans as children, each host stage within 1 ms of
+             last_stage_profile() (pack_begin + pack_fetch within 1 ms of
+             pack_fetch_s); a tracer hook asks the kernel's end event, as
+             solve.pack_begin and solve.pack_fetch close, whether it is
+             done: every fetch closes with it done, and in at least one
+             round of each batch the begin closes with it running (a
+             begin that waited would never); each tree's critical path
+             printed. (b)
+             those rounds move the encode-cache, session and
+             SCHEDULING_DURATION counters by the reference's amounts; 3
+             resident headline rounds move SOLVER_DELTA_APPLIED (host,
+             device, decode) by 3 and set both resident-bytes gauges; a
+             session opened on a card SolverService sets its HBM gauge and
+             SOLVER_HBM_HEADROOM within 64 MiB of torch.cuda.mem_get_info;
+             generate_latest's first 40 lines printed. (c) with
+             configure_flight(budget_s=0.100), 3 knob-off headline rounds
+             of a fresh scheduler: each round over budget lands on disk
+             with the scheduler's five panels (the first, cold, always
+             is), a resident round under it does not. (d) 5 + 5 interleaved untraced and traced rounds of each
+             batch (walls printed), and under torch.profiler a traced and an
+             untraced headline round do the same device work (kernel
+             launches, device-to-host and host-to-device copies, after a
+             discarded warm-up step). (e) the headline with a
+             seeded 1% of its pods replaced by cpu: 100000 pods: one card
+             round recorded by a DecisionLog ring; the stuck pods get
+             resource_fit, every other unplaced pod is a zone
+             anti-affinity pod with zone_topology (the batch's own, as
+             tests/test_torch_explain.py holds against the JAX package),
+             the verdicts equal a device="cpu" scheduler's, the
+             .npz replays bit-exact on the native packer (obs/replay.py) and
+             through pack_best on the card (one more launch), and a
+             corrupted assignment is caught. (f) an SloEngine with the
+             default objectives and a 5 s window: 12 knob-off headline
+             rounds of a fresh scheduler (the first cold) must burn
+             solve.p99 < 100ms; a BrownoutController ticked
+             by hand climbs to rung 2, the router's probes pause and a
+             canary_rate=1.0 round runs its kernel with no canary solve;
+             resident rounds clean the window, the ladder walks back to 0
+             and the next canaried round is checked again. (g) when grpc
+             imports: serve() on the card with its health port and traced
+             device="cpu" controller rounds — a unary headline round and a
+             streamed team-mix round: each controller solver.wire span
+             holds the grafted sidecar.solve / sidecar.fetch /
+             sidecar.serialize records, GET /debug/traces?trace_id= on the
+             sidecar's port returns its sidecar.pack tree under the
+             controller's trace, parented on solve.pack_begin, and GET
+             /metrics serves the port's families;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -166,7 +223,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              part), the native packer's time on the same batches,
              ``degrade``: phase 11's canary solves and mismatches and its
              launches under injection, and ``stream``: phase 13's launches
-             by part and the B of each coalesced launch.
+             by part and the B of each coalesced launch, and ``obs``: phase
+             14's launches by part, traced kernel and fetch times, and what
+             (a)-(g) measured.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -176,17 +235,22 @@ Every round of phases 3, 4, 6, 8 and 9 must name what served it (its
 kernel, or native where 9 forces it): a round the FFD floor served
 (ffd-degraded) or that names nothing fails the run.
 
+Every garbage collection that stops the process for more than 0.1 s is
+logged as a [gc] line with the objects still tracked.
+
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import random
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -208,6 +272,28 @@ DIVERSE_NODES = 128
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_gc_pauses(over_s: float = 0.1):
+    """Log every garbage collection that stops the process for longer than
+    ``over_s``, with the objects it still tracks: a full collection of the
+    script's heap stops every thread, which explains a host-clock outlier
+    in whichever stage it lands. Returns the hook, for
+    ``gc.callbacks.remove`` before the last lines are printed."""
+    began = {}
+
+    def hook(phase: str, info: dict) -> None:
+        me = threading.get_ident()
+        if phase == "start":
+            began[me] = time.perf_counter()
+            return
+        took = time.perf_counter() - began.pop(me, time.perf_counter())
+        if took > over_s:
+            log(f"[gc] generation {info['generation']} collection {took * 1e3:.1f} ms, "
+                f"{len(gc.get_objects())} objects tracked")
+
+    gc.callbacks.append(hook)
+    return hook
 
 
 def card_line() -> str:
@@ -1808,7 +1894,6 @@ def stream_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict,
     Returns per kernel its launches by part and the B of each coalesced
     launch."""
     import shutil
-    import threading
 
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.scheduling.scheduler import Scheduler
@@ -2184,6 +2269,11 @@ def stream_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict,
         pipe.torch.topology.rng = random.Random(1)
         threads = [threading.Thread(target=run, args=(cls,), daemon=True)
                    for cls in ("headline", "team mix")]
+        # by now the script holds over a million tracked objects, and a
+        # full collection of them stops every thread for a second or more
+        # (the [gc] lines); collected here, none falls due inside the timed
+        # window
+        gc.collect()
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -2226,12 +2316,744 @@ def stream_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict,
     return out
 
 
+OBS_STAGES = ("solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
+              "solve.pack_fetch", "solve.decode")
+# each host stage span and the profile key (full, or served from resident
+# state) its prof clock writes
+OBS_STAGE_KEYS = {
+    "solve.sort": ("sort_s", "sort_delta_s"),
+    "solve.inject": ("inject_s", "inject_delta_s"),
+    "solve.encode": ("encode_s", "encode_delta_s"),
+    "solve.decode": ("decode_s", "decode_delta_s"),
+}
+# the flight-recorder panels the scheduler registers
+OBS_PANELS = ("router_ema", "pack_breakers_open", "remote_breaker", "session_cache", "integrity")
+# phase 14 (f)'s SLO window: 12 knob-off headline rounds (≈ 2-3 s) fit in
+# it, and the ladder's recovery waits it out with resident rounds
+SLO_WINDOW_S = 5.0
+
+
+class KernelClock:
+    """CUDA events recorded around each call of a kernel's wrapper, and a
+    tracer finish-hook that asks the end event, as solve.pack_begin and
+    solve.pack_fetch close, whether the kernel is done (``query()``
+    neither waits nor queues work). A round keeps its one synchronize (its
+    fetch); the times are read after the round returned."""
+
+    STAGES = ("solve.pack_begin", "solve.pack_fetch")
+
+    def __init__(self):
+        self.calls = []
+
+    def wrap(self, fn):
+        import torch
+
+        def timed(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            self.calls.append((e0, e1, {}))
+            return out
+
+        return timed
+
+    def __call__(self, span) -> None:
+        if span.name in self.STAGES and self.calls:
+            self.calls[-1][2][span.name] = self.calls[-1][1].query()
+
+    def take(self) -> list:
+        """``(CUDA-event ms, done when pack_begin closed, done when
+        pack_fetch closed)`` per call."""
+        calls, self.calls = self.calls, []
+        out = []
+        for e0, e1, done in calls:
+            e1.synchronize()
+            out.append((e0.elapsed_time(e1), done.get(self.STAGES[0]), done.get(self.STAGES[1])))
+        return out
+
+
+def metric(name: str, labels=None) -> float:
+    from karpenter_tpu_torch import metrics
+
+    return metrics.REGISTRY.get_sample_value(name, labels or {}) or 0.0
+
+
+def check_tree(tree: dict, prof: dict, what: str) -> float:
+    """One exported solve tree against the round's profile: a solver.solve
+    root with the six stage spans as children, each host stage within 1 ms
+    of its prof key, and pack_begin + pack_fetch within 1 ms of
+    pack_fetch_s. Returns the largest disagreement (ms)."""
+    if tree["name"] != "solver.solve":
+        raise AssertionError(f"{what}: root span {tree['name']}")
+    names = tuple(c["name"] for c in tree["children"])
+    if names != OBS_STAGES:
+        raise AssertionError(f"{what}: stage spans {names}")
+    spans = {c["name"]: c for c in tree["children"]}
+    worst = 0.0
+    for name, keys in OBS_STAGE_KEYS.items():
+        key = next((k for k in keys if k in prof), None)
+        if key is None:
+            raise AssertionError(f"{what}: no profile key for {name}")
+        worst = max(worst, abs(spans[name]["duration_ms"] - prof[key] * 1e3))
+    packed = spans["solve.pack_begin"]["duration_ms"] + spans["solve.pack_fetch"]["duration_ms"]
+    worst = max(worst, abs(packed - prof["pack_fetch_s"] * 1e3))
+    if worst >= 1.0:
+        raise AssertionError(f"{what}: a stage span differs from the profile by {worst:.3f} ms")
+    return worst
+
+
+def check_kernel_timing(rounds: list, what: str) -> None:
+    """On the card the begin only enqueues and the fetch holds the wait.
+    ``rounds``: per round, whether the kernel was done when
+    solve.pack_begin closed and when solve.pack_fetch closed. Every fetch
+    must close with the kernel done. A begin closes with the kernel
+    running unless its host work after the launch outlasted the kernel (a
+    slow host round can); a begin that waited for the kernel would close
+    with it done in every round, so at least one round must show it
+    running."""
+    if not all(fetch for _, fetch in rounds):
+        raise AssertionError(f"{what}: a solve.pack_fetch closed before its kernel was done: "
+                             f"{rounds}")
+    if all(begin for begin, _ in rounds):
+        raise AssertionError(f"{what}: every solve.pack_begin closed with its kernel done "
+                             f"(a wait inside the begin): {rounds}")
+
+
+def profiled_device_work(run) -> dict:
+    """``run()`` under torch.profiler: the device work it caused, counted
+    by kind (kernel launches, device-to-host and host-to-device copies,
+    other copies and memsets). A warm-up step, whose events are
+    discarded, comes first: device activity just after tracing starts can
+    go unrecorded (a round's first uploads and kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    events = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda prof: events.extend(prof.events())) as p:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        p.step()
+        run()
+        torch.cuda.synchronize()
+        p.step()
+    tally = {"kernels": 0, "memcpy_dtoh": 0, "memcpy_htod": 0, "other": 0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = e.name.lower()
+        if "memcpy" in n and "dtoh" in n:
+            tally["memcpy_dtoh"] += 1
+        elif "memcpy" in n and "htod" in n:
+            tally["memcpy_htod"] += 1
+        elif "memcpy" in n or "memset" in n:
+            tally["other"] += 1
+        else:
+            tally["kernels"] += 1
+    return tally
+
+
+def obs_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict) -> dict:
+    """Phase 14: the observability plane around both kernels on the card,
+    at full width. (a) traced knob-off rounds, (b) metrics, (c) the flight
+    recorder, (d) what tracing costs, (e) decisions, explain and replay,
+    (f) the SLO engine and the brownout ladder driven by the card's own
+    spans, (g) the sidecar traced. ``classes`` holds the headline's and the
+    team mix's pods and device="cpu" plans (phases 3 and 6). Each part
+    reads both kernels' launch counters before and after it, and fails
+    where a kernel's launches differ from the rounds the part ran on it.
+    Returns each kernel's measured launches by part and the numbers the
+    kernels line carries."""
+    import collections
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+    from karpenter_tpu_torch import metrics, obs
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.obs import replay as replay_tool
+    from karpenter_tpu_torch.resilience.brownout import BrownoutController
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import (
+        backend, explain, fused, integrity, pack_kernel, pack_kernel_v2,
+    )
+    from karpenter_tpu_torch.solver import service as S
+    from karpenter_tpu_torch.solver import session_stats
+    from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
+    from karpenter_tpu_torch.solver.router import default_router
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+
+    prov = make_provisioner(solver="tpu")
+    kernel_of = {"headline": "pack_first_fit", "team mix": "pack_first_fit_v2"}
+    modules = {"pack_first_fit": pack_kernel, "pack_first_fit_v2": pack_kernel_v2}
+    # where the fused route calls each wrapper (fused imports pack_first_fit
+    # by name; the v2 route calls it through its module)
+    targets = {"pack_first_fit": (fused, "pack_first_fit"),
+               "pack_first_fit_v2": (pack_kernel_v2, "pack_first_fit_v2")}
+    out = {name: {} for name in modules}
+    summary = {}
+    scratch = tempfile.mkdtemp(prefix="karpenter-obs-")
+    # the main path's fused route for both batches: phase 9 (c) left the
+    # team mix's fused shape in the failed-fused memo; both memos are
+    # emptied here and restored at the end
+    memos = ((pack_kernel._failed_shapes_lock, pack_kernel._failed_shapes),
+             (backend._fused_failed_lock, backend._fused_failed_shapes))
+    saved = []
+    for lock, memo in memos:
+        with lock:
+            saved.append(set(memo))
+            memo.clear()
+
+    def counts() -> dict:
+        return {name: m.launches for name, m in modules.items()}
+
+    @contextlib.contextmanager
+    def part(label: str):
+        """One part of the phase. Yields a dict the part fills with the
+        launches its rounds make, per kernel; on leaving, each kernel's
+        launches measured over the part must equal it. The measured
+        launches are what the kernels line reports."""
+        rounds = {}
+        start = counts()
+        yield rounds
+        got = {name: n - start[name] for name, n in counts().items()}
+        want = {name: rounds.get(name, 0) for name in modules}
+        if got != want:
+            raise AssertionError(f"obs ({label}): launches {got}, its rounds make {want}")
+        for name, n in got.items():
+            if n:
+                out[name][f"launches_{label}"] = n
+
+    def solve(sched, cls, pods=None, what=""):
+        """One round; it must launch its kernel once, and the plan must
+        equal the device="cpu" plan."""
+        pods = pods if pods is not None else classes[cls]["pods"]
+        if not sched.torch.solver_delta:
+            sched.torch.topology.rng = random.Random(1)
+        start = counts()
+        t0 = time.perf_counter()
+        nodes = sched.solve(prov, catalogs[cls], pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = served(sched, kernel_of[cls], what)
+        launched = {name: n - start[name] for name, n in counts().items()}
+        if launched != {name: int(name == kernel_of[cls]) for name in modules}:
+            raise AssertionError(f"{what}: launches {launched}")
+        if plan_of(nodes, pods) != classes[cls]["cpu_plan"]:
+            raise AssertionError(f"{what}: plan differs from the device='cpu' plan")
+        return wall, prof, nodes
+
+    try:
+        # -- (a) traced rounds -----------------------------------------------
+        obs.reset_for_tests()
+        clock = KernelClock()
+        obs.tracer().add_hook(clock)
+        knob_off = {}
+        for cls in ("headline", "team mix"):
+            name = kernel_of[cls]
+            with part("traced") as rounds:
+                sched = knob_off[cls] = Scheduler(Cluster(), rng=random.Random(1))
+                solve(sched, cls, what=f"obs (a) {cls} warm-up")
+                before = {
+                    "hits": metric("karpenter_solver_encode_cache_hits_total"),
+                    "misses": metric("karpenter_solver_encode_cache_misses_total"),
+                    "solves": metric(
+                        "karpenter_allocation_controller_scheduling_duration_seconds_count",
+                        {"provisioner": prov.name}),
+                        "uploads": metric("karpenter_solver_session_catalog_uploads_total"),
+                    **{f"session_{k}": v for k, v in session_stats.snapshot().items()
+                       if k in ("hits", "misses")},
+                }
+                fetch_ms, kernel_ms_, done, worst = [], [], [], 0.0
+                with mock.patch.object(*targets[name], clock.wrap(getattr(*targets[name]))):
+                    for r in range(5):
+                        obs.exporter().clear()
+                        wall, prof, nodes = solve(sched, cls, what=f"obs (a) {cls} round {r}")
+                        if prof["pack_route"] != "fused":
+                            raise AssertionError(f"obs (a) {cls} round {r}: "
+                                                 f"route {prof['pack_route']}")
+                        trees = obs.exporter().trees()
+                        if len(trees) != 1:
+                            raise AssertionError(f"obs (a) {cls} round {r}: {len(trees)} trees")
+                        tree = trees[0]
+                        worst = max(worst, check_tree(tree, prof, f"obs (a) {cls} round {r}"))
+                        (k_ms, done_at_begin, done_at_fetch), = clock.take()
+                        spans = {c["name"]: c for c in tree["children"]}
+                        begin, fetch = spans["solve.pack_begin"], spans["solve.pack_fetch"]
+                        done.append((done_at_begin, done_at_fetch))
+                        fetch_ms.append(fetch["duration_ms"])
+                        kernel_ms_.append(k_ms)
+                        path = " > ".join(f"{s['name']} {s['duration_ms']:.3f}/{s['self_ms']:.3f}"
+                                          for s in obs.critical_path(tree))
+                        log(f"[obs] (a) {cls} round {r}: {wall * 1e3:.3f} ms, nodes={len(nodes)}, "
+                            f"1 launch of {name}; kernel {k_ms:.3f} ms (CUDA events), "
+                            f"solve.pack_begin {begin['duration_ms']:.3f} ms (kernel done when it "
+                            f"closed: {done_at_begin}), solve.pack_fetch "
+                            f"{fetch['duration_ms']:.3f} ms "
+                            f"(kernel done: {done_at_fetch}); critical path (ms total/self) {path}")
+                check_kernel_timing(done, f"obs (a) {cls}")
+                # -- (b) the counters these rounds move, by the reference's amounts
+                session = session_stats.snapshot()
+                moved = {
+                    "encode cache hits": metric("karpenter_solver_encode_cache_hits_total")
+                    - before["hits"],
+                    "encode cache misses": metric("karpenter_solver_encode_cache_misses_total")
+                    - before["misses"],
+                    "scheduling_duration count": metric(
+                        "karpenter_allocation_controller_scheduling_duration_seconds_count",
+                        {"provisioner": prov.name}) - before["solves"],
+                    "session hits": session["hits"] - before["session_hits"],
+                    "session misses": session["misses"] - before["session_misses"],
+                    "session uploads": metric("karpenter_solver_session_catalog_uploads_total")
+                    - before["uploads"],
+                }
+                want = {"encode cache hits": 5, "encode cache misses": 0,
+                        "scheduling_duration count": 5, "session hits": 5, "session misses": 0,
+                        "session uploads": 0}
+                if moved != want:
+                    raise AssertionError(f"obs (b) {cls}: metric deltas {moved}, expected {want}")
+                rounds[name] = 1 + 5
+                out[name]["traced_kernel_ms"] = kernel_ms_
+                out[name]["traced_pack_fetch_ms"] = fetch_ms
+                out[name]["kernel_done_at_begin_fetch_close"] = done
+                out[name]["stage_span_max_diff_ms"] = worst
+                log(f"[obs] (a) {cls}: 5 traced rounds, each one launch, one solver.solve tree "
+                    f"with "
+                    f"the six stage spans, stage spans within {worst:.4f} ms of the profile; "
+                    f"(b) metric deltas {moved}; card {card}")
+        obs.tracer().remove_hook(clock)
+
+        # -- (b) resident rounds and the registry ---------------------------
+        with part("resident") as rounds:
+            res = Scheduler(Cluster(), rng=random.Random(1), solver_delta=True)
+            solve(res, "headline", what="obs (b) resident warm-up")
+            paths = ("host", "device", "decode")
+            before = {p: metric("karpenter_solver_delta_applied_total", {"path": p})
+                      for p in paths}
+            for r in range(3):
+                obs.exporter().clear()
+                wall, prof, _ = solve(res, "headline", what=f"obs (b) resident round {r}")
+                check_tree(obs.exporter().trees()[0], prof, f"obs (b) resident round {r}")
+            rounds["pack_first_fit"] = 1 + 3
+        applied = {p: metric("karpenter_solver_delta_applied_total", {"path": p}) - before[p]
+                   for p in paths}
+        resident_bytes = {
+            side: metric("karpenter_solver_delta_resident_bytes", {"side": side})
+            for side in ("host", "device")
+        }
+        if applied != {p: 3.0 for p in paths} or min(resident_bytes.values()) <= 0:
+            raise AssertionError(f"obs (b) resident: applied {applied}, bytes {resident_bytes}")
+        log(f"[obs] (b) resident headline: 3 steady rounds, SOLVER_DELTA_APPLIED {applied}, "
+            f"resident bytes {resident_bytes}")
+        headroom_svc = S.SolverService()
+        args = [np.ascontiguousarray(a) for a in batches["headline"].pack_args()]
+        key = S.catalog_session_key(*args[7:])
+        headroom_svc.open_session_bytes(
+            S.pack_arrays([np.frombuffer(key, np.int32)] + args[7:]))
+        free = torch.cuda.mem_get_info()[0]
+        gauge = metric("karpenter_solver_device_hbm_headroom_bytes",
+                       {"device": str(torch.cuda.current_device())})
+        hbm = metric("karpenter_solver_session_hbm_bytes", {"session": key.hex()[:12]})
+        if abs(gauge - free) > 64 * 2**20 or hbm <= 0:
+            raise AssertionError(f"obs (b): headroom gauge {gauge}, mem_get_info {free}, "
+                                 f"session bytes {hbm}")
+        log(f"[obs] (b) SOLVER_HBM_HEADROOM {gauge:.0f} bytes, torch.cuda.mem_get_info "
+            f"{free} (|diff| {abs(gauge - free) / 2**20:.3f} MiB); session HBM {hbm:.0f} bytes")
+        del headroom_svc
+        from prometheus_client import generate_latest
+
+        exposition = generate_latest(metrics.REGISTRY).decode().splitlines()
+        log(f"[obs] (b) generate_latest: {len(exposition)} lines, first 40:")
+        for line in exposition[:40]:
+            log(f"[obs] (b)   {line}")
+
+        # -- (c) the flight recorder -----------------------------------------
+        flight_dir = os.path.join(scratch, "flight")
+        rec = obs.configure_flight(flight_dir, budget_s=0.100)
+        # a fresh scheduler's first round (its cold encode and upload take
+        # most of a second) is over budget on any host; the warm rounds
+        # after it land or not by their own time
+        with part("flight") as rounds:
+            cold = Scheduler(Cluster(), rng=random.Random(1))
+            durations = []
+            for r in range(3):
+                obs.exporter().clear()
+                solve(cold, "headline", what=f"obs (c) knob-off round {r}")
+                durations.append(obs.exporter().trees()[0]["duration_ms"])
+            records = rec.recent(limit=64)
+            over = [d for d in durations if d > 100.0]
+            if len(records) != len(over) or durations[0] <= 100.0:
+                raise AssertionError(f"obs (c): {len(records)} flight records for rounds "
+                                     f"{durations}")
+            for record in records:
+                missing = [p for p in OBS_PANELS if p not in record["state"]]
+                if missing or record["name"] != "solver.solve":
+                    raise AssertionError(f"obs (c): record {record['name']} lacks panels {missing}")
+            obs.exporter().clear()
+            solve(res, "headline", what="obs (c) resident round")
+            res_ms = obs.exporter().trees()[0]["duration_ms"]
+            landed = len(rec.recent(limit=64)) - len(records)
+            if landed != (1 if res_ms > 100.0 else 0):
+                raise AssertionError(f"obs (c): resident round {res_ms:.3f} ms, {landed} records")
+            rounds["pack_first_fit"] = 3 + 1
+        summary["flight"] = {"knob_off_ms": durations, "records": len(records),
+                             "resident_ms": res_ms, "resident_records": landed}
+        log(f"[obs] (c) knob-off rounds (the first cold) "
+            f"{', '.join(f'{d:.3f}' for d in durations)} ms: "
+            f"{len(records)} flight records, each with panels {list(OBS_PANELS)}; a resident "
+            f"round {res_ms:.3f} ms: {landed} records")
+        obs.reset_for_tests()
+
+        # -- (d) what tracing costs -------------------------------------------
+        with part("cost") as rounds:
+            walls = {(cls, on): [] for cls in kernel_of for on in (False, True)}
+            for i in range(5):
+                for cls in kernel_of:
+                    for on in ((False, True) if i % 2 == 0 else (True, False)):
+                        obs.set_enabled(on)
+                        wall, _, _ = solve(knob_off[cls], cls, what=f"obs (d) {cls} traced={on}")
+                        walls[(cls, on)].append(wall * 1e3)
+            obs.set_enabled(True)
+            cost = {}
+            for cls in kernel_of:
+                off, on = walls[(cls, False)], walls[(cls, True)]
+                cost[cls] = {"untraced_ms": off, "traced_ms": on,
+                             "median_diff_ms": float(np.median(on) - np.median(off))}
+                log(f"[obs] (d) {cls}: untraced {', '.join(f'{w:.3f}' for w in off)} ms; traced "
+                    f"{', '.join(f'{w:.3f}' for w in on)} ms; median traced - untraced "
+                    f"{cost[cls]['median_diff_ms']:.3f} ms; card {card}")
+
+            def device_work(on: bool) -> dict:
+                obs.set_enabled(on)
+                try:
+                    return profiled_device_work(
+                        lambda: solve(knob_off["headline"], "headline",
+                                      what=f"obs (d) profiled traced={on}"))
+                finally:
+                    obs.set_enabled(True)
+
+            untraced, traced = device_work(False), device_work(True)
+            if untraced != traced or not traced["kernels"] or not traced["memcpy_dtoh"]:
+                raise AssertionError(f"obs (d): device work traced {traced}, untraced {untraced}")
+            cost["profiled_device_work"] = traced
+            summary["tracing_cost"] = cost
+            log(f"[obs] (d) under torch.profiler a traced and an untraced headline round do the "
+                f"same device work: {traced}")
+            rounds["pack_first_fit"] = 5 * 2 + 2
+            rounds["pack_first_fit_v2"] = 5 * 2
+
+        # -- (e) decisions, explain, replay -----------------------------------
+        with part("decisions") as rounds:
+            rng = random.Random(5)
+            head_pods = list(classes["headline"]["pods"])
+            stuck_at = sorted(rng.sample(range(len(head_pods)), len(head_pods) // 100))
+            for i in stuck_at:
+                head_pods[i] = make_pod(name=f"stuck-{i}", requests={"cpu": "100000"})
+            card_sched = Scheduler(Cluster(), rng=random.Random(1))
+            start = counts()
+            nodes = card_sched.solve(prov, catalogs["headline"], head_pods)
+            served(card_sched, "pack_first_fit", "obs (e) card round")
+            if counts()["pack_first_fit"] - start["pack_first_fit"] != 1:
+                raise AssertionError("obs (e): the card round did not launch pack_first_fit once")
+            ctx = card_sched.last_decision_context()
+            decision_dir = os.path.join(scratch, "decisions")
+            log_ = obs.DecisionLog(directory=decision_dir, write_interval=0.0)
+            record = log_.record_round(prov.name, head_pods, nodes, context=ctx)
+            if not log_.flush(60.0):
+                raise AssertionError("obs (e): the decision ring did not flush")
+            # every unplaced pod's verdict (the record lists the first 50)
+            stuck_keys = {head_pods[i].key for i in stuck_at}
+            unplaced = {v["pod"]: v for v in explain.explain_batch(ctx["batch"], ctx["assignment"])}
+            verdicts = record["unschedulable"]
+            if (record["unschedulable_count"] != len(unplaced) or stuck_keys - set(unplaced)
+                    or any(unplaced[k]["top_reason"] != "resource_fit" for k in stuck_keys)):
+                reasons = sorted({unplaced[k]["top_reason"] for k in stuck_keys & set(unplaced)})
+                raise AssertionError(f"obs (e): {record['unschedulable_count']} unschedulable, "
+                                     f"{len(stuck_keys - set(unplaced))} stuck pods placed, "
+                                     f"reasons {reasons}")
+            # the others are the batch's own zone anti-affinity pods: a required
+            # anti-affinity term over the zone admits one pod of a selector
+            # group per zone, and the catalog offers three (the JAX package's
+            # scheduler leaves the same pods unplaced with the same verdicts on
+            # this batch, tests/test_torch_explain.py)
+            by_key = {p.key: p for p in head_pods}
+            others = [k for k in unplaced if k not in stuck_keys]
+            other_reasons = dict(collections.Counter(unplaced[k]["top_reason"] for k in others))
+
+            def zone_anti_affinity(pod) -> bool:
+                anti = pod.spec.affinity and pod.spec.affinity.pod_anti_affinity
+                return bool(anti) and [t.topology_key for t in anti.required] == [
+                    lbl.TOPOLOGY_ZONE]
+
+            if set(other_reasons) - {"zone_topology"} or not all(
+                    zone_anti_affinity(by_key[k]) for k in others):
+                raise AssertionError(f"obs (e): besides the stuck pods, {len(others)} unplaced "
+                                     f"with reasons {other_reasons}, not all of them zone "
+                                     f"anti-affinity pods")
+            os.environ["KARPENTER_PACKER"] = "fused"
+            try:
+                cpu_sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu")
+                cpu_nodes = cpu_sched.solve(prov, catalogs["headline"], head_pods)
+            finally:
+                os.environ.pop("KARPENTER_PACKER", None)
+            not_degraded(cpu_sched, "obs (e) cpu round")
+            if plan_of(cpu_nodes, head_pods) != plan_of(nodes, head_pods):
+                raise AssertionError("obs (e): the card plan differs from the cpu plan")
+            cpu_ctx = cpu_sched.last_decision_context()
+            cpu_record = obs.DecisionLog().record_round(prov.name, head_pods, cpu_nodes,
+                                                        context=cpu_ctx)
+            if (cpu_record["unschedulable"] != verdicts or explain.explain_batch(
+                    cpu_ctx["batch"], cpu_ctx["assignment"]) != list(unplaced.values())):
+                raise AssertionError("obs (e): explain verdicts differ from the cpu scheduler's")
+            path = replay_tool.find_record(decision_dir, record_id=record["id"])
+            verdict = replay_tool.replay(replay_tool.load_record(path), record_path=path)
+            if verdict["ok"] is not True or verdict["replay_unschedulable"] != len(unplaced):
+                raise AssertionError(f"obs (e): native replay {verdict}")
+            with np.load(os.path.join(decision_dir, replay_tool.load_record(path)["replay_file"]),
+                         allow_pickle=False) as blob:
+                arrays = {k: blob[k] for k in blob.files}
+            arrays["pod_req"] = arrays["uniq_req"][arrays["pod_req_id"]]
+            tensors = [torch.tensor(arrays[n], dtype=dt, device=dev) for n, dt in PACK_ARG_DTYPES]
+            start = counts()
+            best, result = pack_kernel.pack_best(*tensors, n_max=int(arrays["n_max"]))
+            n_pods = int(arrays["n_pods"])
+            once = counts()["pack_first_fit"] - start["pack_first_fit"] == 1
+            if best != "pack_first_fit" or not once or not np.array_equal(
+                    result.assignment.cpu().numpy()[:n_pods], arrays["assignment"][:n_pods]):
+                raise AssertionError(f"obs (e): the blob through pack_best ({best}) is not "
+                                     f"bit-exact")
+            bad_ctx = dict(ctx)
+            bad = np.asarray(ctx["assignment"]).copy()
+            bad[0] = bad[0] + 1 if bad[0] >= 0 else 0
+            bad_ctx["assignment"] = bad
+            bad_record = log_.record_round(prov.name, head_pods, nodes, context=bad_ctx)
+            log_.flush(60.0)
+            bad_path = replay_tool.find_record(decision_dir, record_id=bad_record["id"])
+            caught = replay_tool.replay(replay_tool.load_record(bad_path), record_path=bad_path)
+            if caught["ok"] is not False:
+                raise AssertionError(f"obs (e): a corrupted assignment replayed as {caught}")
+            log_.close()
+            rounds["pack_first_fit"] = 2
+            summary["decisions"] = {"stuck": len(stuck_at), "unschedulable": len(unplaced),
+                                    "others": other_reasons, "listed": len(verdicts),
+                                    "replay": "bit-exact", "corrupt_caught": caught["diff"]}
+            log(f"[obs] (e) {len(head_pods)} pods, {len(stuck_at)} stuck: one launch, "
+                f"{record['unschedulable_count']} unschedulable ({len(verdicts)} listed; every "
+                f"stuck pod resource_fit; the {len(others)} others zone anti-affinity pods, "
+                f"reasons "
+                f"{other_reasons}; all verdicts equal to the device='cpu' scheduler's); "
+                f"explain took "
+                f"{record['explain_s'] * 1e3:.3f} ms; the .npz replays on the native packer "
+                f"bit-exact and through pack_best ({best}, one launch) bit-exact; a corrupted "
+                f"assignment caught: {caught['diff']}")
+
+        # -- (f) the SLO engine and the brownout ladder ------------------------
+        with part("slo") as rounds:
+            obs.reset_for_tests()
+            engine = obs.configure_slo(window_s=SLO_WINDOW_S)
+            walls_f = []
+            # the first of the 12 rounds is a fresh scheduler's (cold, over
+            # 100 ms on any host); the warm ones burn the objective as well
+            # wherever the host holds them over 100 ms
+            fresh = Scheduler(Cluster(), rng=random.Random(1))
+            for r in range(12):
+                wall, _, _ = solve(fresh, "headline", what=f"obs (f) knob-off round {r}")
+                walls_f.append(wall * 1e3)
+            snap = engine.snapshot()["objectives"]["solve_p99"]
+            log(f"[obs] (f) SLO window {SLO_WINDOW_S} s (slow {engine.slow_window_s} s); "
+                f"12 knob-off "
+                f"rounds (the first cold) {', '.join(f'{w:.1f}' for w in walls_f)} ms, "
+                f"{sum(w > 100.0 for w in walls_f)} over 100 ms: solve.p99 "
+                f"{snap['value'] * 1e3:.3f} ms, burn fast {snap['burn_rate']['fast']} slow "
+                f"{snap['burn_rate']['slow']}, burning {snap['burning']}")
+            if not snap["burning"]:
+                raise AssertionError(f"obs (f): solve.p99 < 100ms is not burning: {snap}")
+            router = default_router()
+            ladder = BrownoutController(router=router, escalate_after=1, recover_after=1)
+            climbed = [ladder.tick(), ladder.tick()]
+            if climbed[-1] < 1 or not router.probes_paused():
+                raise AssertionError(f"obs (f): the ladder reached {climbed}, probes paused "
+                                     f"{router.probes_paused()}")
+            log(f"[obs] (f) brownout ticks -> levels {climbed}, transitions "
+                f"{ladder.transitions}; karpenter_brownout_level "
+                f"{metric('karpenter_brownout_level')}; probes paused")
+
+            def canary_round(what):
+                sched = Scheduler(Cluster(), rng=random.Random(1), canary_rate=1.0)
+                before = integrity.totals()["canary_solves"]
+                solve(sched, "headline", what=what)
+                if sched.torch._canary_thread is not None:
+                    sched.torch._canary_thread.join(timeout=120)
+                    if sched.torch._canary_thread.is_alive():
+                        raise AssertionError(f"{what}: the canary did not finish")
+                return integrity.totals()["canary_solves"] - before
+
+            paused_canaries = canary_round("obs (f) canary round under brownout")
+            if paused_canaries:
+                raise AssertionError(f"obs (f): {paused_canaries} canary solves while paused")
+            t0 = time.perf_counter()
+            clean = 0
+            while time.perf_counter() - t0 < 3 * SLO_WINDOW_S:
+                solve(res, "headline", what="obs (f) resident round")
+                clean += 1
+                state = engine.snapshot()["objectives"]["solve_p99"]
+                if not state["burning"] and state["events"]["fast"] >= 10 and not any(
+                        v["burning"] for v in engine.burning_panel().values()):
+                    break
+            else:
+                raise AssertionError(f"obs (f): still burning after {clean} resident rounds: "
+                                     f"{state}")
+            recovered = []
+            while ladder.level() > 0 and len(recovered) < 8:
+                recovered.append(ladder.tick())
+            if ladder.level() != 0 or router.probes_paused():
+                raise AssertionError(f"obs (f): the ladder did not recover: {recovered}")
+            resumed = canary_round("obs (f) canary round after recovery")
+            if resumed != 1:
+                raise AssertionError(f"obs (f): {resumed} canary solves after recovery")
+            ladder.stop()
+            summary["slo"] = {"window_s": SLO_WINDOW_S, "knob_off_ms": walls_f,
+                              "p99_ms": snap["value"] * 1e3, "burn_fast": snap["burn_rate"]["fast"],
+                              "burn_slow": snap["burn_rate"]["slow"], "levels_up": climbed,
+                              "levels_down": recovered, "resident_rounds": clean}
+            log(f"[obs] (f) {clean} resident rounds cleaned the fast window "
+                f"({state['events']['fast']} events, p99 {state['value'] * 1e3:.3f} ms, burn "
+                f"{state['burn_rate']}); ladder -> {recovered}; transitions {ladder.transitions}; "
+                f"karpenter_brownout_level {metric('karpenter_brownout_level')}; canary solves "
+                f"{paused_canaries} paused, {resumed} after recovery")
+            rounds["pack_first_fit"] = 12 + 2 + clean
+
+        # -- (g) the sidecar, traced ------------------------------------------
+        try:
+            import grpc  # noqa: F401
+        except ImportError:
+            log("[obs] grpc not installed on this host: (g) is held by the CPU tests")
+        else:
+            with part("sidecar") as rounds:
+                summary["sidecar"] = sidecar_traced(card, classes, catalogs, rounds)
+    finally:
+        obs.reset_for_tests()
+        shutil.rmtree(scratch, ignore_errors=True)
+        for (lock, memo), was in zip(memos, saved):
+            with lock:
+                memo.clear()
+                memo.update(was)
+    for name in modules:
+        out[name]["launches_obs"] = sum(v for k, v in out[name].items()
+                                        if k.startswith("launches_"))
+    out["summary"] = summary
+    return out
+
+
+def sidecar_traced(card: str, classes: dict, catalogs: dict, rounds: dict) -> dict:
+    """Phase 14 (g): serve() on the card with its health port, and traced
+    device="cpu" controller rounds through it: a unary headline round and
+    a streamed team-mix round. The controller's solver.wire span holds the
+    sidecar's grafted stage records; the sidecar's ring (GET /debug/traces
+    on its health port) holds its sidecar.pack tree under the controller's
+    trace id; GET /metrics serves the port's families. Fills ``rounds``
+    with the rounds each kernel served."""
+    import urllib.request
+
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import service as S
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    prov = make_provisioner(solver="tpu")
+    address = free_address()
+    health_port = int(free_address().rsplit(":", 1)[1])
+    server = S.serve(address, max_workers=8, health_port=health_port, service=S.SolverService())
+    os.environ["KARPENTER_PACKER"] = "fused"
+    closers = []
+    found = {}
+
+    def get(path: str) -> bytes:
+        with urllib.request.urlopen(f"http://127.0.0.1:{health_port}{path}", timeout=30) as r:
+            return r.read()
+
+    def traced_round(sched, cls, what):
+        sched.torch.topology.rng = random.Random(1)
+        obs.exporter().clear()
+        t0 = time.perf_counter()
+        nodes = sched.solve(prov, catalogs[cls], classes[cls]["pods"])
+        wall = (time.perf_counter() - t0) * 1e3
+        prof = served(sched, "sidecar", what)
+        if plan_of(nodes, classes[cls]["pods"]) != classes[cls]["cpu_plan"]:
+            raise AssertionError(f"{what}: plan differs from the card plan")
+        root = next(t for t in obs.exporter().trees() if t["name"] == "solver.solve")
+        wires = obs.spans_named(root, "solver.wire")
+        if len(wires) != 1 or wires[0]["attrs"].get("transport") != prof["solver_transport"]:
+            raise AssertionError(f"{what}: solver.wire spans {wires}")
+        grafted = [c["name"] for c in wires[0]["children"]]
+        if grafted != ["sidecar.solve", "sidecar.fetch", "sidecar.serialize"]:
+            raise AssertionError(f"{what}: solver.wire holds {grafted}")
+        log(f"[obs] (g) {what}: {wall:.3f} ms, transport={prof['solver_transport']}, "
+            f"solver.wire {wires[0]['duration_ms']:.3f} ms holding "
+            + ", ".join(f"{c['name']} {c['duration_ms']:.3f}" for c in wires[0]["children"])
+            + f" ms; trace {root['trace_id']}")
+        return prof, root
+
+    try:
+        unary = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                          solver_service_address=address)
+        closers.append(unary)
+        _, root = traced_round(unary, "headline", "unary headline round")
+        rounds["pack_first_fit"] = 1
+        body = json.loads(get(f"/debug/traces?trace_id={root['trace_id']}"))
+        packs = [t for t in body["traces"] if t["name"] == "sidecar.pack"]
+        if len(packs) != 1 or packs[0]["trace_id"] != root["trace_id"]:
+            raise AssertionError(f"obs (g): sidecar ring holds {[t['name'] for t in body['traces']]}")
+        begin = next(c for c in root["children"] if c["name"] == "solve.pack_begin")
+        if packs[0]["parent_id"] != begin["span_id"]:
+            raise AssertionError("obs (g): sidecar.pack is not parented on solve.pack_begin")
+        found["sidecar_pack"] = [c["name"] for c in packs[0]["children"]]
+        streamed = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                             solver_service_address=address, solver_stream=True)
+        closers.append(streamed)
+        transport = None
+        for r in range(4):
+            prof, _ = traced_round(streamed, "team mix", f"streamed team mix round {r}")
+            rounds["pack_first_fit_v2"] = r + 1
+            transport = prof["solver_transport"]
+            if transport == "stream":
+                break
+        if transport != "stream":
+            raise AssertionError(f"obs (g): the team mix never rode the stream ({transport})")
+        text = get("/metrics").decode()
+        for family in ("karpenter_solver_session_hbm_bytes{", "karpenter_solver_stream_solves_total{",
+                       "karpenter_trace_spans_total", "karpenter_solver_admission_queue_depth"):
+            if family not in text:
+                raise AssertionError(f"obs (g): /metrics lacks {family}")
+        found["metrics_lines"] = len(text.splitlines())
+        log(f"[obs] (g) sidecar ring: sidecar.pack under the controller's trace, parented on "
+            f"its solve.pack_begin, children {found['sidecar_pack']}; /metrics "
+            f"{found['metrics_lines']} lines with the session HBM, stream, trace and admission "
+            f"families; card {card}")
+    finally:
+        os.environ.pop("KARPENTER_PACKER", None)
+        for c in closers:
+            if c.torch._remote is not None:
+                c.torch._remote.close()
+        server.health_server.shutdown()
+        server.stop(grace=None)
+    return found
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    gc_hook = log_gc_pauses()
 
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.cloudprovider.fake import instance_types
@@ -2433,6 +3255,9 @@ def main() -> int:
     # -- 13. stream -------------------------------------------------------
     stream = stream_phase(dev, card, classes, catalogs, batches, sidecar["wire_ser_ms"])
 
+    # -- 14. obs ----------------------------------------------------------
+    observed = obs_phase(dev, card, classes, catalogs, batches)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -2447,10 +3272,12 @@ def main() -> int:
         "launches": main_launches + resident["pack_first_fit"],
         "launches_by_path": {"main": main_launches, "resident": resident["pack_first_fit"],
                              "route": route["pack_first_fit"]["launches_route"],
+                             "obs": observed["pack_first_fit"]["launches_obs"],
                              **sidecar_launches("pack_first_fit")},
         **{k: v for k, v in route["pack_first_fit"].items() if k != "launches_route"},
         "degrade": degrade["pack_first_fit"],
         "stream": stream["pack_first_fit"],
+        "obs": {**observed["pack_first_fit"], **observed["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -2468,10 +3295,12 @@ def main() -> int:
         "launches": v2["launches"] + resident["pack_first_fit_v2"],
         "launches_by_path": {"diverse": v2["launches"], "resident": resident["pack_first_fit_v2"],
                              "route": route["pack_first_fit_v2"]["launches_route"],
+                             "obs": observed["pack_first_fit_v2"]["launches_obs"],
                              **sidecar_launches("pack_first_fit_v2")},
         **{k: v for k, v in route["pack_first_fit_v2"].items() if k != "launches_route"},
         "degrade": degrade["pack_first_fit_v2"],
         "stream": stream["pack_first_fit_v2"],
+        "obs": {**observed["pack_first_fit_v2"], **observed["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]
@@ -2482,6 +3311,7 @@ def main() -> int:
     if resident["pack_first_fit"] < 5 or resident["pack_first_fit_v2"] < 6:
         raise AssertionError(f"resident path launches {resident}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
+    gc.callbacks.remove(gc_hook)  # nothing may print after the last line
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

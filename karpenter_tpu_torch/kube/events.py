@@ -23,6 +23,16 @@ logger = logging.getLogger("karpenter.events")
 
 AGGREGATION_WINDOW = 600.0  # repeats inside this window bump count
 
+# annotation linking an emitted Event to the trace of the action that
+# emitted it: an event's trace id greps into /debug/traces (and the flight
+# dir)
+TRACE_ID_ANNOTATION = "karpenter.sh/trace-id"
+
+# annotation linking an emitted Event to the decision that caused it: the
+# id greps into /debug/decisions (and the decision ring, where
+# obs/replay.py re-solves it)
+DECISION_ID_ANNOTATION = "karpenter.sh/decision-id"
+
 
 class EventRecorder:
     def __init__(self, cluster: Cluster, component: str = "karpenter-tpu"):
@@ -65,6 +75,7 @@ class EventRecorder:
         message: str,
         type: str = "Normal",
         namespace: str = "",
+        decision_id: str = "",
     ) -> Optional[Event]:
         """Record an event; returns the stored object (or None on failure —
         recording is never allowed to break the calling controller)."""
@@ -98,8 +109,21 @@ class EventRecorder:
             with self._lock:
                 self._counter += 1
                 name = f"{involved_name}.{self._counter:x}.{int(now)}"
+            meta = ObjectMeta(name=name, namespace=namespace or "default")
+            # annotate with the active trace id, inside the same guarded
+            # region as the write: tracing trouble must never fail the
+            # traced action
+            from karpenter_tpu_torch import obs
+
+            span = obs.tracer().current()
+            if span is not None:
+                meta.annotations[TRACE_ID_ANNOTATION] = span.trace_id
+            # the decision-id annotation (empty = the emitter predates any
+            # decision)
+            if decision_id:
+                meta.annotations[DECISION_ID_ANNOTATION] = decision_id
             ev = Event(
-                metadata=ObjectMeta(name=name, namespace=namespace or "default"),
+                metadata=meta,
                 involved_kind=involved_kind,
                 involved_name=involved_name,
                 involved_namespace=namespace,

@@ -11,8 +11,9 @@ admits up to ``half_open_max`` probe calls; a probe success closes the
 breaker (window cleared), a probe failure re-opens it for another
 ``open_seconds``. ``trip()`` opens it at once, for correctness failures.
 
-The clock is injectable (``clock=``), so tests drive the cool-off without
-sleeping.
+State is exported on the scrape as ``karpenter_resilience_breaker_state``
+(0 closed / 1 open / 2 half-open) per dependency. The clock is injectable
+(``clock=``), so tests drive the cool-off without sleeping.
 """
 
 from __future__ import annotations
@@ -22,9 +23,13 @@ import time
 from collections import deque
 from typing import Callable, Dict
 
+from karpenter_tpu_torch import metrics
+
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half-open"
+
+_STATE_CODE = {CLOSED: 0, OPEN: 1, HALF_OPEN: 2}
 
 
 class BreakerOpen(Exception):
@@ -62,12 +67,19 @@ class CircuitBreaker:
         self._opened_at = 0.0  # guarded-by: self._mu
         self._probes_in_flight = 0  # guarded-by: self._mu
         self.trips = 0  # times the breaker transitioned to OPEN; guarded-by: self._mu
+        self._publish()
 
     # -- state -------------------------------------------------------------
     @property
     def state(self) -> str:
         with self._mu:
             return self._state
+
+    def _publish(self) -> None:
+        if self.dependency:
+            metrics.RESILIENCE_BREAKER_STATE.labels(
+                dependency=self.dependency
+            ).set(_STATE_CODE[self._state])
 
     def _retry_in(self) -> float:
         return max(self._opened_at + self.open_seconds - self._clock(), 0.0)
@@ -90,6 +102,7 @@ class CircuitBreaker:
             if self._state == OPEN and self._retry_in() <= 0.0:
                 self._state = HALF_OPEN
                 self._probes_in_flight = 0
+                self._publish()
             if self._state == CLOSED:
                 return True
             if self._state == HALF_OPEN and self._probes_in_flight < self.half_open_max:
@@ -105,6 +118,7 @@ class CircuitBreaker:
                 self._outcomes.clear()
                 self._probes_in_flight = 0
                 self._state = CLOSED
+                self._publish()
                 return
             self._outcomes.append(False)
 
@@ -117,6 +131,7 @@ class CircuitBreaker:
                 self._state = OPEN
                 self._opened_at = self._clock()
                 self.trips += 1
+                self._publish()
                 return True
             self._outcomes.append(True)
             if self._state != CLOSED:
@@ -129,6 +144,7 @@ class CircuitBreaker:
             self._state = OPEN
             self._opened_at = self._clock()
             self.trips += 1
+            self._publish()
             return True
 
     def trip(self) -> None:
@@ -142,6 +158,7 @@ class CircuitBreaker:
             self._probes_in_flight = 0
             self._state = OPEN
             self._opened_at = self._clock()
+            self._publish()
 
     def retry_in(self) -> float:
         """Seconds left of an open breaker's cool-off (0 once it elapsed,

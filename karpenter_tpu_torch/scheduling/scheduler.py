@@ -5,8 +5,10 @@ provisioner's ``spec.solver`` field — ``tpu`` to the GPU-backed
 from __future__ import annotations
 
 import random
+import time
 from typing import List, Optional, Sequence
 
+from karpenter_tpu_torch import metrics, obs
 from karpenter_tpu_torch.api.objects import Pod
 from karpenter_tpu_torch.api.provisioner import SOLVER_TPU, Provisioner
 from karpenter_tpu_torch.cloudprovider.requirements import catalog_requirements
@@ -71,6 +73,15 @@ class Scheduler:
         which caller ran it: fused, unfused or the router's native)."""
         return self.torch.completed_profile()
 
+    def last_decision_context(self) -> dict:
+        """The calling thread's most recent ``solver: tpu`` solve's decision
+        context (encoded batch, assignment read from the host copy the fetch
+        made, ``n_max``, route, transport, address, session key) for the
+        decision audit log (``obs.decision_log().record_round``), consumed
+        on read; {} after an FFD solve, a failed round, or with the
+        decision plane disabled."""
+        return self.torch.completed_decision()
+
     def solve(
         self,
         provisioner: Provisioner,
@@ -79,10 +90,30 @@ class Scheduler:
     ) -> List[VirtualNode]:
         # layer the live catalog's supported values into the constraints;
         # idempotent, and keeps the facade safe to call standalone
+        start = time.perf_counter()
         constraints = provisioner.spec.constraints.clone()
         constraints.requirements = constraints.requirements.merge(
             catalog_requirements(instance_types)
         )
-        if provisioner.spec.solver == SOLVER_TPU:
-            return self.torch.solve(constraints, instance_types, pods)
-        return self.ffd.solve(constraints, instance_types, pods)
+        # the end-to-end solve span: what the flight recorder watches
+        # against its budget, and the root the stage spans hang off
+        with obs.tracer().span(
+            "solver.solve",
+            attrs={
+                "provisioner": provisioner.name,
+                "solver": provisioner.spec.solver,
+                "pods": len(pods),
+                "types": len(instance_types),
+            },
+        ) as sp:
+            try:
+                if provisioner.spec.solver == SOLVER_TPU:
+                    nodes = self.torch.solve(constraints, instance_types, pods)
+                else:
+                    nodes = self.ffd.solve(constraints, instance_types, pods)
+                sp.set_attribute("nodes", len(nodes))
+                return nodes
+            finally:
+                metrics.SCHEDULING_DURATION.labels(
+                    provisioner=provisioner.name
+                ).observe(time.perf_counter() - start)

@@ -111,6 +111,22 @@ caller that reads them joins ``_probe_thread`` first). It never touches
 ``PodResidency`` (it uploads its own pod table), the decode and validation
 memos, or ``last_profile`` (its profile is a throwaway dict).
 
+**Observability** (the reference's spans, metrics and decision context).
+Each stage runs inside its span — ``solve.sort``, ``solve.inject``,
+``solve.encode``, ``solve.pack_begin`` (the router's choice and EMAs as
+attributes), ``solve.pack_fetch``, ``solve.decode`` — under the facade's
+``solver.solve``, with its prof clock inside the span. The begin only
+enqueues the kernel and the fetch holds the one synchronize and copy, so
+tracing adds no device work. Every degrade trigger but the overflow counts
+``karpenter_solver_degraded_total{reason, address}``; the sidecar's breaker
+publishes ``karpenter_solver_breaker_*``. A valid round publishes its
+decision context (the batch, the assignment from the fetch's host copy,
+``n_max``, route, transport, address, session key) for
+``completed_decision()``; a floor round publishes ``{"route":
+"ffd-degraded"}``. The constructor registers the flight recorder's
+``router_ema``, ``pack_breakers_open``, ``remote_breaker``,
+``session_cache`` and ``integrity`` panels.
+
 The resident delta path (``solver_delta``, env ``KARPENTER_SOLVER_DELTA``)
 keeps each stage's work across rounds, and a stage served from resident
 state records its ``*_delta_s`` profile key in place of the full one:
@@ -144,6 +160,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import metrics, obs
 from karpenter_tpu_torch.api import labels as lbl
 from karpenter_tpu_torch.api.objects import NodeSelectorRequirement, Pod
 from karpenter_tpu_torch.api.provisioner import Constraints
@@ -170,7 +187,7 @@ from karpenter_tpu_torch.scheduling.topology import (
 )
 from karpenter_tpu_torch.solver import encode as enc
 from karpenter_tpu_torch.solver import (
-    fused, integrity, kernel, native, pack_kernel, pack_kernel_v2,
+    fused, integrity, kernel, native, pack_kernel, pack_kernel_v2, session_stats,
 )
 from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
 from karpenter_tpu_torch.solver.delta import ResidentEncoder
@@ -264,6 +281,11 @@ def _env_float(key: str, default: float = 0.0) -> float:
     """The float env contract: unset or blank is ``default``."""
     raw = os.environ.get(key, "").strip()
     return float(raw) if raw else default
+
+
+def _shed_reason(e: Exception) -> str:
+    """The ``karpenter_solver_degraded_total`` reason of a typed shed."""
+    return "deadline" if isinstance(e, DeadlineExceededError) else "overload"
 
 
 def kernel_name(route: str, device: torch.device) -> str:
@@ -426,12 +448,27 @@ class TorchScheduler:
         # last stage write; the thread-local holds each thread's own
         self.last_completed_profile: Dict[str, float] = {}
         self._completed_tl = threading.local()
+        # the most recent completed solve's decision context (encoded batch
+        # + assignment + route provenance) for the decision audit log
+        # (obs/decisions.py): per thread like the profile, and consumed on
+        # read so a finished round's EncodedBatch is not pinned until the
+        # next solve
+        self._decision_tl = threading.local()
         # measured-cost routing of a device="cpu" scheduler (router.py),
         # shared by every scheduler of the process; at most one shadow
         # probe in flight per scheduler
         self.router = default_router()
         self._probe_lock = threading.Lock()
         self._probe_thread: Optional[threading.Thread] = None  # guarded-by: self._probe_lock
+        # flight-recorder state panels: a slow solve's record carries the
+        # router's beliefs, the breaker states, the session cache and the
+        # integrity counters at that moment. Re-registering a name replaces
+        # the provider (the newest scheduler's view wins)
+        obs.register_state("router_ema", self.router.report)
+        obs.register_state("pack_breakers_open", self._pack_breakers.open_dependencies)
+        obs.register_state("remote_breaker", lambda: self._remote_breaker.state)
+        obs.register_state("session_cache", session_stats.snapshot)
+        obs.register_state("integrity", integrity.snapshot)
 
     def solve(
         self,
@@ -457,17 +494,39 @@ class TorchScheduler:
         prof = getattr(self._completed_tl, "profile", None)
         return dict(prof if prof is not None else self.last_completed_profile)
 
+    def _publish_decision(self, ctx: Dict) -> None:
+        from karpenter_tpu_torch.obs import decisions
+
+        if decisions.enabled():
+            self._decision_tl.ctx = ctx
+
+    def completed_decision(self) -> Dict:
+        """This thread's most recent solve's decision context, consumed on
+        read (one record per round; holding the batch longer would pin it).
+        {} when nothing completed since the last read, the round failed, or
+        the decision plane is disabled."""
+        ctx = getattr(self._decision_tl, "ctx", None)
+        self._decision_tl.ctx = None
+        return ctx or {}
+
     def _solve(self, constraints, instance_types, pods, prof: Dict[str, float]):
+        # stage spans mirror the prof dict: each prof clock runs INSIDE its
+        # span, so the exported tree agrees with completed_profile() to
+        # within the span enter/exit slivers. Nothing inside a span waits
+        # on the card: solve.pack_begin only enqueues, and solve.pack_fetch
+        # holds the one synchronize and device-to-host copy
+        tr = obs.tracer()
         resident = self._resident
-        t0 = time.perf_counter()
-        constraints = constraints.clone()
-        if resident is not None:
-            pods, sts, sort_hit = resident.sort(pods)
-        else:
-            pods, sts = sort_pods_ffd_with_statics(pods)
-            sort_hit = False
-        instance_types = sorted(instance_types, key=lambda it: it.effective_price())
-        prof["sort_delta_s" if sort_hit else "sort_s"] = time.perf_counter() - t0
+        with tr.span("solve.sort"):
+            t0 = time.perf_counter()
+            constraints = constraints.clone()
+            if resident is not None:
+                pods, sts, sort_hit = resident.sort(pods)
+            else:
+                pods, sts = sort_pods_ffd_with_statics(pods)
+                sort_hit = False
+            instance_types = sorted(instance_types, key=lambda it: it.effective_price())
+            prof["sort_delta_s" if sort_hit else "sort_s"] = time.perf_counter() - t0
         with self._solve_lock:
             # published under the lock, with the stages that write it
             self.last_profile = prof
@@ -481,59 +540,66 @@ class TorchScheduler:
         breaker's check and the pack's begin. Returns the finished nodes
         when the round ends here (a floor or a raise), else what
         ``_finish`` needs."""
+        tr = obs.tracer()
         resident = self._resident
         # topology decisions land in the plan, never in the pods' selectors
-        t0 = time.perf_counter()
-        topo = True
-        plan_reused = False
-        if resident is not None and resident.eligible(sts):
-            # topology-free batch: the injected plan is empty by
-            # construction, so the per-pod discovery sweep is skipped
-            topo = False
-            plan = resident.empty_plan(pods, sts)
-            daemon = daemon_overhead(self.cluster, constraints)
-        elif resident is not None:
-            # topology batch: the injected round is a deterministic function
-            # of (sorted batch, pre-inject constraints content, cluster
-            # state); when none moved, reuse the cached post-inject
-            # constraints + plan + daemon. The key is built BEFORE inject
-            # mutates the constraints clone.
-            pkey = resident.plan_key(constraints, self.cluster.version())
-            hit = resident.plan_reuse(pkey, sts)
-            if hit is not None:
-                constraints, plan, daemon = hit
-                plan_reused = True
+        with tr.span("solve.inject"):
+            t0 = time.perf_counter()
+            topo = True
+            plan_reused = False
+            if resident is not None and resident.eligible(sts):
+                # topology-free batch: the injected plan is empty by
+                # construction, so the per-pod discovery sweep is skipped
+                topo = False
+                plan = resident.empty_plan(pods, sts)
+                daemon = daemon_overhead(self.cluster, constraints)
+            elif resident is not None:
+                # topology batch: the injected round is a deterministic
+                # function of (sorted batch, pre-inject constraints content,
+                # cluster state); when none moved, reuse the cached
+                # post-inject constraints + plan + daemon. The key is built
+                # BEFORE inject mutates the constraints clone.
+                pkey = resident.plan_key(constraints, self.cluster.version())
+                hit = resident.plan_reuse(pkey, sts)
+                if hit is not None:
+                    constraints, plan, daemon = hit
+                    plan_reused = True
+                else:
+                    plan = self.topology.inject_plan(constraints, pods, sts=sts)
+                    daemon = daemon_overhead(self.cluster, constraints)
+                    resident.remember_plan(pkey, sts, constraints, plan, daemon)
             else:
                 plan = self.topology.inject_plan(constraints, pods, sts=sts)
                 daemon = daemon_overhead(self.cluster, constraints)
-                resident.remember_plan(pkey, sts, constraints, plan, daemon)
-        else:
-            plan = self.topology.inject_plan(constraints, pods, sts=sts)
-            daemon = daemon_overhead(self.cluster, constraints)
-        prof[
-            "inject_delta_s" if (not topo or plan_reused) else "inject_s"
-        ] = time.perf_counter() - t0
+            prof[
+                "inject_delta_s" if (not topo or plan_reused) else "inject_s"
+            ] = time.perf_counter() - t0
 
         def degrade() -> List[VirtualNode]:
             return self._ffd_degrade(constraints, instance_types, pods, daemon, plan)
 
-        t0 = time.perf_counter()
-        try:
-            if resident is not None:
-                batch, enc_kind = self._resident_encode(
-                    constraints, instance_types, pods, sts, daemon, plan,
-                    topo=topo, plan_reused=plan_reused,
-                )
-            else:
-                batch = self._encode_retry(constraints, instance_types, pods, daemon, plan)
-                enc_kind = "full"
-        except SignatureOverflow as e:
-            # as the reference: no packer_backend is recorded for the round
-            return self._fail(e, prof, degrade, "signature closure overflowed",
-                              backend=None, exc_info=True)
-        prof["encode_delta_s" if enc_kind != "full" else "encode_s"] = (
-            time.perf_counter() - t0
-        )
+        with tr.span("solve.encode") as enc_sp:
+            t0 = time.perf_counter()
+            try:
+                if resident is not None:
+                    batch, enc_kind = self._resident_encode(
+                        constraints, instance_types, pods, sts, daemon, plan,
+                        topo=topo, plan_reused=plan_reused,
+                    )
+                else:
+                    batch = self._encode_retry(constraints, instance_types, pods, daemon, plan)
+                    enc_kind = "full"
+            except SignatureOverflow as e:
+                enc_sp.set_attribute("signature_overflow", True)
+                # as the reference: no packer_backend is recorded for the
+                # round, and the floor serves inside the encode span
+                return self._fail(e, prof, degrade, "signature closure overflowed",
+                                  backend=None, exc_info=True)
+            if enc_kind != "full":
+                enc_sp.set_attribute("delta", enc_kind)
+            prof["encode_delta_s" if enc_kind != "full" else "encode_s"] = (
+                time.perf_counter() - t0
+            )
 
         # the shape class's pack breaker: while open, no pack is attempted.
         # A closed (or half-open-probing) breaker sees the pack's outcome.
@@ -541,22 +607,25 @@ class TorchScheduler:
         if not breaker.allow():
             return self._fail(
                 BreakerOpen(breaker.dependency, breaker.retry_in()), prof, degrade,
-                f"pack breaker {breaker.dependency} is open",
+                f"pack breaker {breaker.dependency} is open", reason="breaker_open",
             )
         # begin and finish are two guarded steps, as the reference's
         # dispatch and fetch are
         # a typed shed is backpressure, not a shape failure: the breaker
         # stays as it is (an overloaded sidecar or pool packs in process,
         # so what arrives here is the round's expired deadline)
-        t0 = time.perf_counter()
         try:
-            finish = self._pack(batch, prof)
+            with tr.span("solve.pack_begin"):
+                t0 = time.perf_counter()
+                finish = self._pack(batch, prof)
+                begin_s = time.perf_counter() - t0
         except (OverloadedError, DeadlineExceededError) as e:
-            return self._fail(e, prof, degrade, f"accelerated pack shed ({e})")
+            return self._fail(e, prof, degrade, f"accelerated pack shed ({e})",
+                              reason=_shed_reason(e))
         except Exception as e:
             breaker.record_failure()
-            return self._fail(e, prof, degrade, "accelerated pack failed", exc_info=True)
-        begin_s = time.perf_counter() - t0
+            return self._fail(e, prof, degrade, "accelerated pack failed",
+                              exc_info=True, reason="pack_failure")
         return (constraints, instance_types, pods, daemon, plan, batch, breaker, finish, begin_s)
 
     def _finish(self, constraints, instance_types, pods, daemon, plan, batch, breaker,
@@ -564,23 +633,30 @@ class TorchScheduler:
         """The stages off the solve lock: the fetch, the screen, decode,
         validation and the canary. A round that falls to the floor here
         takes the lock back (the floor shares the scheduler's state)."""
+        tr = obs.tracer()
+
         def degrade() -> List[VirtualNode]:
             with self._solve_lock:
                 return self._ffd_degrade(constraints, instance_types, pods, daemon, plan)
 
-        t0 = time.perf_counter()
         try:
-            result, typemask = finish()
+            with tr.span("solve.pack_fetch") as fetch_sp:
+                t0 = time.perf_counter()
+                result, typemask = finish()
+                fetch_wait_s = time.perf_counter() - t0
+                fetch_sp.set_attribute("backend", prof.get("packer_backend"))
         except (OverloadedError, DeadlineExceededError) as e:
-            return self._fail(e, prof, degrade, f"accelerated pack shed ({e})")
+            return self._fail(e, prof, degrade, f"accelerated pack shed ({e})",
+                              reason=_shed_reason(e))
         except Exception as e:
             breaker.record_failure()
-            return self._fail(e, prof, degrade, "accelerated pack failed", exc_info=True)
+            return self._fail(e, prof, degrade, "accelerated pack failed",
+                              exc_info=True, reason="pack_failure")
         # the wire's serialization is attributed apart (wire_ser_s and
         # wire_deser_s, set by the sidecar client), so pack_fetch_s is the
         # dispatch and in-flight wait alone
         prof["pack_fetch_s"] = max(
-            begin_s + time.perf_counter() - t0
+            begin_s + fetch_wait_s
             - prof.get("wire_ser_s", 0.0) - prof.get("wire_deser_s", 0.0),
             0.0,
         )
@@ -600,13 +676,15 @@ class TorchScheduler:
                 ),
                 prof, degrade,
                 f"accelerated pack failed the integrity screen ({screen}); source quarantined",
+                reason="integrity_screen", address=address or "local",
             )
         breaker.record_success()
 
-        t0 = time.perf_counter()
-        nodes = self._decode(batch, result, typemask, constraints, instance_types)
-        dec_hit = getattr(self._dec_tl, "hit", False)
-        prof["decode_delta_s" if dec_hit else "decode_s"] = time.perf_counter() - t0
+        with tr.span("solve.decode"):
+            t0 = time.perf_counter()
+            nodes = self._decode(batch, result, typemask, constraints, instance_types)
+            dec_hit = getattr(self._dec_tl, "hit", False)
+            prof["decode_delta_s" if dec_hit else "decode_s"] = time.perf_counter() - t0
 
         # a decode-memo hit is bit-identical to a previously decoded plan;
         # when THAT plan passed this guard (the memo is only armed on a
@@ -637,11 +715,25 @@ class TorchScheduler:
                 ),
                 prof, degrade,
                 f"accelerated pack produced an invalid plan ({violation}); source quarantined",
+                reason="invalid_pack", address=address or "local",
             )
         # the canary cross-check: a sampled fraction of kernel-served solves
         # is re-solved on the native packer off the hot path and compared —
         # the layer that catches a plausible-shaped, screen-clean wrong pack
         self._maybe_canary(batch, result, prof)
+        # decision context for the audit log: the encoded batch, the served
+        # assignment and the provenance. ``result`` is the host copy the
+        # fetch already made; the assignment slice is copied so the result
+        # buffers are not pinned through the record's life
+        self._publish_decision({
+            "batch": batch,
+            "assignment": np.asarray(result[0])[: batch.n_pods].copy(),
+            "n_max": int(np.asarray(result[1]).shape[0]),
+            "route": prof.get("packer_backend"),
+            "transport": prof.get("solver_transport"),
+            "address": prof.get("solver_address"),
+            "session_key": prof.get("session_key"),
+        })
         return nodes
 
     @staticmethod
@@ -649,18 +741,24 @@ class TorchScheduler:
         return "pack:" + "x".join(map(str, TorchScheduler._route_key(batch)))
 
     def _fail(self, error: Exception, prof: Dict, degrade, what: str,
-              backend: Optional[str] = "ffd-degraded", exc_info: bool = False):
-        """The end of every degrade trigger, after its bookkeeping: log
-        ``what`` at ERROR, then serve the batch from the FFD floor on a cpu
-        scheduler (recording ``backend`` as what served, None for nothing)
-        or raise ``error`` on the card. ``exc_info`` from an ``except``
-        block puts the traceback in the log."""
+              backend: Optional[str] = "ffd-degraded", exc_info: bool = False,
+              reason: Optional[str] = None, address: str = ""):
+        """The end of every degrade trigger, after its bookkeeping: count
+        ``karpenter_solver_degraded_total{reason, address}`` (every trigger
+        but the overflow, as the reference), log ``what`` at ERROR, then
+        serve the batch from the FFD floor on a cpu scheduler (recording
+        ``backend`` as what served, None for nothing) or raise ``error`` on
+        the card, leaving no decision context. ``exc_info`` from an
+        ``except`` block puts the traceback in the log."""
+        if reason is not None:
+            metrics.SOLVER_DEGRADED.labels(reason=reason, address=address).inc()
         logger.error(
             "%s; %s", what,
             "FFD floor serves this batch" if self._floor_serves else "the round fails",
             exc_info=exc_info,
         )
         if not self._floor_serves:
+            self._decision_tl.ctx = None
             raise error
         if backend is not None:
             prof["packer_backend"] = backend
@@ -669,7 +767,10 @@ class TorchScheduler:
     def _ffd_degrade(self, constraints, instance_types, pods, daemon, plan) -> List[VirtualNode]:
         """The degrade ladder's floor: materialize the topology plan into
         the pods' selectors (restored afterwards — the accelerated path's
-        never-mutate contract) and serve the batch with the host FFD."""
+        never-mutate contract) and serve the batch with the host FFD. The
+        round still lands in the decision log with its route; tensor-level
+        attribution needs the accelerated result."""
+        self._publish_decision({"route": "ffd-degraded"})
         saved = snapshot_selectors(pods)
         try:
             plan.materialize(list(pods))
@@ -715,6 +816,8 @@ class TorchScheduler:
             return
         if address and self.service_address:
             self._remote_breaker.trip()
+            metrics.SOLVER_BREAKER_OPEN.labels(address=self.service_address).set(1)
+            metrics.SOLVER_BREAKER_TRIPS.labels(address=self.service_address).inc()
         elif batch is not None:
             self._pack_breakers.get(self._breaker_key(batch)).trip()
         integrity.record_quarantine(address, reason, detail)
@@ -725,10 +828,14 @@ class TorchScheduler:
         the solves a kernel (or its plain version) or the sidecar served:
         re-solve the SAME encoded batch on the native packer OFF the hot
         path (a daemon thread, at most one in flight) and compare. Native
-        packs are never canaried. A caller that reads the counters joins
+        packs are never canaried. While the router's probes are paused
+        (brownout rung 1 and up), the canary, pure verification spend,
+        pauses with them. A caller that reads the counters joins
         ``_canary_thread`` first."""
         backend = prof.get("packer_backend")
         if self.canary_rate <= 0 or (backend not in DEVICE_BACKENDS and backend != SIDECAR):
+            return
+        if self.router.probes_paused():
             return
         if not native.native_available():
             return
@@ -824,6 +931,17 @@ class TorchScheduler:
             if len(candidates) > 1:
                 key = self._route_key(batch)
                 backend = self.router.choose(key, candidates)
+                # the router's decision and its inputs land on the active
+                # span (solve.pack_begin): a trace of a slow solve shows
+                # which backend served it and what the EMAs believed
+                cur = obs.tracer().current()
+                if cur is not None:
+                    cur.set_attribute("router_backend", backend)
+                    cur.set_attribute("router_key", "x".join(map(str, key)))
+                    for c in candidates:
+                        ema = self.router.ema(key, c)
+                        if ema is not None:
+                            cur.set_attribute(f"router_ema_{c}_ms", round(ema * 1e3, 3))
                 t0 = time.perf_counter()
                 if backend == "native":
                     # synchronous host compute: nothing in flight to
@@ -1082,7 +1200,10 @@ class TorchScheduler:
     def _remote_failure(self, e: Exception) -> None:
         """Open the circuit: a dead sidecar must not stall every batch for a
         full RPC deadline; half-open probes re-admit it once it answers."""
-        self._remote_breaker.record_failure()
+        tripped = self._remote_breaker.record_failure()
+        metrics.SOLVER_BREAKER_OPEN.labels(address=self.service_address).set(1)
+        if tripped:
+            metrics.SOLVER_BREAKER_TRIPS.labels(address=self.service_address).inc()
         logger.error(
             "solver service %s failed (%s); in-process pack for %.0fs",
             self.service_address, e, REMOTE_BREAKER_SECONDS,
@@ -1155,6 +1276,11 @@ class TorchScheduler:
                         self._remote_failure(e)
                         return local()()
                     self._remote_breaker.record_success()
+                    # unconditional: the gauge is process-global per
+                    # address, and another scheduler may have set it
+                    metrics.SOLVER_BREAKER_OPEN.labels(
+                        address=self.service_address
+                    ).set(0)
                     prof["packer_backend"] = SIDECAR
                     prof["pack_route"] = "unfused"
                     return result, None
@@ -1483,6 +1609,7 @@ class TorchScheduler:
             and (mmask is None or np.array_equal(np.asarray(typemask), mmask))
         ):
             return None
+        metrics.SOLVER_DELTA_APPLIED.labels(path="decode").inc()
         nodes: List[VirtualNode] = []
         for reqs, requests, surviving, pods_list in rows:
             node_constraints = constraints.clone()

@@ -333,6 +333,8 @@ class ResidentEncoder:
         decisions, so both the zero-churn shortcut and the row delta would
         otherwise trust inputs the guard never checked. Everything else
         falls to a counted ``full("topology")``."""
+        from karpenter_tpu_torch import metrics
+
         axes = self._axes_for(sts, instance_types, daemon)
         epoch = self.epoch_digest(constraints, instance_types, axes, daemon)
         key = enc._table_key(constraints, instance_types, list(axes))
@@ -359,6 +361,7 @@ class ResidentEncoder:
             if pods is not self._last_pods_obj:
                 spids = list(map(id, pods))
             if spids is None or spids == self._last_pids:
+                metrics.SOLVER_DELTA_APPLIED.labels(path="host").inc()
                 return self._last_batch, "reuse"
         if topo or self._topo_resident:
             return self._full(
@@ -368,10 +371,19 @@ class ResidentEncoder:
         if spids is None:
             spids = list(map(id, pods))
         batch = self._delta(pods, sts, spids, constraints, daemon)
+        metrics.SOLVER_DELTA_APPLIED.labels(path="host").inc()
         self._last_pids = spids
         self._last_pods_obj = pods
         self._last_batch = batch
+        self._publish_resident_bytes(batch)
         return batch, "delta"
+
+    def force_full(self, reason: str) -> None:
+        """Count an out-of-band full re-encode (e.g. a topology-bearing
+        round routed around the resident path by the backend)."""
+        from karpenter_tpu_torch import metrics
+
+        metrics.SOLVER_DELTA_FULL_REENCODES.labels(reason=reason).inc()
 
     def reset(self) -> None:
         """Drop all resident state (epoch, vocab, rows, cached batch) —
@@ -407,8 +419,9 @@ class ResidentEncoder:
         self, constraints, instance_types, pods, sts, daemon, plan,
         epoch: bytes, key, axes: tuple, reason: str, *, topo: bool = False,
     ) -> enc.EncodedBatch:
-        # `reason` (cold / epoch / table / topology) names the rung's cause
-        # at every call site; nothing counts it in this package
+        from karpenter_tpu_torch import metrics
+
+        metrics.SOLVER_DELTA_FULL_REENCODES.labels(reason=reason).inc()
         batch = enc.encode(
             constraints, instance_types, pods, daemon,
             cache=self._cache, plan=plan,
@@ -463,6 +476,7 @@ class ResidentEncoder:
         self._last_pids = list(map(id, pods))
         self._last_pods_obj = pods
         self._last_batch = batch
+        self._publish_resident_bytes(batch)
 
     def _add_row(self, pod: Pod, st) -> tuple:
         """Intern one NEW pod into the stable vocabulary — the per-pod cost
@@ -552,3 +566,11 @@ class ResidentEncoder:
             local_cid, local_hid, hib_out, openh, local_rid,
             cores, hostnames, uniq_vecs, base_has_hostname,
         )
+
+    def _publish_resident_bytes(self, batch: enc.EncodedBatch) -> None:
+        from karpenter_tpu_torch import metrics
+
+        total = sum(
+            a.nbytes for a in batch.pack_args() if isinstance(a, np.ndarray)
+        )
+        metrics.SOLVER_DELTA_RESIDENT_BYTES.labels(side="host").set(total)

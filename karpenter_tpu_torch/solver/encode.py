@@ -149,7 +149,10 @@ class EncodeCache:
     object identity (providers build fresh InstanceType objects per
     get_instance_types call), with small-LRU eviction so a drifting catalog
     cannot grow the cache unboundedly. Owned by one scheduler (one worker
-    thread), not shared."""
+    thread), not shared.
+
+    Hit/miss traffic is counted (``solver_encode_cache_{hits,misses}_total``)
+    so a thrashing cache is visible on the scrape."""
 
     MAX_ENTRIES = 4
 
@@ -158,9 +161,14 @@ class EncodeCache:
         self.tables: "OrderedDict[Tuple, Tuple[np.ndarray, SignatureTable]]" = OrderedDict()
 
     def get(self, key: Tuple):
+        from karpenter_tpu_torch import metrics
+
         hit = self.tables.get(key)
         if hit is not None:
             self.tables.move_to_end(key)
+            metrics.SOLVER_ENCODE_CACHE_HITS.inc()
+        else:
+            metrics.SOLVER_ENCODE_CACHE_MISSES.inc()
         return hit
 
     def put(self, key: Tuple, value) -> None:

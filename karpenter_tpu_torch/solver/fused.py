@@ -217,8 +217,22 @@ class PodResidency:
         self.stats = {"reused": 0, "patched": 0, "uploaded": 0}  # guarded-by: self._lock
 
     def _count(self, what: str) -> None:
+        from karpenter_tpu_torch import metrics
+
         with self._lock:
             self.stats[what] += 1
+        if what != "uploaded":
+            metrics.SOLVER_DELTA_APPLIED.labels(path="device").inc()
+
+    @staticmethod
+    def _publish_bytes(devs) -> None:
+        """The resident pod table's device bytes (tensor metadata: no
+        wait on the card)."""
+        from karpenter_tpu_torch import metrics
+
+        metrics.SOLVER_DELTA_RESIDENT_BYTES.labels(side="device").set(
+            sum(int(a.nbytes) for a in devs)
+        )
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """One host array as a new tensor on the device (a copy on the CPU
@@ -273,6 +287,7 @@ class PodResidency:
             self._count("uploaded")
         with self._lock:
             self._entry = (batch, devs, host)
+        self._publish_bytes(devs)
         return devs
 
 

@@ -17,7 +17,8 @@ the shared accounting they report into:
 - :func:`snapshot` / :func:`totals` — the counters, read without a scrape.
 
 Counters are process-global (one scheduler per worker, many workers per
-process) and kept in memory.
+process), kept in memory and mirrored on the ``karpenter_solver_integrity_*``
+metric families.
 """
 
 from __future__ import annotations
@@ -48,26 +49,39 @@ def _bump(kind: str, address: str) -> None:
         table[key] = table.get(key, 0) + 1
 
 
+def _metric(name: str, address: str) -> None:
+    """The Prometheus mirror of one counter bump (``karpenter_solver_integrity_*``)."""
+    from karpenter_tpu_torch import metrics
+
+    getattr(metrics, name).labels(address=address or "local").inc()
+
+
 def record_checksum_failure(address: str) -> None:
     _bump("checksum_failures", address)
+    _metric("SOLVER_INTEGRITY_CHECKSUM_FAILURES", address)
 
 
 def record_session_mismatch(address: str) -> None:
     _bump("session_mismatches", address)
+    _metric("SOLVER_INTEGRITY_SESSION_MISMATCHES", address)
 
 
 def record_canary(address: str, mismatch: bool) -> None:
     _bump("canary_solves", address)
+    _metric("SOLVER_INTEGRITY_CANARY_SOLVES", address)
     if mismatch:
         _bump("canary_mismatches", address)
+        _metric("SOLVER_INTEGRITY_CANARY_MISMATCHES", address)
 
 
 def record_screen_failure(address: str) -> None:
     _bump("screen_failures", address)
+    _metric("SOLVER_INTEGRITY_SCREEN_FAILURES", address)
 
 
 def record_quarantine(address: str, reason: str, detail: str = "") -> None:
     _bump("quarantines", address)
+    _metric("SOLVER_INTEGRITY_QUARANTINES", address)
     with _mu:
         _quarantine_log.append({
             "address": address or "local",

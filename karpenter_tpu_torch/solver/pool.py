@@ -20,6 +20,12 @@ the member sits out its retry-after hint and no breaker moves. Only when
 every member refuses does the pool raise — ``PoolExhausted``, or
 ``OverloadedError`` when every refusal was backpressure — and the
 scheduler's outer remote breaker takes it from there.
+
+Each reroute off a failed member counts
+``karpenter_solver_pool_failovers_total{address=<failed member>}`` and a
+fetch-time failover runs under a ``solver.pool.failover`` span carrying
+``from`` and ``to``; member breakers publish ``karpenter_solver_breaker_*``
+and the admitting count ``karpenter_solver_pool_members``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from karpenter_tpu_torch.resilience.integrity import IntegrityError
+from karpenter_tpu_torch import metrics, obs
 from karpenter_tpu_torch.resilience.overload import DeadlineExceededError, OverloadedError
 from karpenter_tpu_torch.solver import integrity
 from karpenter_tpu_torch.solver.service import N_POD_ARRAYS, CatalogKeyMemo, RemoteSolver
@@ -156,11 +163,17 @@ class SolverPool:
         return self._breakers.get(f"solver-pool:{address}")
 
     def _member_failure(self, address: str, exc: Exception) -> None:
-        self._breaker(address).record_failure()
+        tripped = self._breaker(address).record_failure()
+        metrics.SOLVER_BREAKER_OPEN.labels(address=address).set(1)
+        if tripped:
+            metrics.SOLVER_BREAKER_TRIPS.labels(address=address).inc()
         logger.error("solver pool member %s failed (%s); rerouting", address, exc)
+        self._publish_available()
 
     def _member_success(self, address: str) -> None:
         self._breaker(address).record_success()
+        metrics.SOLVER_BREAKER_OPEN.labels(address=address).set(0)
+        self._publish_available()
 
     def quarantine(self, address: str, reason: str, detail: str = "") -> None:
         """The member produced corrupt data (a checksum failure, a canary
@@ -169,6 +182,8 @@ class SolverPool:
         and a member still corrupting is quarantined again on its first
         probe-served solve."""
         self._breaker(address).trip()
+        metrics.SOLVER_BREAKER_OPEN.labels(address=address).set(1)
+        metrics.SOLVER_BREAKER_TRIPS.labels(address=address).inc()
         integrity.record_quarantine(address, reason, detail)
         logger.error("solver pool member %s QUARANTINED (%s): %s", address, reason, detail)
         hook = self.on_quarantine
@@ -177,6 +192,7 @@ class SolverPool:
                 hook(reason, address, detail)
             except Exception:
                 logger.debug("quarantine hook failed", exc_info=True)
+        self._publish_available()
 
     def _member_corrupt(self, address: str, exc: IntegrityError) -> None:
         """An integrity verdict from this member: quarantine, and the caller
@@ -207,13 +223,18 @@ class SolverPool:
             until = self._backoff_until.get(address)
             return 0.0 if until is None else max(until - self._clock(), 0.0)
 
-    def _count_overload_skip(self) -> None:
+    def _count_overload_skip(self, address: str) -> None:
+        metrics.SOLVER_POOL_OVERLOAD_SKIPS.labels(address=address).inc()
         with self._mu:
             self.overload_skips += 1
 
-    def _count_failover(self) -> None:
+    def _count_failover(self, failed: str) -> None:
+        metrics.SOLVER_POOL_FAILOVERS.labels(address=failed).inc()
         with self._mu:
             self.failovers += 1
+
+    def _publish_available(self) -> None:
+        metrics.SOLVER_POOL_MEMBERS.set(len(self.available_members()))
 
     def available_members(self) -> List[str]:
         """Members admitting solves now (breaker closed or probe-ready)."""
@@ -244,12 +265,12 @@ class SolverPool:
         for i, address in enumerate(order):
             if self._soft_backing_off(address):
                 # routed around without an RPC; its real breaker untouched
-                self._count_overload_skip()
+                self._count_overload_skip(address)
                 hints.append(self._backoff_remaining(address))
                 continue
             if not self._breaker(address).allow():
                 # the solve lands on a non-affine member: a failover
-                self._count_failover()
+                self._count_failover(address)
                 continue
             try:
                 pending = self._client(address).pack_begin(
@@ -260,18 +281,18 @@ class SolverPool:
                 raise
             except OverloadedError as e:
                 self._member_overloaded(address, e.retry_after)
-                self._count_overload_skip()
+                self._count_overload_skip(address)
                 hints.append(e.retry_after)
                 continue
             except IntegrityError as e:
                 last_exc = e
                 self._member_corrupt(address, e)
-                self._count_failover()
+                self._count_failover(address)
                 continue
             except Exception as e:
                 last_exc = e
                 self._member_failure(address, e)
-                self._count_failover()
+                self._count_failover(address)
                 continue
             return self._wrap_wait(pending, address, order[i + 1:], inputs, n_max, prof, record)
         if hints:
@@ -296,7 +317,7 @@ class SolverPool:
                 # shed in flight: sit the member out and fail over (no
                 # breaker state touched)
                 self._member_overloaded(address, e.retry_after)
-                self._count_overload_skip()
+                self._count_overload_skip(address)
                 return self._failover(address, remaining, inputs, n_max, prof, record, e,
                                       failed_is_overloaded=True)
             except IntegrityError as e:
@@ -317,7 +338,7 @@ class SolverPool:
         hints: List[float] = [cause.retry_after] if isinstance(cause, OverloadedError) else []
         for address in remaining:
             if self._soft_backing_off(address):
-                self._count_overload_skip()
+                self._count_overload_skip(address)
                 hints.append(self._backoff_remaining(address))
                 continue
             if not self._breaker(address).allow():
@@ -325,32 +346,36 @@ class SolverPool:
             # a reroute off a failed member is a failover; off a full one a
             # soft skip, already counted
             if not failed_is_overloaded:
-                self._count_failover()
+                self._count_failover(failed)
             logger.info("solver pool failover %s -> %s", failed, address)
-            try:
-                # synchronous on the surviving member: its NEEDS_CATALOG
-                # path re-uploads the session
-                out = self._client(address).pack_begin(
-                    *inputs, n_max=n_max, prof=prof, record=record
-                )()
-            except DeadlineExceededError:
-                raise  # the work's deadline: no member can outrun it
-            except OverloadedError as e:
-                self._member_overloaded(address, e.retry_after)
-                self._count_overload_skip()
-                hints.append(e.retry_after)
-                failed, failed_is_overloaded = address, True
-                continue
-            except IntegrityError as e:
-                last_exc = e
-                self._member_corrupt(address, e)
-                failed, failed_is_overloaded = address, False
-                continue
-            except Exception as e:
-                last_exc = e
-                self._member_failure(address, e)
-                failed, failed_is_overloaded = address, False
-                continue
+            # synchronous on the surviving member (its NEEDS_CATALOG path
+            # re-uploads the session), under a span naming the detour. It
+            # runs on the caller's thread, inside the round's solve.pack_fetch
+            with obs.tracer().span(
+                "solver.pool.failover", attrs={"from": failed, "to": address},
+            ):
+                try:
+                    out = self._client(address).pack_begin(
+                        *inputs, n_max=n_max, prof=prof, record=record
+                    )()
+                except DeadlineExceededError:
+                    raise  # the work's deadline: no member can outrun it
+                except OverloadedError as e:
+                    self._member_overloaded(address, e.retry_after)
+                    self._count_overload_skip(address)
+                    hints.append(e.retry_after)
+                    failed, failed_is_overloaded = address, True
+                    continue
+                except IntegrityError as e:
+                    last_exc = e
+                    self._member_corrupt(address, e)
+                    failed, failed_is_overloaded = address, False
+                    continue
+                except Exception as e:
+                    last_exc = e
+                    self._member_failure(address, e)
+                    failed, failed_is_overloaded = address, False
+                    continue
             self._member_success(address)
             return out
         if isinstance(cause, OverloadedError) and last_exc is cause:

@@ -68,6 +68,13 @@ class CostRouter:
         self._ema: Dict[Tuple[str, tuple], float] = {}  # guarded-by: self._lock
         self._solves: Dict[tuple, int] = {}  # guarded-by: self._lock
         self._lock = threading.Lock()
+        # brownout knobs (resilience/brownout.py): paused probes keep
+        # exploration off an overloaded machine, and a bias > 1 inflates
+        # every NON-native EMA at choose time so the native packer wins
+        # marginal races while the ladder is engaged — the EMAs themselves
+        # stay unpolluted for recovery
+        self._probes_paused = False  # guarded-by: self._lock
+        self._brownout_bias = 1.0  # guarded-by: self._lock
 
     # EMAs within this factor are a NEAR-TIE: the run-to-run noise exceeds
     # the gap, so the nominal winner is a coin flip whose runner-up EMA
@@ -86,12 +93,19 @@ class CostRouter:
             for c in candidates:
                 if (c, key) not in self._ema:
                     return c
-            return min(candidates, key=lambda c: self._ema[(c, key)])
+            bias = self._brownout_bias
+            return min(
+                candidates,
+                key=lambda c: self._ema[(c, key)] * (1.0 if c == "native" else bias),
+            )
 
     def should_probe(self, key: tuple) -> bool:
         """True every ``probe_every``-th solve of this shape class — every
         ``probe_every // 8``-th while the key's EMAs are near-tied — so the
         caller re-measures the losing backend(s) off the critical path."""
+        with self._lock:
+            if self._probes_paused:
+                return False
         n = self._solves.get(key, 0)
         if not self.probe_every or n == 0:
             return False
@@ -117,6 +131,30 @@ class CostRouter:
         (and the caller's circuit breakers' half-open probes) rehabilitate
         a fixed backend: alpha pulls the EMA back down."""
         self.record(key, backend, FAILURE_PENALTY_S)
+
+    # -- brownout knobs (resilience/brownout.py) ----------------------------
+
+    def set_probes_paused(self, paused: bool) -> None:
+        """Brownout rung 1: shadow probes re-measure LOSING backends — pure
+        exploration, the first work an overloaded machine sheds."""
+        with self._lock:
+            self._probes_paused = bool(paused)
+
+    def probes_paused(self) -> bool:
+        with self._lock:
+            return self._probes_paused
+
+    def set_brownout_bias(self, factor: float) -> None:
+        """Brownout rung 3: inflate non-native EMAs by ``factor`` at choose
+        time (1.0 = no bias) so marginal device-vs-native races route to
+        the host path while the ladder is engaged. The stored EMAs are
+        untouched: recovery is instant when the bias clears."""
+        with self._lock:
+            self._brownout_bias = max(float(factor), 1.0)
+
+    def brownout_bias(self) -> float:
+        with self._lock:
+            return self._brownout_bias
 
     def ema(self, key: tuple, backend: str) -> Optional[float]:
         with self._lock:

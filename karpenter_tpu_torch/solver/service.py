@@ -33,10 +33,15 @@ apart from in-band protocol state.
 
 **Optional trailers.** A Pack may end with a trace context (i32[6]) and the
 round budget's remaining seconds (f32[1]), each sent only after the sidecar
-advertised the capability bit in its OpenSession response. A traced Pack's
-response carries an f32 ``[solve_s, fetch_s, serialize_s]`` stage trailer.
-This package's client sends no trace context (it has no tracer yet); its
-sidecar answers one that arrives.
+advertised the capability bit in its OpenSession response. The client sends
+the context of the span active at dispatch (``obs.tracer().current()``),
+and an OpenSession carries it too. A traced Pack's response carries an f32
+``[solve_s, fetch_s, serialize_s]`` stage trailer, which the client grafts
+under its ``solver.wire`` span; the sidecar records its own
+``sidecar.pack`` tree (``sidecar.solve``, ``sidecar.fetch``,
+``sidecar.serialize``) parented on the client's ids, served at
+``GET /debug/traces`` on its health port beside ``/metrics``. An untraced
+frame is byte-identical to one from before the trailer existed.
 
 **Overload control.** A bounded :class:`AdmissionGate` fronts the solves:
 ``max_inflight`` at once, ``queue_depth`` queued, the rest refused with
@@ -77,6 +82,7 @@ of concurrent solves that share a session, pod shapes and ``n_max`` with
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import logging
 import math
@@ -86,11 +92,12 @@ import threading
 import time
 from collections import OrderedDict
 from concurrent import futures
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import metrics, obs
 from karpenter_tpu_torch.resilience.integrity import IntegrityError
 from karpenter_tpu_torch.resilience.overload import (
     DeadlineExceededError,
@@ -167,17 +174,43 @@ def _resident_nbytes(resident) -> int:
     return int(sum(int(getattr(a, "nbytes", 0) or 0) for a in resident))
 
 
+def _session_label(key: bytes) -> str:
+    return key.hex()[:12]
+
+
+def _publish_session_hbm(key: bytes, nbytes: int) -> None:
+    from karpenter_tpu_torch import metrics
+
+    metrics.SOLVER_SESSION_HBM.labels(session=_session_label(key)).set(nbytes)
+
+
+def _drop_session_hbm(key: bytes) -> None:
+    from karpenter_tpu_torch import metrics
+
+    try:
+        metrics.SOLVER_SESSION_HBM.remove(_session_label(key))
+    except KeyError:
+        pass  # a label never published
+
+
 def publish_device_headroom(device=None) -> Optional[int]:
-    """Free bytes on ``device`` (``torch.cuda.mem_get_info``), or None off
-    the card, where the headroom floor does not apply. What the
+    """Free bytes on ``device`` (``torch.cuda.mem_get_info``), published
+    on ``karpenter_solver_hbm_headroom_bytes{device=<CUDA index>}``, or
+    None off the card, where the gauge stays unset rather than lying with
+    a zero and the headroom floor does not apply. What the
     ``--hbm-floor-bytes`` gate reads."""
     dev = torch.device(device) if device is not None else None
     if dev is None or dev.type != "cuda":
         return None
+    from karpenter_tpu_torch import metrics
+
     try:
-        return int(torch.cuda.mem_get_info(dev)[0])
-    except Exception:
+        free = int(torch.cuda.mem_get_info(dev)[0])
+    except RuntimeError:
         return None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    metrics.SOLVER_HBM_HEADROOM.labels(device=str(index)).set(free)
+    return free
 
 
 # ---------------------------------------------------------------------------
@@ -460,11 +493,9 @@ def _status_response(status: int, payload: Sequence[np.ndarray] = ()) -> bytes:
 TRACE_CTX_WORDS = 6
 
 
-class TraceContext(NamedTuple):
-    """A trace context as the trailer carries it (hex ids)."""
-
-    trace_id: str
-    span_id: str
+# a trace context as the trailer carries it (hex ids): the tracer's own
+# portable span identity, so a sidecar span parents on it directly
+TraceContext = obs.SpanContext
 
 
 def _trace_ctx_array(ctx) -> np.ndarray:
@@ -526,6 +557,14 @@ class AdmissionGate:
         self._cv = threading.Condition()
         self._inflight = 0  # guarded-by: self._cv
         self._waiting = 0  # guarded-by: self._cv
+        self.max_depth_seen = 0  # guarded-by: self._cv
+
+    def _publish_locked(self) -> None:
+        from karpenter_tpu_torch import metrics
+
+        depth = self._inflight + self._waiting
+        self.max_depth_seen = max(self.max_depth_seen, depth)
+        metrics.SOLVER_ADMISSION_DEPTH.set(depth)
 
     def enter(self, deadline: Optional[float] = None) -> str:
         """Claim a solve slot: ``"admitted"`` (the caller MUST pair it with
@@ -535,10 +574,12 @@ class AdmissionGate:
         with self._cv:
             if self._inflight < self.max_inflight and self._waiting == 0:
                 self._inflight += 1
+                self._publish_locked()
                 return "admitted"
             if self._waiting >= self.queue_depth:
                 return "overloaded"
             self._waiting += 1
+            self._publish_locked()
             try:
                 end = self._clock() + self.MAX_WAIT_S
                 if deadline is not None:
@@ -554,11 +595,13 @@ class AdmissionGate:
                 return "admitted"
             finally:
                 self._waiting -= 1
+                self._publish_locked()
 
     def leave(self) -> None:
         with self._cv:
             self._inflight = max(self._inflight - 1, 0)
             self._cv.notify()
+            self._publish_locked()
 
     def depth(self) -> int:
         """Solves admitted or queued right now."""
@@ -653,8 +696,11 @@ class SolverService:
     # -- overload accounting ------------------------------------------------
 
     def _count_shed(self, reason: str) -> None:
+        from karpenter_tpu_torch import metrics
+
         with self._stats_lock:
             self.shed[reason] = self.shed.get(reason, 0) + 1
+        metrics.SOLVER_ADMISSION_SHED.labels(reason=reason).inc()
 
     def _overloaded_response(self) -> bytes:
         return _status_response(
@@ -687,23 +733,28 @@ class SolverService:
     # -- sessions -----------------------------------------------------------
 
     def _evict_sessions_locked(self) -> None:
-        """LRU + TTL eviction; the caller holds ``_sessions_lock``."""
+        """LRU + TTL eviction; the caller holds ``_sessions_lock``. Every
+        evicted session also releases its HBM gauge label, so a dashboard
+        summing ``karpenter_solver_session_hbm_bytes`` tracks what is
+        pinned, not what ever was."""
         from karpenter_tpu_torch.solver import session_stats
 
         now = self._clock()
-        evicted = 0
+        evicted = []
         stale = [
             k for k, v in self._sessions.items()
             if now - v[1] > self.session_ttl
         ]
         for k in stale:
             del self._sessions[k]
-            evicted += 1
+            evicted.append(k)
         while len(self._sessions) > self.session_max:
-            self._sessions.popitem(last=False)
-            evicted += 1
+            k, _ = self._sessions.popitem(last=False)
+            evicted.append(k)
         if evicted:
-            session_stats.record_eviction(evicted)
+            session_stats.record_eviction(len(evicted))
+            for k in evicted:
+                _drop_session_hbm(k)
 
     def _upload(self, arrays, dtypes) -> tuple:
         """Host arrays → tensors on the sidecar's device, in the kernels'
@@ -753,6 +804,7 @@ class SolverService:
             )
             return self._seal(_status_response(STATUS_INTEGRITY), checksummed)
         record = bool(rest[0].reshape(-1)[0]) if rest else True
+        ctx = _ctx_from_array(rest[1]) if len(rest) > 1 else None
         with self._sessions_lock:
             hit = self._sessions.get(key)
             if hit is not None:
@@ -778,15 +830,26 @@ class SolverService:
                     "floor %d", key.hex()[:12], headroom, self.hbm_floor_bytes,
                 )
                 return self._seal(self._overloaded_response(), checksummed)
-        resident = self._upload(
-            (join_table, frontiers, daemon), PACK_ARG_DTYPES[N_POD_ARRAYS:]
-        )
+        # the catalog upload is the session protocol's one heavy moment: a
+        # traced open records it as the sidecar's own span, linked to the
+        # client's trace by the trailer ids
+        with obs.tracer().span(
+            "sidecar.device_put", parent=ctx,
+            attrs={"session": _session_label(key)},
+        ) if ctx is not None else contextlib.nullcontext():
+            resident = self._upload(
+                (join_table, frontiers, daemon), PACK_ARG_DTYPES[N_POD_ARRAYS:]
+            )
         # re-check under the lock: two clients racing to open one new key
         # both upload; the first insert wins and the loser's tensors drop
         with self._sessions_lock:
             won = key not in self._sessions
             if won:
                 self._sessions[key] = [resident, self._clock(), True]
+                # the gauge write stays under the lock: after release, a
+                # concurrent open's eviction of this key could drop the
+                # label BEFORE this publish and resurrect it for good
+                _publish_session_hbm(key, _resident_nbytes(resident))
             else:
                 self._sessions[key][1] = self._clock()
             self._sessions.move_to_end(key)
@@ -796,6 +859,7 @@ class SolverService:
             if record:
                 # the upload IS the residency miss of the solve that asked
                 session_stats.record(False)
+            publish_device_headroom(self.device)
             logger.info("solver session opened (catalog key %s)", key.hex()[:12])
         # the capability word rides every OpenSession response
         return self._seal(
@@ -826,12 +890,21 @@ class SolverService:
         with self._stats_lock:
             self.delta_stats[what] = self.delta_stats.get(what, 0) + 1
 
+    def _count_epoch_mismatch(self) -> None:
+        self._count_delta("epoch_mismatches")
+        metrics.SOLVER_DELTA_EPOCH_MISMATCHES.labels(side="sidecar").inc()
+
     def _store_pods(self, epoch: bytes, pods: List[np.ndarray]) -> None:
         with self._pod_lock:
             self._pod_store[epoch] = [pods, self._clock()]
             self._pod_store.move_to_end(epoch)
             while len(self._pod_store) > POD_STORE_MAX:
                 self._pod_store.popitem(last=False)
+            resident = [entry[0] for entry in self._pod_store.values()]
+        # host bytes: summed off the store lock, which guards the dict only
+        metrics.SOLVER_DELTA_RESIDENT_BYTES.labels(side="sidecar").set(
+            sum(int(np.asarray(a).nbytes) for pods_ in resident for a in pods_)
+        )
 
     def _pods_for(self, epoch: bytes) -> Optional[List[np.ndarray]]:
         with self._pod_lock:
@@ -866,7 +939,7 @@ class SolverService:
             if pod_epoch_key(body) != new_epoch:
                 # the claimed epoch is not the content's digest: never pin
                 # a mislabelled base
-                self._count_delta("epoch_mismatches")
+                self._count_epoch_mismatch()
                 return None, STATUS_INTEGRITY
             self._store_pods(new_epoch, body)
             self._count_delta("established")
@@ -903,7 +976,7 @@ class SolverService:
             # the patch applied but does not produce the state the client
             # believes in: the base stays resident (it is still what its
             # own epoch says) and the client re-establishes
-            self._count_delta("epoch_mismatches")
+            self._count_epoch_mismatch()
             return None, STATUS_NEEDS_DELTA_BASE
         self._store_pods(new_epoch, pods)
         self._count_delta("patched")
@@ -1015,7 +1088,11 @@ class SolverService:
             None if deadline_s is None
             else self._clock() + max(deadline_s, 0.0)
         )
+        adm_t0 = time.perf_counter()
         outcome = self.admission.enter(deadline)
+        # queue time precedes the pack span (a backdated child would corrupt
+        # self-time attribution), so it rides the span as an attribute
+        admission_wait_s = time.perf_counter() - adm_t0
         if outcome == "deadline":
             self._count_shed("deadline")
             return self._seal(_status_response(STATUS_DEADLINE_EXCEEDED), checksummed)
@@ -1030,11 +1107,15 @@ class SolverService:
                 return self._seal(
                     _status_response(STATUS_DEADLINE_EXCEEDED), checksummed
                 )
-            return self._seal(self._solve_admitted(arrays, ctx), checksummed)
+            return self._seal(
+                self._solve_admitted(arrays, ctx, admission_wait_s), checksummed
+            )
         finally:
             self.admission.leave()
 
-    def _solve_admitted(self, arrays: List[np.ndarray], ctx) -> bytes:
+    def _solve_admitted(
+        self, arrays: List[np.ndarray], ctx, admission_wait_s: float = 0.0
+    ) -> bytes:
         from karpenter_tpu_torch.solver import backend, session_stats
         from karpenter_tpu_torch.solver.carry import PACK_ARG_DTYPES
 
@@ -1078,33 +1159,59 @@ class SolverService:
         # KARPENTER_PACKER is read once per request, as the in-process
         # backend reads it once per solve
         packer = os.environ.get("KARPENTER_PACKER", "auto").lower()
-        t0 = time.perf_counter()
-        pod = self._upload(pod_arrays, PACK_ARG_DTYPES[:N_POD_ARRAYS])
-        served, result = backend.pack_unfused(*pod, *resident, n_max=n_max, packer=packer)
-        solve_s = time.perf_counter() - t0
-        with self._stats_lock:
-            self.served[served] = self.served.get(served, 0) + 1
-        self._served_tl.name = served
-        t0 = time.perf_counter()
-        buf = self._fetch(result)
-        fetch_s = time.perf_counter() - t0
-        if ctx is None:
-            return _status_response(STATUS_OK, [buf, *echo])
-        # traced solve: the response grows an f32 [solve_s, fetch_s,
-        # serialize_s] trailer, written in place after the serialize it
-        # measures. Its 12 payload bytes sit right before the (22-byte)
-        # session echo when one was asked for, else they end the message
-        t0 = time.perf_counter()
-        response = _status_response(
-            STATUS_OK, [buf, np.zeros(3, np.float32), *echo]
-        )
-        serialize_s = time.perf_counter() - t0
-        tail = len(response) - (22 if echo else 0)
-        return (
-            response[:tail - 12]
-            + struct.pack("<3f", solve_s, fetch_s, serialize_s)
-            + response[tail:]
-        )
+        # a traced solve (the client sent its trace context) records the
+        # sidecar's half of the round trip in THIS process's ring (GET
+        # /debug/traces on the health port), parented on the client's ids:
+        # sidecar.pack over sidecar.solve (the upload and the kernel's
+        # launch), sidecar.fetch (the one device-to-host copy) and a
+        # sidecar.serialize record; the response grows an f32 [solve_s,
+        # fetch_s, serialize_s] trailer the client grafts into its tree
+        tr = obs.tracer()
+        traced = ctx is not None
+
+        def stage(name: str):
+            return tr.span(name) if traced else contextlib.nullcontext()
+
+        with tr.span(
+            "sidecar.pack", parent=ctx,
+            attrs={
+                "session": _session_label(key),
+                "admission_wait_s": round(admission_wait_s, 6),
+                "pods": int(len(pod_arrays[0])),
+            },
+        ) if traced else contextlib.nullcontext() as sp:
+            t0 = time.perf_counter()
+            with stage("sidecar.solve"):
+                pod = self._upload(pod_arrays, PACK_ARG_DTYPES[:N_POD_ARRAYS])
+                served, result = backend.pack_unfused(
+                    *pod, *resident, n_max=n_max, packer=packer
+                )
+            solve_s = time.perf_counter() - t0
+            with self._stats_lock:
+                self.served[served] = self.served.get(served, 0) + 1
+            self._served_tl.name = served
+            t0 = time.perf_counter()
+            with stage("sidecar.fetch"):
+                buf = self._fetch(result)
+            fetch_s = time.perf_counter() - t0
+            if not traced:
+                return _status_response(STATUS_OK, [buf, *echo])
+            # the trailer is written in place after the serialize it
+            # measures. Its 12 payload bytes sit right before the
+            # (22-byte) session echo when one was asked for, else they end
+            # the message
+            t0 = time.perf_counter()
+            response = _status_response(
+                STATUS_OK, [buf, np.zeros(3, np.float32), *echo]
+            )
+            serialize_s = time.perf_counter() - t0
+            sp.add_child_record("sidecar.serialize", serialize_s)
+            tail = len(response) - (22 if echo else 0)
+            return (
+                response[:tail - 12]
+                + struct.pack("<3f", solve_s, fetch_s, serialize_s)
+                + response[tail:]
+            )
 
     @staticmethod
     def _fetch(result) -> np.ndarray:
@@ -1279,6 +1386,12 @@ class SolverService:
                 if coalesced:
                     self.stream_stats["coalesced_dispatches"] += 1
                     self.stream_stats["coalesced_solves"] += len(live)
+            if coalesced:
+                # a group is one launch: counted once, with its solves; no
+                # per-solve span (each traced entry gets the shared
+                # dispatch/fetch trailer, as the reference's group does)
+                metrics.SOLVER_STREAM_COALESCED_DISPATCHES.inc()
+                metrics.SOLVER_STREAM_COALESCED_SOLVES.inc(len(live))
             n_max = live[0].n_max
             t0 = time.perf_counter()
             if coalesced:
@@ -1451,12 +1564,28 @@ def serve(
 
 
 def _serve_health(service: SolverService, port: int):
-    """Plain-HTTP probe endpoints for kubelet: ``/healthz`` (200 once the
-    process is up) and ``/readyz`` (503 until the warm-up solve)."""
+    """Plain-HTTP probe endpoints for kubelet — ``/healthz`` (200 once the
+    process is up) and ``/readyz`` (503 until the warm-up solve) — plus
+    ``/metrics`` (the port's registry) and ``/debug/{traces,slo,flight,
+    decisions,explain}``: the session store and the sidecar's span ring
+    live in THIS process, so its residency gauges and its half of every
+    traced solve are observable only on its own port."""
+    import json as _json
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from urllib.parse import urlsplit
+
+    debug = {
+        "/debug/traces": obs.debug_traces_payload,
+        "/debug/slo": obs.debug_slo_payload,
+        "/debug/flight": obs.debug_flight_payload,
+        "/debug/decisions": obs.debug_decisions_payload,
+        "/debug/explain": obs.debug_explain_payload,
+    }
 
     class Probe(BaseHTTPRequestHandler):
         def do_GET(self):
+            ctype = "text/plain"
+            url = urlsplit(self.path)
             if self.path == "/healthz":
                 code, body = 200, b"ok"
             elif self.path == "/readyz":
@@ -1464,15 +1593,22 @@ def _serve_health(service: SolverService, port: int):
                     code, body = 200, b"ok"
                 else:
                     code, body = 503, b"warming"
+            elif self.path == "/metrics":
+                from prometheus_client import generate_latest
+
+                code, body = 200, generate_latest(metrics.REGISTRY)
+            elif url.path in debug:
+                code, ctype = 200, "application/json"
+                body = _json.dumps(debug[url.path](url.query)).encode()
             else:
                 code, body = 404, b"not found"
             self.send_response(code)
-            self.send_header("Content-Type", "text/plain")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
 
-        def log_message(self, *a):  # quiet
+    def log_message(self, *a):  # quiet
             pass
 
     httpd = ThreadingHTTPServer(("0.0.0.0", port), Probe)
@@ -1590,6 +1726,10 @@ class RemoteSolver:
             + [np.asarray(a) for a in catalog_side]
             + [np.asarray([1 if record else 0], np.int32)]
         )
+        span = obs.tracer().current()
+        if span is not None:
+            # safe on any sidecar: the open request's tail is variadic
+            arrays.append(_trace_ctx_array(span.context))
         request = pack_arrays(arrays)
         if self.checksum:
             request = append_checksum(request)
@@ -1597,7 +1737,8 @@ class RemoteSolver:
             require = bool(
                 self.checksum and (self._server_features & PROTO_CHECKSUM)
             )
-        response = self._dispatch_open(request, timeout)
+        with obs.tracer().span("solver.wire_open", attrs={"address": self.address}):
+            response = self._dispatch_open(request, timeout)
         status, payload = self._receive_open(response, require)
         if status == STATUS_OVERLOADED:
             # backpressure, not failure: typed so no breaker trips on it
@@ -1646,10 +1787,16 @@ class RemoteSolver:
             try:
                 return client.open(request).result(timeout=timeout + 5.0)
             except (StreamBrokenError, StreamUnavailable):
-                pass
+                self._count_stream_fallback("open")
             except futures.TimeoutError:
+                self._count_stream_fallback("open_timeout")
                 client.break_stream("open future timed out")
         return self._open_call(request, timeout=timeout)
+
+    def _count_stream_fallback(self, reason: str) -> None:
+        metrics.SOLVER_STREAM_FALLBACKS.labels(
+            address=self.address, reason=reason
+        ).inc()
 
     @staticmethod
     def _split_status(response: bytes) -> Tuple[int, List[np.ndarray]]:
@@ -1876,14 +2023,22 @@ class RemoteSolver:
             # optimistic: if this dispatch sheds before the sidecar keeps
             # the epoch, the next round misses and re-establishes
             self._remember_delta_base(epoch, pod_np)
+            if kind != DELTA_ESTABLISH:
+                metrics.SOLVER_DELTA_APPLIED.labels(path="wire").inc()
             if prof is not None:
                 prof["delta_kind"] = (
                     "elide" if kind == DELTA_ELIDE
                     else "patch" if kind == DELTA_PATCH else "establish"
                 )
-        # the deadline trailer (the budget's REMAINING seconds), gated on
-        # the sidecar's PROTO_DEADLINE bit
+        # optional trailers, each gated on the bit the sidecar advertised,
+        # so an untraced (or older-peer) frame is byte-identical to before:
+        # the trace context of the span active at dispatch parents the
+        # sidecar's spans (PROTO_TRACE_TRAILER); the deadline is the
+        # budget's REMAINING seconds (PROTO_DEADLINE)
         trailers: List[np.ndarray] = []
+        span = obs.tracer().current()
+        if span is not None and (features & PROTO_TRACE_TRAILER):
+            trailers.append(_trace_ctx_array(span.context))
         if budget is not None and (features & PROTO_DEADLINE):
             trailers.append(np.asarray([budget.remaining()], np.float32))
 
@@ -1944,6 +2099,9 @@ class RemoteSolver:
             if request is None:
                 request = build_inline()
             grpc_future = self._call.future(request, timeout=timeout)
+        metrics.SOLVER_STREAM_SOLVES.labels(
+            address=self.address, transport=transport
+        ).inc()
         if prof is not None:
             prof["wire_ser_s"] = (
                 prof.get("wire_ser_s", 0.0) + time.perf_counter() - t0
@@ -1958,119 +2116,143 @@ class RemoteSolver:
                 try:
                     return stream.solve(req).result(timeout=timeout + 5.0)
                 except (StreamBrokenError, StreamUnavailable):
-                    pass
+                    self._count_stream_fallback("retry")
                 except futures.TimeoutError:
+                    self._count_stream_fallback("retry_timeout")
                     stream.break_stream("retry future timed out")
             return self._call(req, timeout=timeout)
 
         def wait():
             nonlocal request, arena_token
-            # the slack only bounds a misbehaving transport: the future
-            # resolves by ``timeout`` in every healthy case
-            if stream_fut is not None:
-                try:
-                    response = stream_fut.result(timeout=timeout + 5.0)
-                except StreamBrokenError:
-                    # the stream died with this solve in flight: retry it
-                    # over unary while the stream re-establishes
-                    if request is None:
-                        request = build_inline()
-                    response = self._call(request, timeout=timeout)
-                except futures.TimeoutError:
-                    stream.break_stream("solve future timed out")
-                    if request is None:
-                        request = build_inline()
-                    response = self._call(request, timeout=timeout)
-                finally:
-                    if arena_token is not None:
-                        stream.free_arena(arena_token)
-                        arena_token = None
-            else:
-                response = grpc_future.result(timeout=timeout + 5.0)
-            buf = None
-            # integrity expectation for THIS exchange; the forced re-open
-            # below may lower it (a sidecar rolled back to an older build)
-            require = integrity_on
-            # each distinct refusal reason earns ONE synchronous recovery
-            # and redispatch; the same reason twice fails loudly. Three
-            # reasons, so at most 4 receives
-            recovered: set = set()
-            for _ in range(4):
-                status, payload = self._receive(response, require)
-                if status == STATUS_NEEDS_CATALOG:
-                    reason = "not resident"
-                elif status == STATUS_NEEDS_DELTA_BASE:
-                    reason = "delta base missing"
+            with obs.tracer().span(
+                "solver.wire",
+                attrs={"address": self.address, "transport": transport},
+            ) as wsp:
+                # the slack only bounds a misbehaving transport: the future
+                # resolves by ``timeout`` in every healthy case
+                if stream_fut is not None:
+                    try:
+                        response = stream_fut.result(timeout=timeout + 5.0)
+                    except StreamBrokenError:
+                        # the stream died with this solve in flight: retry it
+                        # over unary while the stream re-establishes
+                        self._count_stream_fallback("broken")
+                        wsp.set_attribute("stream_fallback", True)
+                        if request is None:
+                            request = build_inline()
+                        response = self._call(request, timeout=timeout)
+                    except futures.TimeoutError:
+                        self._count_stream_fallback("timeout")
+                        wsp.set_attribute("stream_fallback", True)
+                        stream.break_stream("solve future timed out")
+                        if request is None:
+                            request = build_inline()
+                        response = self._call(request, timeout=timeout)
+                    finally:
+                        if arena_token is not None:
+                            stream.free_arena(arena_token)
+                            arena_token = None
                 else:
-                    if status != STATUS_OK:
-                        self._check_status(status, payload)
-                    buf, _stage, echoed = self._parse_pack_payload(payload)
-                    if not require or echoed in (None, key):
-                        break
-                    # the sidecar solved against ANOTHER catalog generation:
-                    # never decode it; record, then recover by a re-open
-                    reason = "wrong-session echo"
-                    from karpenter_tpu_torch.solver import integrity
+                    response = grpc_future.result(timeout=timeout + 5.0)
+                buf = stage = None
+                # integrity expectation for THIS exchange; the forced re-open
+                # below may lower it (a sidecar rolled back to an older build)
+                require = integrity_on
+                # each distinct refusal reason earns ONE synchronous recovery
+                # and redispatch; the same reason twice fails loudly. Three
+                # reasons, so at most 4 receives
+                recovered: set = set()
+                for _ in range(4):
+                    status, payload = self._receive(response, require)
+                    if status == STATUS_NEEDS_CATALOG:
+                        reason = "not resident"
+                    elif status == STATUS_NEEDS_DELTA_BASE:
+                        reason = "delta base missing"
+                    else:
+                        if status != STATUS_OK:
+                            wsp.set_attribute("status", status)
+                            self._check_status(status, payload)
+                        buf, stage, echoed = self._parse_pack_payload(payload)
+                        if not require or echoed in (None, key):
+                            break
+                        # the sidecar solved against ANOTHER catalog generation:
+                        # never decode it; record, then recover by a re-open
+                        reason = "wrong-session echo"
+                        from karpenter_tpu_torch.solver import integrity
 
-                    integrity.record_session_mismatch(self.address)
-                    logger.warning(
-                        "solver %s echoed session %s for a solve against "
-                        "%s; re-opening", self.address,
-                        echoed.hex()[:12], key.hex()[:12],
-                    )
-                if reason in recovered:
-                    if reason == "wrong-session echo":
-                        raise IntegrityError(
-                            f"solver {self.address} kept answering with "
-                            f"the wrong catalog session (want "
-                            f"{key.hex()[:12]})",
-                            address=self.address, kind="session",
+                        integrity.record_session_mismatch(self.address)
+                        logger.warning(
+                            "solver %s echoed session %s for a solve against "
+                            "%s; re-opening", self.address,
+                            echoed.hex()[:12], key.hex()[:12],
                         )
-                    if reason == "delta base missing":
+                    if reason in recovered:
+                        if reason == "wrong-session echo":
+                            raise IntegrityError(
+                                f"solver {self.address} kept answering with "
+                                f"the wrong catalog session (want "
+                                f"{key.hex()[:12]})",
+                                address=self.address, kind="session",
+                            )
+                        if reason == "delta base missing":
+                            raise RuntimeError(
+                                "solver delta establish did not take "
+                                f"(catalog key {key.hex()[:12]})"
+                            )
                         raise RuntimeError(
-                            "solver delta establish did not take "
+                            "solver session re-open did not take "
                             f"(catalog key {key.hex()[:12]})"
                         )
-                    raise RuntimeError(
-                        "solver session re-open did not take "
-                        f"(catalog key {key.hex()[:12]})"
+                    recovered.add(reason)
+                    logger.info(
+                        "solver session %s %s; recovering",
+                        key.hex()[:12], reason,
                     )
-                recovered.add(reason)
-                logger.info(
-                    "solver session %s %s; recovering",
-                    key.hex()[:12], reason,
-                )
-                if reason != "delta base missing":
-                    # restarted, evicted, or the wrong generation: re-open
-                    self._open_session(
-                        key, catalog_side, timeout, force=True, record=record,
-                    )
-                    with self._lock:
-                        # downward only: the sidecar seals iff the REQUEST
-                        # carried a checksum, and the retry resends it
-                        require = require and bool(
-                            self._server_features & PROTO_CHECKSUM
+                    if reason == "delta base missing":
+                        wsp.set_attribute("delta_establish_retry", True)
+                        metrics.SOLVER_DELTA_EPOCH_MISMATCHES.labels(side="client").inc()
+                        metrics.SOLVER_DELTA_FULL_REENCODES.labels(reason="wire").inc()
+                    else:
+                        # restarted, evicted, or the wrong generation: re-open
+                        wsp.set_attribute("needs_catalog_retry", True)
+                        self._open_session(
+                            key, catalog_side, timeout, force=True, record=record,
                         )
-                if delta_on:
-                    # every recovery redispatch ships the full pod set
-                    request = build_establish()
-                elif request is None:
-                    request = build_inline()
-                response = redispatch(request)
-            else:
-                raise RuntimeError(
-                    f"solver {self.address} retry loop exhausted"
-                )  # unreachable: at most 3 distinct reasons
-            with self._lock:
-                self._warm_shapes.add(shape)
-            t1 = time.perf_counter()
-            out = split_result(buf, p, n_max, r)
-            if prof is not None:
-                prof["wire_deser_s"] = (
-                    prof.get("wire_deser_s", 0.0) + time.perf_counter() - t1
-                )
-                prof["solver_address"] = self.address  # pack provenance
-            return out
+                        with self._lock:
+                            # downward only: the sidecar seals iff the REQUEST
+                            # carried a checksum, and the retry resends it
+                            require = require and bool(
+                                self._server_features & PROTO_CHECKSUM
+                            )
+                    if delta_on:
+                        # every recovery redispatch ships the full pod set
+                        request = build_establish()
+                    elif request is None:
+                        request = build_inline()
+                    response = redispatch(request)
+                else:
+                    raise RuntimeError(
+                        f"solver {self.address} retry loop exhausted"
+                    )  # unreachable: at most 3 distinct reasons
+                with self._lock:
+                    self._warm_shapes.add(shape)
+                t1 = time.perf_counter()
+                if stage is not None:
+                    # the sidecar's stage trailer: its half of the round
+                    # trip grafted into this tree as completed records; the
+                    # rest of the wire span is transport
+                    for name, seconds in zip(
+                        ("sidecar.solve", "sidecar.fetch", "sidecar.serialize"),
+                        stage[:3],
+                    ):
+                        wsp.add_child_record(name, float(seconds))
+                out = split_result(buf, p, n_max, r)
+                if prof is not None:
+                    prof["wire_deser_s"] = (
+                        prof.get("wire_deser_s", 0.0) + time.perf_counter() - t1
+                    )
+                    prof["solver_address"] = self.address  # pack provenance
+                return out
 
         return wait
 
@@ -2139,8 +2321,35 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "with the same session, shapes and n_max inside it "
                          "share one launch (default 0.002; 0 still groups "
                          "what is already queued)")
+    ap.add_argument("--flight-dir", default="",
+                    help="capped on-disk ring for slow-solve flight records "
+                         "('' disables; served at GET /debug/flight)")
+    ap.add_argument("--flight-budget-ms", type=float, default=100.0,
+                    help="sidecar.pack spans over this budget are recorded")
+    ap.add_argument("--slo-window", type=float, default=300.0,
+                    help="online SLO fast evaluation window in seconds "
+                         "(slow burn-rate window is 12x; GET /debug/slo)")
+    ap.add_argument("--slo-config", default="",
+                    help="objectives file ('' = the sidecar defaults: "
+                         "sidecar.pack.p99 + session.catalog_hit_rate)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.flight_dir:
+        # the sidecar's end-to-end unit is its own pack span
+        obs.configure_flight(
+            args.flight_dir, budget_s=args.flight_budget_ms / 1e3,
+            watch=("sidecar.pack",),
+        )
+    # the sidecar judges its own half of the objectives: its pack span and
+    # the session store it owns
+    obs.configure_slo(
+        objectives=(
+            obs.load_objectives(args.slo_config)
+            if args.slo_config
+            else obs.SIDECAR_OBJECTIVES
+        ),
+        window_s=args.slo_window,
+    )
     server = serve(
         args.address, args.max_workers, health_port=args.health_port, warmup=True,
         service=SolverService(

@@ -61,6 +61,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from karpenter_tpu_torch import metrics
 from karpenter_tpu_torch.resilience.overload import OverloadedError
 
 logger = logging.getLogger("karpenter.solver.stream")
@@ -790,6 +791,9 @@ class StreamClient:
                         msg_type, corr_id, payload = unpack_stream_msg(raw)
                     except EnvelopeCorrupt:
                         logger.error("response stream envelope failed CRC; dropping")
+                        metrics.SOLVER_STREAM_FALLBACKS.labels(
+                            address=self.address, reason="envelope"
+                        ).inc()
                         continue
                     if msg_type == MSG_CREDITS:
                         delta, hint = struct.unpack("<if", payload[:8])
@@ -867,6 +871,7 @@ class StreamClient:
                 arena = self._arena
             if arena is not None:
                 out.put(pack_stream_msg(MSG_ARENA, 0, arena.name.encode("utf-8")))
+        metrics.SOLVER_STREAM_STATE.labels(address=self.address).set(1)
         logger.info("solver stream established to %s", self.address)
         return True
 
@@ -886,6 +891,8 @@ class StreamClient:
             already = self._reconnecting
             self._reconnecting = True
             self._shm_ready.clear()
+        metrics.SOLVER_STREAM_STATE.labels(address=self.address).set(0)
+        metrics.SOLVER_STREAM_BREAKS.labels(address=self.address).inc()
         logger.warning(
             "solver stream to %s broke (%s); %d in-flight solves fall back to "
             "unary; re-establishing in the background",
@@ -930,6 +937,9 @@ class StreamClient:
             if spend_credit:
                 if self._credits <= 0:
                     self.credit_stalls += 1
+                    metrics.SOLVER_STREAM_CREDIT_STALLS.labels(
+                        address=self.address
+                    ).inc()
                     raise OverloadedError(
                         f"solver stream to {self.address} out of credits",
                         retry_after=self._hint, kind="credits",

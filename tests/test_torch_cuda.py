@@ -6,7 +6,10 @@ failing, the canary over a full-width kernel result, a NaN in the fetched
 buffer); the sidecar on the card, its coalesced stream groups (one launch
 each, byte-equal to ``solve_bytes`` and to the plain version, the next
 kernel when the first raises) and arena solves, and two threads on one
-card scheduler. Every comparison is exact.
+card scheduler; and the observability plane on the card (a traced round's
+one launch and its stage spans, the session HBM gauges, the sidecar's
+spans, the decision replay blob through the kernel ladder). Every
+comparison is exact.
 
 Marked ``cuda``; each skips without a CUDA device (decided in a fixture,
 never at import). This file imports neither JAX nor the JAX package, so it
@@ -890,3 +893,109 @@ def test_two_threads_on_one_card_scheduler_get_their_plans(cuda):
         for t in threads:
             t.join(timeout=120)
         assert not errs and got == alone
+
+
+# -- the observability plane on the card --------------------------------------
+
+
+@pytest.fixture
+def fresh_obs():
+    from karpenter_tpu_torch import obs
+
+    obs.reset_for_tests()
+    yield obs
+    obs.reset_for_tests()
+
+
+@pytest.mark.parametrize("name,n_pods,n_types,kernel", [
+    ("diverse", 700, 50, "pack_first_fit"), ("teams", 2000, 64, "pack_first_fit_v2")])
+def test_traced_round_on_card_launches_once_and_agrees_with_the_profile(
+        cuda, fresh_obs, name, n_pods, n_types, kernel):
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+
+    module = {"pack_first_fit": pack_kernel, "pack_first_fit_v2": pack_kernel_v2}[kernel]
+    prov, catalog, pods = scenario("karpenter_tpu_torch", name, n_pods, 42, n_types)
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    sched.solve(prov, catalog, pods)
+    fresh_obs.exporter().clear()
+    before = module.launches
+    sched.torch.topology.rng = random.Random(1)
+    sched.solve(prov, catalog, pods)
+    assert module.launches == before + 1
+    prof = sched.last_stage_profile()
+    assert prof["packer_backend"] == kernel
+    (tree,) = fresh_obs.exporter().trees()
+    stages = {c["name"]: c["duration_ms"] for c in tree["children"]}
+    assert list(stages) == ["solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
+                            "solve.pack_fetch", "solve.decode"]
+    for span, key in [("solve.sort", "sort_s"), ("solve.inject", "inject_s"),
+                      ("solve.encode", "encode_s"), ("solve.decode", "decode_s")]:
+        assert abs(stages[span] - prof[key] * 1e3) < 1.0
+    assert abs(stages["solve.pack_begin"] + stages["solve.pack_fetch"]
+               - prof["pack_fetch_s"] * 1e3) < 1.0
+    ctx = sched.last_decision_context()
+    assert ctx["route"] == kernel and isinstance(ctx["assignment"], np.ndarray)
+
+
+def test_session_open_on_card_sets_the_hbm_gauges(cuda):
+    from karpenter_tpu_torch import metrics
+    from karpenter_tpu_torch.solver import service as S
+
+    open_frame, _, key, args, _ = sidecar_frames("diverse", 700, 50)
+    svc = S.SolverService()
+    svc.open_session_bytes(open_frame)
+    free = torch.cuda.mem_get_info(cuda)[0]
+    index = str(torch.cuda.current_device())
+    headroom = metrics.REGISTRY.get_sample_value(
+        "karpenter_solver_device_hbm_headroom_bytes", {"device": index})
+    assert abs(headroom - free) <= 64 * 2**20
+    assert metrics.REGISTRY.get_sample_value(
+        "karpenter_solver_session_hbm_bytes", {"session": key.hex()[:12]}) == svc.resident_bytes()
+
+
+def test_traced_sidecar_solve_on_card_records_its_spans(cuda, fresh_obs):
+    from karpenter_tpu_torch.solver import service as S
+
+    open_frame, frame, _, _, _ = sidecar_frames("diverse", 700, 50)
+    svc = S.SolverService()
+    svc.open_session_bytes(open_frame)
+    ctx = fresh_obs.SpanContext("ab" * 16, "cd" * 8)
+    before = pack_kernel.launches
+    traced = S.unpack_arrays(frame)
+    response = svc.solve_bytes(S.pack_arrays(traced + [S._trace_ctx_array(ctx)]))
+    assert pack_kernel.launches == before + 1
+    assert S.unpack_arrays(response)[1].tobytes() == S.unpack_arrays(svc.solve_bytes(frame))[1].tobytes()
+    (pack,) = [t for t in fresh_obs.exporter().trees() if t["name"] == "sidecar.pack"]
+    assert (pack["trace_id"], pack["parent_id"]) == (ctx.trace_id, ctx.span_id)
+    assert [c["name"] for c in pack["children"]] == [
+        "sidecar.solve", "sidecar.fetch", "sidecar.serialize"]
+
+
+def test_replay_blob_through_pack_best_on_card_is_bit_exact(cuda, fresh_obs, tmp_path):
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.obs import replay
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.testing import make_pod
+
+    prov, catalog, pods = scenario("karpenter_tpu_torch", "diverse", 700, 42, 50)
+    pods = pods + [make_pod(name=f"stuck-{i}", requests={"cpu": "100000"}) for i in range(3)]
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    nodes = sched.solve(prov, catalog, pods)
+    log = fresh_obs.configure_decisions(directory=str(tmp_path), write_interval=0.0)
+    rec = log.record_round(prov.name, pods, nodes, context=sched.last_decision_context())
+    assert log.flush(30.0)
+    stuck = [v for v in rec["unschedulable"] if v["pod"].rpartition("/")[2].startswith("stuck-")]
+    assert len(stuck) == 3 and {v["top_reason"] for v in stuck} == {"resource_fit"}
+    path = replay.find_record(str(tmp_path))
+    record = replay.load_record(path)
+    with np.load(tmp_path / record["replay_file"], allow_pickle=False) as z:
+        blob = {k: z[k] for k in z.files}
+    blob["pod_req"] = blob["uniq_req"][blob["pod_req_id"]]
+    args = [torch.tensor(blob[n], dtype=dt, device=cuda) for n, dt in carry.PACK_ARG_DTYPES]
+    before = pack_kernel.launches
+    served, result = pack_kernel.pack_best(*args, n_max=int(blob["n_max"]))
+    assert served == "pack_first_fit" and pack_kernel.launches == before + 1
+    n = int(blob["n_pods"])
+    np.testing.assert_array_equal(result.assignment.cpu().numpy()[:n], blob["assignment"][:n])
+    assert replay.replay(record, record_path=path)["ok"] is True

@@ -33,6 +33,7 @@ totals, the reference's).
 
 import importlib
 import random
+import re
 
 import numpy as np
 import pytest
@@ -347,8 +348,16 @@ def drive(pkg: str, trigger: str, shape: str, monkeypatch, card: bool = False) -
     assert not any(v for k, v in totals.items() if k not in port_kinds)
     out["totals"] = {k: totals[k] for k in port_kinds}
     out["open"] = b._pack_breakers.open_dependencies()
+    # pods of the two packages get different names (separate factory
+    # counters, advanced by whatever ran before in the process): a message
+    # naming a pod names it by its index in the input list
+    index = {p.key: f"pod#{i}" for i, p in enumerate(pods)}
+
+    def by_index(message: str) -> str:
+        return re.sub(r"[\w.-]+/pod-\d+", lambda m: index.get(m.group(0), m.group(0)), message)
+
     out["events"] = [
-        (e.type, e.reason, e.message, e.involved_kind, e.involved_name, e.count)
+        (e.type, e.reason, by_index(e.message), e.involved_kind, e.involved_name, e.count)
         for e in cluster.list("events")
     ]
     return out

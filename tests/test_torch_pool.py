@@ -163,6 +163,7 @@ def test_needs_catalog_on_failover_member_reuploads_transparently(scan):
     """The failover member's client remembers the session but its store
     is empty (a restart): NEEDS_CATALOG re-uploads there, one miss for the
     logical solve, and the dead primary's breaker stays its own."""
+    from karpenter_tpu_torch import metrics
     from karpenter_tpu_torch.solver import session_stats
 
     addrs = [free_address(), free_address()]
@@ -179,12 +180,14 @@ def test_needs_catalog_on_failover_member_reuploads_transparently(scan):
         servers[survivor].stop(grace=0)
         servers[survivor] = serve_port(survivor)
         assert servers[survivor].solver_service.session_count() == 0
+        uploads = "karpenter_solver_session_catalog_uploads_total"
         before = session_stats.snapshot()
+        uploaded = metrics.REGISTRY.get_sample_value(uploads) or 0.0
         servers[primary].stop(grace=0)
         assert_results_equal(pool.pack(*args, n_max=n_max), local_pack(args, n_max))
         after = session_stats.snapshot()
         assert servers[survivor].solver_service.session_count() == 1
-        assert after["uploads"] == before["uploads"] + 1
+        assert metrics.REGISTRY.get_sample_value(uploads) == uploaded + 1
         assert after["misses"] == before["misses"] + 1
         for _ in range(3):
             pool.pack(*args, n_max=n_max)

@@ -373,7 +373,9 @@ def test_health_over_grpc_and_http():
             except urllib.error.HTTPError as e:
                 return e.code
 
-        assert (get("/healthz"), get("/readyz"), get("/metrics")) == (200, 200, 404)
+        # /metrics is served since the port has its metric registry
+        assert (get("/healthz"), get("/readyz"), get("/metrics")) == (200, 200, 200)
+        assert get("/debug/nothing") == 404
         svc.ready.clear()
         assert not jax_client.health() and get("/readyz") == 503
         jax_client.close()

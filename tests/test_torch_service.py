@@ -343,11 +343,18 @@ def test_session_lru_and_ttl_identical(scan):
 
 
 def test_session_tensors_and_stats(scan):
+    from karpenter_tpu_torch import metrics
     from karpenter_tpu_torch.solver import session_stats
+
+    def counted():
+        return {name: metrics.REGISTRY.get_sample_value(
+                    f"karpenter_solver_session_{name}_total") or 0.0
+                for name in ("catalog_uploads", "evictions")}
 
     args, key = batch_args()
     svc = T.SolverService(device="cpu")
     session_stats.reset()
+    before = counted()
     svc.open_session_bytes(open_frame(args, key))
     svc.open_session_bytes(open_frame(args, key))  # idempotent: no re-upload
     import torch
@@ -358,8 +365,9 @@ def test_session_tensors_and_stats(scan):
     assert svc.resident_bytes() == sum(a.nbytes for a in args[7:])
     for _ in range(2):
         svc.solve_bytes(pack_frame(args, key))
-    assert session_stats.snapshot() == {
-        "hits": 1, "misses": 1, "hit_rate": 0.5, "uploads": 1, "evictions": 0}
+    assert session_stats.snapshot() == {"hits": 1, "misses": 1, "hit_rate": 0.5}
+    after = counted()
+    assert {k: after[k] - before[k] for k in after} == {"catalog_uploads": 1.0, "evictions": 0.0}
 
 
 def test_warmup_sets_ready_and_the_card_rule():
@@ -387,8 +395,9 @@ def test_default_service_needs_a_card():
 
 
 def test_main_rejects_unported_flags():
+    # the sampling profiler is not ported (the flight and SLO flags are)
     with pytest.raises(SystemExit):
-        T.main(["--flight-dir", "/tmp/x"])
+        T.main(["--profile-hz", "19"])
 
 
 # -- imports without grpc --------------------------------------------------------
