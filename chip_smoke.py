@@ -216,11 +216,41 @@ Phases (any failure exits non-zero; nothing is swallowed):
              sidecar's port returns its sidecar.pack tree under the
              controller's trace, parented on solve.pack_begin, and GET
              /metrics serves the port's families;
+15. controller — (after phase 14) the provisioning control plane on the
+             card, at full width; each part reads both kernels' launch
+             counters before and after it and fails where they differ from
+             its rounds (each round's pack_dispatches), the warm-up
+             included. (a) the event storm: a Manager with provisioning,
+             selection (wait=False, 32 threads), counter and pvc, wired as
+             the reference's main.py wires them, over a decorated
+             FakeCloudProvider(instance_types(400)); a solver: tpu
+             provisioner, its worker's warm-up of 2,000 pods awaited, the
+             batch idle window 0.2 s; 10,000 pods (cpu 0.25/0.5/1 from
+             Random(5)) created one by one until every one is bound: the
+             create->bind p50 and p99, bound pods per second and the wall;
+             each round's batch, kernel, route and SCHEDULING_DURATION; it
+             fails on a pod bound twice, a round that names no kernel or
+             raised, a node over its allocatable, nodes != virtual nodes !=
+             creates, or a counter status.resources other than the nodes'
+             summed capacity. (b) the headline (instance_types(400) x
+             diverse_pods(10000, Random(42))) and (c) the team mix
+             (instance_types_tradeoff(400) x 10,000 pods with 64 team
+             selectors, Random(9)) inline: start_workers=False, the pods
+             queued up front, provision_once in batches of 2,000 until the
+             queue drains, then the counter; each equals a device="cpu"
+             controller taking the same pods in the same order, by pod
+             index (the partition into nodes, each node's labels save the
+             values to_node draws at random, taints and finalizers, the
+             unplaced pods, the creates, status.resources, Active); every
+             (b) round launches pack_first_fit and every (c) round
+             pack_first_fit_v2;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
              and through the sidecar and the stream (phases 12 and 13, by
-             part), the native packer's time on the same batches,
+             part), phase 15's launches by part (``controller``, with
+             (a)'s latencies and (b) and (c)'s round times), the native
+             packer's time on the same batches,
              ``degrade``: phase 11's canary solves and mismatches and its
              launches under injection, and ``stream``: phase 13's launches
              by part and the B of each coalesced launch, and ``obs``: phase
@@ -3047,6 +3077,368 @@ def sidecar_traced(card: str, classes: dict, catalogs: dict, rounds: dict) -> di
     return found
 
 
+STORM_PODS = 10000
+CONTROLLER_BATCH = 2000  # the batcher's default max_items
+
+
+def wire_controllers(cluster, provider, device: str, start_workers: bool):
+    """The five ported controllers wired as the reference's main.py wires
+    them: a Manager with provisioning (concurrency 10), selection (32,
+    wait=False), counter and pvc (2 each), the provisioners and pods
+    watches, counter's and pvc's own watches, and the cloud provider behind
+    cpmetrics.decorate. Returns (manager, provisioning, counter)."""
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.controllers.counter import CounterController
+    from karpenter_tpu_torch.controllers.manager import Manager
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.controllers.pvc import PVCController
+    from karpenter_tpu_torch.controllers.selection import SelectionController
+
+    manager = Manager(cluster)
+    provisioning = ProvisioningController(
+        cluster, cpmetrics.decorate(provider), start_workers=start_workers, device=device)
+    selection = SelectionController(cluster, provisioning, wait=False)
+    counter = CounterController(cluster)
+    pvc = PVCController(cluster)
+    manager.register("provisioning", provisioning.reconcile, concurrency=10)
+    manager.register("selection", selection.reconcile, concurrency=32)
+    manager.register("counter", counter.reconcile, concurrency=2)
+    manager.register("pvc", pvc.reconcile, concurrency=2)
+    cluster.watch("provisioners", lambda e, o: manager.enqueue("provisioning", o.metadata.name))
+    cluster.watch("pods", lambda e, o: manager.enqueue(
+        "selection", (o.metadata.name, o.metadata.namespace)))
+    counter.register(manager)
+    pvc.register(manager)
+    return manager, provisioning, counter
+
+
+def record_rounds(worker, rounds: list) -> None:
+    """Wrap the worker's scheduler.solve: each round appends its batch
+    size, the nodes it planned, what served it (packer_backend, pack_route,
+    pack_dispatches), its SCHEDULING_DURATION observation and its host
+    wall time; a round that raises appends its error and re-raises."""
+    sched = worker.scheduler
+    solve = sched.solve
+    labels = {"provisioner": worker.provisioner.name}
+
+    def wrapped(provisioner, instance_types, pods):
+        before = metric("karpenter_allocation_controller_scheduling_duration_seconds_sum", labels)
+        t0 = time.perf_counter()
+        try:
+            nodes = solve(provisioner, instance_types, pods)
+        except Exception as e:
+            rounds.append({"pods": len(pods), "error": repr(e)})
+            raise
+        if sched.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        prof = sched.last_stage_profile()
+        rounds.append({
+            "pods": len(pods), "nodes": len(nodes),
+            "backend": prof.get("packer_backend"), "route": prof.get("pack_route"),
+            "dispatches": prof.get("pack_dispatches", 0),
+            "scheduling_ms": (metric("karpenter_allocation_controller_scheduling_duration_seconds_sum", labels)
+                              - before) * 1e3,
+            "solve_ms": (time.perf_counter() - t0) * 1e3,
+        })
+        return nodes
+
+    sched.solve = wrapped
+
+
+def check_rounds(rounds: list, kernels: set, what: str) -> dict:
+    """Every round named one of ``kernels`` (never the floor, never
+    nothing, never an error); returns the dispatches per kernel."""
+    launched = {}
+    for i, r in enumerate(rounds):
+        if "error" in r or r["backend"] not in kernels:
+            raise AssertionError(f"{what} round {i}: {r}")
+        launched[r["backend"]] = launched.get(r["backend"], 0) + r["dispatches"]
+    return launched
+
+
+def expect_launches(what: str, got: dict, want: dict) -> None:
+    """The wrappers' launch counters over a part against its rounds."""
+    want = {k: want.get(k, 0) for k in got}
+    if got != want:
+        raise AssertionError(f"controller ({what}): launches {got}, its rounds make {want}")
+
+
+def fits_and_counts(cluster, prov_name: str, what: str) -> dict:
+    """Every node holds pods within its allocatable, every pod is bound to
+    a node that exists, and the counter's status.resources equals the
+    summed capacity of the nodes (milli-units). Returns the summed
+    capacity."""
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.utils import resources as res
+
+    nodes = {n.metadata.name: n for n in cluster.nodes()}
+    for pod in cluster.pods():
+        if pod.spec.node_name and pod.spec.node_name not in nodes:
+            raise AssertionError(f"{what}: pod {pod.key} bound to missing node {pod.spec.node_name}")
+    total = {}
+    for n in nodes.values():
+        on = cluster.pods_on_node(n.metadata.name)
+        if on and not res.fits(res.requests_for_pods(*on), n.status.allocatable):
+            raise AssertionError(f"{what}: node {n.metadata.name} ({len(on)} pods) over its "
+                                 f"allocatable")
+        if n.metadata.labels.get(lbl.PROVISIONER_NAME_LABEL) == prov_name:
+            total = res.merge(total, n.status.capacity)
+    return {k: round(v * 1000) for k, v in total.items()}
+
+
+def counted(cluster, prov_name: str) -> dict:
+    status = cluster.get("provisioners", prov_name, namespace="").status.resources
+    return {k: round(v * 1000) for k, v in status.items()}
+
+
+def bound_state(cluster, pods, random_keys) -> tuple:
+    """By pod index: the partition of the pods into nodes, each node's
+    labels (minus the values to_node draws at random), taints and
+    finalizers; the unbound pods. Node names, launch tokens and trace ids
+    are left out."""
+    groups = {}
+    for i, p in enumerate(pods):
+        groups.setdefault(p.spec.node_name, []).append(i)
+    unbound = groups.pop("", [])
+    nodes = {}
+    for name, idxs in groups.items():
+        n = cluster.get("nodes", name, namespace="")
+        labels = {k: (v if k not in random_keys else "<random>")
+                  for k, v in n.metadata.labels.items()}
+        nodes[tuple(idxs)] = (
+            labels, sorted((t.key, t.value, t.effect) for t in n.spec.taints),
+            sorted(n.metadata.finalizers))
+    return nodes, unbound
+
+
+def inline_controller(device: str, catalog, pods, requirements=None) -> dict:
+    """One provisioner's controller with start_workers=False: every pod
+    created in the cluster and queued in the worker's batcher, then
+    provision_once until the queue drains (batches of CONTROLLER_BATCH),
+    then the counter. The worker's topology rng is seeded, as every plan
+    comparison seeds it."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.controllers.counter import CounterController
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    cluster = Cluster()
+    provider = FakeCloudProvider(catalog)
+    provisioning = ProvisioningController(
+        cluster, cpmetrics.decorate(provider), start_workers=False, device=device)
+    counter = CounterController(cluster)
+    prov = make_provisioner(solver="tpu", requirements=requirements)
+    cluster.create("provisioners", prov)
+    provisioning.reconcile(prov.name)
+    worker = provisioning.workers[prov.name]
+    worker.batcher.idle_duration = 0.01
+    worker.scheduler.torch.topology.rng = random.Random(1)
+    rounds = []
+    record_rounds(worker, rounds)
+    for p in pods:
+        cluster.create("pods", p)
+        worker.add(p)
+    walls = []
+    try:
+        while worker.batcher.depth():
+            t0 = time.perf_counter()
+            worker.provision_once()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        counter.reconcile(prov.name)
+    finally:
+        provisioning.stop()
+    random_keys = {k for k, vs in worker.provisioner.spec.constraints.requirements._sets
+                   if vs.op_type() == "Exists"}
+    nodes, unbound = bound_state(cluster, pods, random_keys)
+    cond = cluster.get("provisioners", prov.name, namespace="").status.condition()
+    return {
+        "rounds": rounds, "walls": walls, "nodes": nodes, "unbound": unbound,
+        "resources": counted(cluster, prov.name),
+        "capacity": fits_and_counts(cluster, prov.name, f"inline {device}"),
+        "created": len(provider.create_calls), "active": (cond.type, cond.status),
+    }
+
+
+def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
+                     n_types: int = 400) -> dict:
+    """Phase 15: the provisioning control plane on the card, at full
+    width. Returns the kernels line's ``controller`` entries."""
+    from karpenter_tpu_torch.cloudprovider.fake import (
+        FakeCloudProvider, instance_types, instance_types_tradeoff)
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.testing import diverse_pods, make_pod, make_provisioner
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    out = {V1: {}, V2: {}, "summary": {}}
+
+    def counts() -> dict:
+        return {name: m.launches for name, m in modules.items()}
+
+    def delta(start: dict) -> dict:
+        return {name: n - start[name] for name, n in counts().items()}
+
+    # -- (a) the event storm through the Manager ------------------------
+    # no collection is forced before a part: a full collection of the
+    # script's heap lands where the allocator puts it, inside the storm's
+    # latencies or a round, and its [gc] line says where
+    cluster = Cluster()
+    provider = FakeCloudProvider(instance_types(n_types))
+    manager, provisioning, _ = wire_controllers(cluster, provider, device, start_workers=True)
+    manager.start()
+    start = counts()
+    try:
+        t0 = time.perf_counter()
+        cluster.create("provisioners", make_provisioner(solver="tpu"))
+        deadline = time.time() + 60
+        while time.time() < deadline and not provisioning.workers:
+            time.sleep(0.01)
+        worker = provisioning.workers["default"]
+        worker.batcher.idle_duration = 0.2
+        if not worker.warmed.wait(timeout=600):
+            raise AssertionError("controller (a): the warm-up never finished")
+        warm = worker.scheduler.torch.completed_profile()
+        if warm.get("packer_backend") != V1:
+            raise AssertionError(f"controller (a): warm-up served by {warm.get('packer_backend')!r}")
+        warm_launches = delta(start)
+        expect_launches("a, warm-up", warm_launches, {V1: warm.get("pack_dispatches", 0)})
+        log(f"[controller] (a) warm-up of {worker.batcher.max_items} pods "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms after the provisioner's create, "
+            f"served by {warm['packer_backend']} ({warm['pack_route']}), launches {warm_launches}")
+        rounds = []
+        record_rounds(worker, rounds)
+        binds = {}
+        created, bound_at = {}, {}
+        lock = threading.Lock()
+        bind = cluster.bind
+
+        def counting_bind(pod, node_name):
+            with lock:
+                binds[pod.key] = binds.get(pod.key, 0) + 1
+            bind(pod, node_name)
+
+        def on_pod(event, pod):
+            if event == "MODIFIED" and pod.spec.node_name:
+                now = time.perf_counter()
+                with lock:
+                    if pod.metadata.name in created and pod.metadata.name not in bound_at:
+                        bound_at[pod.metadata.name] = now
+
+        cluster.bind = counting_bind
+        cluster.watch("pods", on_pod)
+        rng = random.Random(5)
+        storm_start = counts()
+        t0 = time.perf_counter()
+        for i in range(n_pods):
+            name = f"storm-{i}"
+            p = make_pod(name=name, requests={"cpu": f"{rng.choice([0.25, 0.5, 1])}"})
+            with lock:
+                created[name] = time.perf_counter()
+            cluster.create("pods", p)
+        enqueue_s = time.perf_counter() - t0
+        deadline = time.time() + 600
+        while time.time() < deadline:
+            with lock:
+                if len(bound_at) >= n_pods:
+                    break
+            time.sleep(0.02)
+        wall = time.perf_counter() - t0
+        storm_launches = delta(storm_start)
+        with lock:
+            lat = sorted(bound_at[k] - created[k] for k in bound_at)
+            twice = {k: n for k, n in binds.items() if n > 1}
+        if len(lat) != n_pods:
+            raise AssertionError(f"controller (a): {len(lat)} of {n_pods} pods bound in {wall:.1f} s")
+        if twice:
+            raise AssertionError(f"controller (a): pods bound more than once: {list(twice)[:5]}")
+        launched = check_rounds(rounds, {V1, V2}, "controller (a)")
+        expect_launches("a, storm", storm_launches, launched)
+        for i, r in enumerate(rounds):
+            log(f"[controller] (a) round {i}: batch {r['pods']}, nodes {r['nodes']}, "
+                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
+                f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms")
+        planned = sum(r["nodes"] for r in rounds)
+        nodes = cluster.nodes()
+        if not (planned == len(nodes) == len(provider.create_calls)):
+            raise AssertionError(f"controller (a): {planned} virtual nodes, {len(nodes)} Nodes, "
+                                 f"{len(provider.create_calls)} creates")
+        capacity = fits_and_counts(cluster, "default", "controller (a)")
+        deadline = time.time() + 60
+        while time.time() < deadline and counted(cluster, "default") != capacity:
+            time.sleep(0.05)
+        if counted(cluster, "default") != capacity:
+            raise AssertionError(f"controller (a): counter {counted(cluster, 'default')} != "
+                                 f"capacity {capacity}")
+        p50 = lat[len(lat) // 2]
+        p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+        log(f"[controller] (a) storm of {n_pods} pods: create->bind p50 {p50 * 1e3:.1f} ms, "
+            f"p99 {p99 * 1e3:.1f} ms, {n_pods / wall:.1f} bound pods/s, wall {wall:.3f} s "
+            f"(creates {enqueue_s:.3f} s), {len(rounds)} rounds, {len(nodes)} nodes = "
+            f"{planned} virtual nodes = {len(provider.create_calls)} creates, counter "
+            f"status.resources == summed capacity {capacity}; card {card}")
+        out["summary"]["storm"] = {
+            "pods": n_pods, "rounds": len(rounds), "batches": [r["pods"] for r in rounds],
+            "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "pods_per_s": n_pods / wall,
+            "wall_s": wall, "nodes": len(nodes),
+        }
+        for name in (V1, V2):
+            n = warm_launches[name] + storm_launches[name]
+            if n:
+                out[name]["launches_storm"] = n
+    finally:
+        manager.stop()
+        provisioning.stop()
+    del cluster, provider, manager, provisioning
+
+    # -- (b), (c) inline, against a device="cpu" controller ---------------
+    parts = (
+        ("b", "headline", instance_types(n_types),
+         lambda: diverse_pods(n_pods, random.Random(42)), V1),
+        ("c", "team mix", instance_types_tradeoff(n_types),
+         lambda: team_pods(n_pods, 9), V2),
+    )
+    for label, what, catalog, make, kernel in parts:
+        start = counts()
+        card_run = inline_controller(device, catalog, make())
+        got = delta(start)
+        launched = check_rounds(card_run["rounds"], {kernel}, f"controller ({label})")
+        expect_launches(label, got, launched)
+        ref = inline_controller("cpu", catalog, make())
+        for i, r in enumerate(ref["rounds"]):
+            if "error" in r or r["backend"] in ("ffd-degraded", None):
+                raise AssertionError(f"controller ({label}) cpu round {i}: {r}")
+        for key in ("nodes", "unbound", "resources", "created", "active"):
+            if card_run[key] != ref[key]:
+                raise AssertionError(f"controller ({label}): {key} differs from the "
+                                     f"device='cpu' controller")
+        if card_run["resources"] != card_run["capacity"]:
+            raise AssertionError(f"controller ({label}): counter {card_run['resources']} != "
+                                 f"capacity {card_run['capacity']}")
+        for i, (r, w) in enumerate(zip(card_run["rounds"], card_run["walls"])):
+            log(f"[controller] ({label}) {what} round {i}: batch {r['pods']}, nodes {r['nodes']}, "
+                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
+                f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms, provision_once "
+                f"{w:.3f} ms")
+        log(f"[controller] ({label}) {what}: {len(card_run['rounds'])} rounds, "
+            f"{len(card_run['nodes'])} nodes, {len(card_run['unbound'])} pods unplaced, "
+            f"launches {got}; == the device='cpu' controller pod for pod (partition, "
+            f"instance types, zones, capacity types, labels, taints, finalizers, "
+            f"status.resources, Active); card {card}")
+        out[kernel][f"launches_{label}"] = got[kernel]
+        out["summary"][label] = {
+            "rounds": len(card_run["rounds"]), "nodes": len(card_run["nodes"]),
+            "unplaced": len(card_run["unbound"]),
+            "provision_once_ms": card_run["walls"],
+            "scheduling_ms": [r["scheduling_ms"] for r in card_run["rounds"]],
+        }
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3258,6 +3650,9 @@ def main() -> int:
     # -- 14. obs ----------------------------------------------------------
     observed = obs_phase(dev, card, classes, catalogs, batches)
 
+    # -- 15. controller ---------------------------------------------------
+    controller = controller_phase(card)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -3278,6 +3673,7 @@ def main() -> int:
         "degrade": degrade["pack_first_fit"],
         "stream": stream["pack_first_fit"],
         "obs": {**observed["pack_first_fit"], **observed["summary"]},
+        "controller": {**controller["pack_first_fit"], **controller["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -3301,6 +3697,7 @@ def main() -> int:
         "degrade": degrade["pack_first_fit_v2"],
         "stream": stream["pack_first_fit_v2"],
         "obs": {**observed["pack_first_fit_v2"], **observed["summary"]},
+        "controller": {**controller["pack_first_fit_v2"], **controller["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

@@ -240,6 +240,13 @@ def validate_provisioner(provisioner: Provisioner) -> List[str]:
         errs.append("ttlSecondsUntilExpired must be non-negative")
     if spec.solver not in (SOLVER_FFD, SOLVER_TPU):
         errs.append(f"solver must be one of [{SOLVER_FFD}, {SOLVER_TPU}], got {spec.solver}")
+    if spec.disruption_budget is not None:
+        from karpenter_tpu_torch.controllers.disruption import parse_budget
+
+        try:
+            parse_budget(spec.disruption_budget)
+        except ValueError as e:
+            errs.append(f"disruptionBudget: {e}")
     c = spec.constraints
     for key, value in c.labels.items():
         errs.extend(lbl.check_qualified_name(key))

@@ -30,9 +30,8 @@ This module is the flight-recorder twin for decisions (the port's copy of
   annotation. A round that places the pod
   resets its streak.
 
-``record_consolidation`` and the selection feed's per-pod
-``maybe_emit_for`` are not ported yet: nothing in the port runs a
-consolidation wave or a selection controller.
+``record_consolidation`` is not ported yet: nothing in the port runs a
+consolidation wave.
 """
 
 from __future__ import annotations
@@ -645,7 +644,8 @@ class DecisionLog:
         consecutive-failure streak reached ``threshold``, carrying the top
         elimination reason in the message and the decision id in the
         ``karpenter.sh/decision-id`` annotation. Runs ONCE PER ROUND (the
-        provisioning worker's seam). Never raises."""
+        provisioning worker's seam); per-pod feeds use
+        :meth:`maybe_emit_for`. Never raises."""
         try:
             with self._lock:
                 self._expire_stale_locked()
@@ -674,6 +674,28 @@ class DecisionLog:
         except Exception:
             logger.debug("unschedulable event emission failed", exc_info=True)
             return 0
+
+    def maybe_emit_for(
+        self, cluster, pod_key: str, threshold: int = DEFAULT_EVENT_ROUNDS
+    ) -> bool:
+        """The per-pod twin: emit for THIS pod only when its streak is
+        due. Selection's admission feed runs once per rejected pod, and a
+        whole-table sweep there would be O(rejected x failing) event
+        writes per selection pass. Never raises."""
+        try:
+            with self._lock:
+                v = self._failing.get(pod_key)
+                if v is None or v["count"] < threshold:
+                    return False
+                v = dict(v)
+            from karpenter_tpu_torch.kube.events import recorder_for
+
+            return self._emit_one(
+                recorder_for(cluster), pod_key, v, threshold
+            ) is not None
+        except Exception:
+            logger.debug("unschedulable event emission failed", exc_info=True)
+            return False
 
     # -- read surface --------------------------------------------------------
 

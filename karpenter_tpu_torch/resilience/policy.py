@@ -1,9 +1,11 @@
-"""Round time budgets and backoff.
+"""Retry policy, round time budgets and backoff.
 
 A :class:`Budget` is a wall-clock allowance for one reconcile round. While
 one is active (``with budget.activate(): ...``), the sidecar client sends
 its remaining seconds with every Pack, refuses to dispatch once it expired,
-and the sidecar sheds the work before it reaches the device.
+and the sidecar sheds the work before it reaches the device; a
+:class:`RetryPolicy` caps its per-operation deadline by what remains of it,
+so retries never outlive the round that issued them.
 
 Backoff is *decorrelated jitter*: each sleep is drawn uniformly from
 ``[base, 3 * previous_sleep]`` and capped, which spreads a herd of retries
@@ -16,6 +18,8 @@ import contextvars
 import random
 import time
 from typing import Callable, Iterator, Optional
+
+from karpenter_tpu_torch import metrics
 
 # The reconcile round currently executing, when the caller activated one.
 current_budget: contextvars.ContextVar[Optional["Budget"]] = contextvars.ContextVar(
@@ -70,3 +74,98 @@ def decorrelated_jitter(
     while True:
         sleep = min(cap, rng.uniform(base, sleep * 3))
         yield sleep
+
+
+# Exceptions that retrying cannot fix: capacity signals (the ICE caches own
+# those), positive not-found answers, validation/programming errors.
+# Everything else — throttles, injected control-plane failures, connection
+# resets — is presumed transient. Vendor errors are matched by name so this
+# module needs no dependency on any provider.
+_NON_RETRYABLE_NAMES = frozenset(
+    {
+        "InsufficientCapacityError",
+        "GkeStockoutError",
+        "GkeApiError",
+        "InstanceNotFoundError",
+        # overload-control verdicts (resilience/overload.py): a shed must
+        # never become a retry storm, and an expired deadline cannot be
+        # retried into existence
+        "OverloadedError",
+        "DeadlineExceededError",
+    }
+)
+
+
+def default_retryable(exc: BaseException) -> bool:
+    if isinstance(exc, (ValueError, TypeError, KeyError)):
+        return False
+    for cls in type(exc).__mro__:
+        if cls.__name__ in _NON_RETRYABLE_NAMES:
+            return False
+    return True
+
+
+class RetryPolicy:
+    """Bounded retries with decorrelated jitter and a hard deadline.
+
+    ``call(fn)`` runs ``fn`` up to ``max_attempts`` times. A retry happens
+    only when ``retryable(exc)`` says so AND the next backoff sleep still
+    fits inside the per-operation deadline (further capped by the active
+    round :class:`Budget`); otherwise the last exception propagates. The
+    ``dependency`` label feeds the ``retries_total`` /
+    ``deadline_exceeded_total`` counters. There is no per-dependency retry
+    token bucket: every retry the deadline admits is taken.
+    """
+
+    def __init__(
+        self,
+        max_attempts: int = 3,
+        base: float = 0.05,
+        cap: float = 2.0,
+        deadline: float = 15.0,
+        retryable: Callable[[BaseException], bool] = default_retryable,
+        dependency: str = "",
+        rng: Optional[random.Random] = None,
+        clock: Callable[[], float] = time.monotonic,
+        sleep: Callable[[float], None] = time.sleep,
+    ):
+        self.max_attempts = max(int(max_attempts), 1)
+        self.base = base
+        self.cap = cap
+        self.deadline = deadline
+        self.retryable = retryable
+        self.dependency = dependency
+        self._rng = rng
+        self._clock = clock
+        self._sleep = sleep
+
+    def effective_deadline(self) -> float:
+        """Seconds this operation may spend: the policy deadline, capped by
+        the active round budget (if any). The first attempt always runs —
+        an exhausted budget degrades to retry-free, not to no work."""
+        budget = current_budget.get()
+        if budget is None:
+            return self.deadline
+        return min(self.deadline, max(budget.remaining(), 0.0))
+
+    def call(self, fn: Callable, *args, **kwargs):
+        start = self._clock()
+        allowance = self.effective_deadline()
+        backoffs = decorrelated_jitter(self.base, self.cap, self._rng)
+        for attempt in range(self.max_attempts):
+            try:
+                return fn(*args, **kwargs)
+            except Exception as e:  # noqa: BLE001 — classification decides
+                if attempt + 1 >= self.max_attempts or not self.retryable(e):
+                    raise
+                pause = next(backoffs)
+                if self._clock() - start + pause > allowance:
+                    metrics.RESILIENCE_DEADLINE_EXCEEDED.labels(
+                        dependency=self.dependency or "unknown"
+                    ).inc()
+                    raise
+                metrics.RESILIENCE_RETRIES.labels(
+                    dependency=self.dependency or "unknown", outcome="retried"
+                ).inc()
+                self._sleep(pause)
+        raise AssertionError("unreachable")

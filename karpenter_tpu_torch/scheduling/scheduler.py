@@ -5,8 +5,11 @@ provisioner's ``spec.solver`` field — ``tpu`` to the GPU-backed
 from __future__ import annotations
 
 import random
+import threading
 import time
 from typing import List, Optional, Sequence
+
+import torch
 
 from karpenter_tpu_torch import metrics, obs
 from karpenter_tpu_torch.api.objects import Pod
@@ -32,8 +35,11 @@ class Scheduler:
         solver_shm_dir: Optional[str] = None,
     ):
         """``device`` is where the ``solver: tpu`` pack runs: ``cuda`` (the
-        default) needs a card and raises without one; ``cpu`` runs the
-        plain PyTorch version. ``solver_delta`` turns on the resident delta
+        default) needs a card, and the first ``solver: tpu`` solve raises
+        without one; ``cpu`` runs the plain PyTorch version. The
+        accelerated backend (``torch``) is built on that first solve, so a
+        ``solver: ffd`` provisioner never needs a card.
+        ``solver_delta`` turns on the resident delta
         path (None = the ``KARPENTER_SOLVER_DELTA`` env twin).
         ``canary_rate`` is the fraction of kernel-served solves the native
         packer re-solves and compares (None = the ``KARPENTER_CANARY_RATE``
@@ -47,17 +53,36 @@ class Scheduler:
         shared-memory arena in that directory when the sidecar shares it
         (None = the ``KARPENTER_SOLVER_STREAM`` and
         ``KARPENTER_SOLVER_SHM_DIR`` env twins)."""
-        from karpenter_tpu_torch.solver.backend import TorchScheduler
-
         self.cluster = cluster
-        self.device = resolve_device(device)
+        self.device = torch.device(device)
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {device!r}: expected cuda or cpu")
         self.ffd = FFDScheduler(cluster, rng=rng)
-        self.torch = TorchScheduler(
-            cluster, rng=rng, device=self.device, solver_delta=solver_delta,
-            canary_rate=canary_rate, service_address=solver_service_address,
-            pack_checksum=pack_checksum, solver_stream=solver_stream,
-            solver_shm_dir=solver_shm_dir,
+        self._rng = rng
+        self._backend_args = dict(
+            solver_delta=solver_delta, canary_rate=canary_rate,
+            service_address=solver_service_address, pack_checksum=pack_checksum,
+            solver_stream=solver_stream, solver_shm_dir=solver_shm_dir,
         )
+        self._torch = None  # guarded-by: self._torch_lock (the build)
+        # a worker's warm-up thread and its first round may both reach for
+        # the backend: one builds it, the other waits for it
+        self._torch_lock = threading.Lock()
+
+    @property
+    def torch(self):
+        """The ``TorchScheduler`` serving ``solver: tpu``, built on first
+        use on ``device`` (raises on ``cuda`` without a card)."""
+        if self._torch is None:
+            with self._torch_lock:
+                if self._torch is None:
+                    from karpenter_tpu_torch.solver.backend import TorchScheduler
+
+                    self._torch = TorchScheduler(
+                        self.cluster, rng=self._rng,
+                        device=resolve_device(self.device), **self._backend_args,
+                    )
+        return self._torch
 
     def last_stage_profile(self) -> dict:
         """Per-stage timings of the calling thread's most recently completed
@@ -70,8 +95,11 @@ class Scheduler:
         solver_address and solver_transport), on a cpu scheduler
         ``ffd-degraded`` when the FFD floor did, absent when the signature
         closure overflowed (a card scheduler raises instead); pack_route,
-        which caller ran it: fused, unfused or the router's native)."""
-        return self.torch.completed_profile()
+        which caller ran it: fused, unfused or the router's native); {}
+        before the first ``solver: tpu`` solve."""
+        if self._torch is None:
+            return {}
+        return self._torch.completed_profile()
 
     def last_decision_context(self) -> dict:
         """The calling thread's most recent ``solver: tpu`` solve's decision
@@ -80,7 +108,9 @@ class Scheduler:
         decision audit log (``obs.decision_log().record_round``), consumed
         on read; {} after an FFD solve, a failed round, or with the
         decision plane disabled."""
-        return self.torch.completed_decision()
+        if self._torch is None:
+            return {}
+        return self._torch.completed_decision()
 
     def solve(
         self,

@@ -999,3 +999,157 @@ def test_replay_blob_through_pack_best_on_card_is_bit_exact(cuda, fresh_obs, tmp
     n = int(blob["n_pods"])
     np.testing.assert_array_equal(result.assignment.cpu().numpy()[:n], blob["assignment"][:n])
     assert replay.replay(record, record_path=path)["ok"] is True
+
+
+# -- the provisioning control plane on the card ------------------------------
+
+
+def controller_round(device, prov, catalog, pods, start_workers=False):
+    """One inline provisioning round of ``pods`` through a
+    ProvisioningController on ``device`` (topology rng seeded); returns
+    (cluster, controller, worker)."""
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.kube.client import Cluster
+
+    cluster = Cluster()
+    controller = ProvisioningController(
+        cluster, cpmetrics.decorate(FakeCloudProvider(catalog)),
+        start_workers=start_workers, device=device)
+    cluster.create("provisioners", prov)
+    controller.reconcile(prov.name)
+    worker = controller.workers[prov.name]
+    worker.batcher.idle_duration = 0.01
+    if pods:
+        worker.scheduler.torch.topology.rng = random.Random(1)
+        for p in pods:
+            cluster.create("pods", p)
+            worker.add(p)
+        worker.provision_once()
+    return cluster, controller, worker
+
+
+def bound_by_index(cluster, pods):
+    groups = {}
+    for i, p in enumerate(pods):
+        groups.setdefault(p.spec.node_name, []).append(i)
+    unbound = groups.pop("", [])
+    nodes = {}
+    for name, idxs in groups.items():
+        n = cluster.get("nodes", name, namespace="")
+        nodes[tuple(idxs)] = (n.metadata.labels, sorted((t.key, t.effect) for t in n.spec.taints),
+                              n.metadata.finalizers)
+    return nodes, unbound
+
+
+@pytest.mark.parametrize("name,n_pods,n_types,want", [
+    ("diverse", 1500, 60, "pack_first_fit"), ("teams", 1500, 64, "pack_first_fit_v2")])
+def test_controller_round_on_card_equals_the_cpu_controller(cuda, name, n_pods, n_types, want):
+    pkg = "karpenter_tpu_torch"
+    states = []
+    for device in ("cuda", "cpu"):
+        prov, catalog, pods = scenario(pkg, name, n_pods, 42, n_types)
+        before = {m: m.launches for m in (pack_kernel, pack_kernel_v2)}
+        cluster, controller, worker = controller_round(device, prov, catalog, pods)
+        launched = {m.__name__.rsplit(".", 1)[1]: m.launches - n for m, n in before.items()}
+        controller.stop()
+        if device == "cuda":
+            assert worker.scheduler.last_stage_profile()["packer_backend"] == want
+            assert launched == {"pack_kernel": int(want == "pack_first_fit"),
+                                "pack_kernel_v2": int(want == "pack_first_fit_v2")}
+        states.append((bound_by_index(cluster, pods),
+                       cluster.get("provisioners", prov.name, namespace="").status.last_scale_time
+                       is not None))
+    assert states[0] == states[1]
+    assert states[0][0][0]
+
+
+def test_warmup_launches_exactly_one_kernel(cuda):
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    before = (pack_kernel.launches, pack_kernel_v2.launches)
+    cluster, controller, worker = controller_round(
+        "cuda", make_provisioner(solver="tpu"), instance_types(400), [], start_workers=True)
+    try:
+        assert worker.warmed.wait(timeout=300)
+        prof = worker.scheduler.torch.completed_profile()
+        assert prof["packer_backend"] == "pack_first_fit"
+        assert (pack_kernel.launches - before[0], pack_kernel_v2.launches - before[1]) == (1, 0)
+        assert worker.batcher.max_items == 2000  # the full batch bucket on the card
+    finally:
+        controller.stop()
+    assert not worker._thread.is_alive()
+
+
+def test_hot_swaps_free_the_old_workers_card_memory(cuda):
+    """Every spec change swaps in a new worker whose scheduler builds new
+    card state on its first solve; the old worker's must be freed."""
+    import gc
+
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.testing import diverse_pods, make_provisioner
+
+    catalog = instance_types(100)
+    cluster, controller, worker = controller_round(
+        "cuda", make_provisioner(solver="tpu", labels={"swap": "0"}), catalog, [])
+    allocated = []
+    try:
+        for i in range(1, 6):
+            prov = make_provisioner(solver="tpu", labels={"swap": str(i)})
+            controller.apply(prov)
+            new = controller.workers[prov.name]
+            assert new is not worker
+            worker = new
+            worker.batcher.idle_duration = 0.01
+            for p in diverse_pods(300, random.Random(i)):
+                cluster.create("pods", p)
+                worker.add(p)
+            assert worker.provision_once()
+            assert worker.scheduler.last_stage_profile()["packer_backend"] == "pack_first_fit"
+            gc.collect()
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated())
+    finally:
+        controller.stop()
+    assert abs(allocated[-1] - allocated[0]) <= 1 << 20, allocated
+
+
+def test_warmup_and_first_round_share_one_card_scheduler(cuda):
+    """Pods queued before the warm-up finished: the warm-up thread and the
+    worker's first round solve on one TorchScheduler at once (the solve
+    lock serializes their device stages); every pod binds, and the kernel
+    launches are the warm-up's plus the rounds'."""
+    import threading
+    import time
+
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+
+    before = pack_kernel.launches
+    cluster, controller, worker = controller_round(
+        "cuda", make_provisioner(solver="tpu"), instance_types(400), [], start_workers=True)
+    dispatches = []
+    solve = worker.scheduler.solve
+
+    def counted(*a):
+        nodes = solve(*a)
+        if threading.current_thread() is worker._thread:  # not the warm-up's
+            dispatches.append(worker.scheduler.last_stage_profile()["pack_dispatches"])
+        return nodes
+
+    worker.scheduler.solve = counted
+    try:
+        pods = [make_pod(requests={"cpu": "1"}) for _ in range(50)]
+        for p in pods:
+            cluster.create("pods", p)
+            worker.add(p)
+        assert worker.warmed.wait(timeout=300)
+        deadline = time.time() + 120
+        while time.time() < deadline and not all(p.spec.node_name for p in pods):
+            time.sleep(0.02)
+        assert all(p.spec.node_name for p in pods)
+    finally:
+        controller.stop()
+    assert dispatches and pack_kernel.launches - before == 1 + sum(dispatches)

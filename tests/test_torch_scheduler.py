@@ -85,14 +85,24 @@ def test_facade_routes_other_solvers_to_ffd():
 
 
 def test_default_device_is_cuda_and_needs_a_card():
+    """The default device is the card. The accelerated backend is built on
+    the first ``solver: tpu`` solve, which raises without a card; a
+    ``solver: ffd`` solve never needs one."""
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.testing import diverse_pods, make_provisioner
 
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    assert sched.device.type == "cuda"
+    assert sched.solve(make_provisioner(solver="ffd"), instance_types(20), diverse_pods(30))
+    assert sched._torch is None and sched.last_stage_profile() == {}
     if torch.cuda.is_available():
-        assert Scheduler(Cluster()).device.type == "cuda"
+        assert sched.torch.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            Scheduler(Cluster())
+            sched.solve(make_provisioner(solver="tpu"), instance_types(20), diverse_pods(30))
+        assert sched._torch is None
 
 
 def test_importing_the_port_loads_no_jax():
@@ -106,7 +116,9 @@ def test_importing_the_port_loads_no_jax():
         "n = sum(1 for m in sys.modules if m.startswith('karpenter_tpu_torch.'))\n"
         "new = all(f'karpenter_tpu_torch.{m}' in sys.modules for m in (\n"
         "    'solver.router', 'solver.native', 'solver.integrity', 'resilience.breaker',\n"
-        "    'kube.events', 'solver.stream', 'solver.pool', 'testing.chaos'))\n"
+        "    'kube.events', 'solver.stream', 'solver.pool', 'testing.chaos',\n"
+        "    'controllers.provisioning', 'controllers.selection', 'controllers.manager',\n"
+        "    'utils.batcher', 'kube.serde', 'cloudprovider.metrics', 'interruption.types'))\n"
         "bad += ['grpc'] if 'grpc' in sys.modules else []\n"
         "print(n, new, bad)\n"
     )
