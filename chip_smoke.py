@@ -191,7 +191,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              batch (walls printed), and under torch.profiler a traced and an
              untraced headline round do the same device work (kernel
              launches, device-to-host and host-to-device copies, after a
-             discarded warm-up step). (e) the headline with a
+             discarded warm-up step and a burst of device work that any
+             loss of a window's first records falls on; the most of each
+             kind over three profiled rounds a mode). (e) the headline with a
              seeded 1% of its pods replaced by cpu: 100000 pods: one card
              round recorded by a DecisionLog ring; the stuck pods get
              resource_fit, every other unplaced pod is a zone
@@ -243,7 +245,43 @@ Phases (any failure exits non-zero; nothing is swallowed):
              values to_node draws at random, taints and finalizers, the
              unplaced pods, the creates, status.resources, Active); every
              (b) round launches pack_first_fit and every (c) round
-             pack_first_fit_v2;
+             pack_first_fit_v2. (b) runs twice on the card, each after the
+             worker's warm-up solve (one more launch): without the GC
+             policy, then with freeze_after_warmup where the reference's
+             main.py calls it (restored after its rounds); each prints the
+             generation-2 collections and pauses its rounds saw;
+16. deprovision — (after phase 15) the deprovisioning plane at the
+             reference's consolidation size; each part reads both kernels'
+             launch counters around itself. (a) BASELINE config 5
+             (bench.py:1255-1303, unchanged): 1,000 live nodes of
+             instance_types(400) types 300-399 (Random(7)), 16 cpu each, 1-3
+             bound pods of cpu 0.5/1/2; a warm-up and 5 plans of a card
+             ConsolidationController, each a new Scheduler: every plan
+             launches pack_first_fit once a dispatch and no v2, re-seats
+             every pod, and equals a device="cpu" controller's plan (native
+             packer) node for node; each plan's wall, stage profile, the
+             shadow cluster and deep copies, minimal_move_match and
+             order_retirement, the TorchScheduler build and the session
+             uploads printed. (b) the same layout on the team mix
+             (instance_types_tradeoff(400), Random(9), node i labelled team
+             t{i % 64}, its pods cpu 0.25/0.5/1 with that selector): every
+             plan launches pack_first_fit_v2. (c) (a)'s plan executed with
+             the bind migration under a Manager with provisioning,
+             selection, node, termination, counter, pvc and both metrics
+             controllers: replacements through the metered fake cloud, each
+             moved pod bound once to a launched node, every retired node
+             drained and removed by termination (cloud deletes = retired),
+             live = kept + launched, counter = summed capacity, node gauges
+             = the live nodes; the time from execute to the last retired
+             node gone; a second plan equal to the device="cpu" twin's. (d)
+             the evict migration: (a)'s cluster with ReplicaSet-owned pods,
+             under a Manager with a card provisioning worker: the first
+             reconcile retires EVICT_WAVE_SIZE nodes, termination drains
+             them, the evicted pods come back pending and a card round seats
+             them, the wave settles, the next reconcile retires at most
+             EVICT_WAVE_SIZE more. (e) when grpc imports: one (a) plan of a
+             device="cpu" controller through serve() on the card equals the
+             in-process plan;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -255,7 +293,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
              launches under injection, and ``stream``: phase 13's launches
              by part and the B of each coalesced launch, and ``obs``: phase
              14's launches by part, traced kernel and fetch times, and what
-             (a)-(g) measured.
+             (a)-(g) measured, and ``deprovision``: phase 16's launches by
+             part, each plan's wall, build, shadow and repack times.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -309,7 +348,8 @@ def log_gc_pauses(over_s: float = 0.1):
     ``over_s``, with the objects it still tracks: a full collection of the
     script's heap stops every thread, which explains a host-clock outlier
     in whichever stage it lands. Returns the hook, for
-    ``gc.callbacks.remove`` before the last lines are printed."""
+    ``gc.callbacks.remove`` before the last lines are printed; its ``full``
+    list holds the pause (s) of every generation-2 collection it saw."""
     began = {}
 
     def hook(phase: str, info: dict) -> None:
@@ -318,10 +358,13 @@ def log_gc_pauses(over_s: float = 0.1):
             began[me] = time.perf_counter()
             return
         took = time.perf_counter() - began.pop(me, time.perf_counter())
+        if info["generation"] == 2:
+            hook.full.append(took)
         if took > over_s:
             log(f"[gc] generation {info['generation']} collection {took * 1e3:.1f} ms, "
                 f"{len(gc.get_objects())} objects tracked")
 
+    hook.full = []  # the pause of every generation-2 collection, in order
     gc.callbacks.append(hook)
     return hook
 
@@ -2454,12 +2497,16 @@ def check_kernel_timing(rounds: list, what: str) -> None:
 def profiled_device_work(run) -> dict:
     """``run()`` under torch.profiler: the device work it caused, counted
     by kind (kernel launches, device-to-host and host-to-device copies,
-    other copies and memsets). A warm-up step, whose events are
-    discarded, comes first: device activity just after tracing starts can
-    go unrecorded (a round's first uploads and kernels)."""
+    other copies and memsets). Device activity just after tracing starts
+    can go unrecorded (a round's first uploads and kernels, now and then):
+    a warm-up step, whose events are discarded, comes first, and in the
+    recorded step a burst of uploads and adds runs ahead of ``run()``, so
+    that any such loss falls on it; only the device records that start
+    after ``run()``'s host range opens are counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
+    mark = "chip_smoke.measured"
     events = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -2468,12 +2515,20 @@ def profiled_device_work(run) -> dict:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         p.step()
-        run()
+        primer = torch.ones(1 << 16)
+        for _ in range(8):
+            primer.to("cuda").add_(1)
         torch.cuda.synchronize()
+        time.sleep(0.05)
+        with record_function(mark):
+            run()
+            torch.cuda.synchronize()
         p.step()
+    cuda = torch.autograd.DeviceType.CUDA
+    start = min(e.time_range.start for e in events if e.name == mark and e.device_type != cuda)
     tally = {"kernels": 0, "memcpy_dtoh": 0, "memcpy_htod": 0, "other": 0}
     for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != cuda or e.name == mark or e.time_range.start < start:
             continue
         n = e.name.lower()
         if "memcpy" in n and "dtoh" in n:
@@ -2768,14 +2823,24 @@ def obs_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict) -> d
                 finally:
                     obs.set_enabled(True)
 
-            untraced, traced = device_work(False), device_work(True)
+            # a record the profiler drops only lowers a count (knob-off
+            # rounds have showed no upload at all, though each uploads its
+            # pod table): each mode is profiled three times, in turns, and
+            # the most of each kind is compared
+            tallies = {False: [], True: []}
+            for on in (False, True, True, False, False, True):
+                tallies[on].append(device_work(on))
+            untraced, traced = ({k: max(t[k] for t in tallies[on]) for k in tallies[on][0]}
+                                for on in (False, True))
             if untraced != traced or not traced["kernels"] or not traced["memcpy_dtoh"]:
-                raise AssertionError(f"obs (d): device work traced {traced}, untraced {untraced}")
+                raise AssertionError(f"obs (d): device work traced {tallies[True]}, untraced "
+                                     f"{tallies[False]}")
             cost["profiled_device_work"] = traced
             summary["tracing_cost"] = cost
             log(f"[obs] (d) under torch.profiler a traced and an untraced headline round do the "
-                f"same device work: {traced}")
-            rounds["pack_first_fit"] = 5 * 2 + 2
+                f"same device work: {traced} (the most of three profiled rounds each; traced "
+                f"{tallies[True]}, untraced {tallies[False]})")
+            rounds["pack_first_fit"] = 5 * 2 + 6
             rounds["pack_first_fit_v2"] = 5 * 2
 
         # -- (e) decisions, explain, replay -----------------------------------
@@ -3213,18 +3278,24 @@ def bound_state(cluster, pods, random_keys) -> tuple:
     return nodes, unbound
 
 
-def inline_controller(device: str, catalog, pods, requirements=None) -> dict:
+def inline_controller(device: str, catalog, pods, requirements=None, freeze=None,
+                      gc_hook=None) -> dict:
     """One provisioner's controller with start_workers=False: every pod
     created in the cluster and queued in the worker's batcher, then
     provision_once until the queue drains (batches of CONTROLLER_BATCH),
     then the counter. The worker's topology rng is seeded, as every plan
-    comparison seeds it."""
+    comparison seeds it. ``freeze`` True or False first runs the worker's
+    warm-up (what start() runs in its thread) and then, if True, calls
+    freeze_after_warmup where the reference's main.py does, restoring the
+    collector's policy when the rounds end; ``gc_hook`` (log_gc_pauses)
+    gives the full collections the rounds saw."""
     from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
     from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
     from karpenter_tpu_torch.controllers.counter import CounterController
     from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.testing import make_provisioner
+    from karpenter_tpu_torch.utils import gcpolicy
 
     cluster = Cluster()
     provider = FakeCloudProvider(catalog)
@@ -3236,6 +3307,12 @@ def inline_controller(device: str, catalog, pods, requirements=None) -> dict:
     provisioning.reconcile(prov.name)
     worker = provisioning.workers[prov.name]
     worker.batcher.idle_duration = 0.01
+    warm = {}
+    if freeze is not None:
+        worker._warmup()
+        warm = worker.scheduler.last_stage_profile()
+        if not worker.warmed.is_set() or warm.get("pack_dispatches") is None:
+            raise AssertionError(f"inline {device}: the warm-up did not solve ({warm})")
     worker.scheduler.torch.topology.rng = random.Random(1)
     rounds = []
     record_rounds(worker, rounds)
@@ -3243,13 +3320,20 @@ def inline_controller(device: str, catalog, pods, requirements=None) -> dict:
         cluster.create("pods", p)
         worker.add(p)
     walls = []
+    full = gc_hook.full if gc_hook is not None else []
     try:
+        at = len(full)
+        if freeze:
+            gcpolicy.freeze_after_warmup()
+        freeze_gc = [t * 1e3 for t in full[at:]]  # freeze_after_warmup's own collection
+        full_before = len(full)
         while worker.batcher.depth():
             t0 = time.perf_counter()
             worker.provision_once()
             walls.append((time.perf_counter() - t0) * 1e3)
         counter.reconcile(prov.name)
     finally:
+        gcpolicy.restore()
         provisioning.stop()
     random_keys = {k for k, vs in worker.provisioner.spec.constraints.requirements._sets
                    if vs.op_type() == "Exists"}
@@ -3260,11 +3344,13 @@ def inline_controller(device: str, catalog, pods, requirements=None) -> dict:
         "resources": counted(cluster, prov.name),
         "capacity": fits_and_counts(cluster, prov.name, f"inline {device}"),
         "created": len(provider.create_calls), "active": (cond.type, cond.status),
+        "warm": warm, "full_gc_ms": [t * 1e3 for t in full[full_before:]],
+        "freeze_gc_ms": freeze_gc,
     }
 
 
 def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
-                     n_types: int = 400) -> dict:
+                     n_types: int = 400, gc_hook=None) -> dict:
     """Phase 15: the provisioning control plane on the card, at full
     width. Returns the kernels line's ``controller`` entries."""
     from karpenter_tpu_torch.cloudprovider.fake import (
@@ -3396,46 +3482,573 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
     del cluster, provider, manager, provisioning
 
     # -- (b), (c) inline, against a device="cpu" controller ---------------
+    # (b) runs twice on the card after the worker's warm-up: without the
+    # GC freeze, then with freeze_after_warmup where the reference's
+    # main.py calls it (restored when its rounds end)
     parts = (
         ("b", "headline", instance_types(n_types),
-         lambda: diverse_pods(n_pods, random.Random(42)), V1),
+         lambda: diverse_pods(n_pods, random.Random(42)), V1, (False, True)),
         ("c", "team mix", instance_types_tradeoff(n_types),
-         lambda: team_pods(n_pods, 9), V2),
+         lambda: team_pods(n_pods, 9), V2, (None,)),
     )
-    for label, what, catalog, make, kernel in parts:
-        start = counts()
-        card_run = inline_controller(device, catalog, make())
-        got = delta(start)
-        launched = check_rounds(card_run["rounds"], {kernel}, f"controller ({label})")
-        expect_launches(label, got, launched)
+    for label, what, catalog, make, kernel, freezes in parts:
         ref = inline_controller("cpu", catalog, make())
         for i, r in enumerate(ref["rounds"]):
             if "error" in r or r["backend"] in ("ffd-degraded", None):
                 raise AssertionError(f"controller ({label}) cpu round {i}: {r}")
-        for key in ("nodes", "unbound", "resources", "created", "active"):
-            if card_run[key] != ref[key]:
-                raise AssertionError(f"controller ({label}): {key} differs from the "
-                                     f"device='cpu' controller")
-        if card_run["resources"] != card_run["capacity"]:
-            raise AssertionError(f"controller ({label}): counter {card_run['resources']} != "
-                                 f"capacity {card_run['capacity']}")
-        for i, (r, w) in enumerate(zip(card_run["rounds"], card_run["walls"])):
-            log(f"[controller] ({label}) {what} round {i}: batch {r['pods']}, nodes {r['nodes']}, "
-                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
-                f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms, provision_once "
-                f"{w:.3f} ms")
-        log(f"[controller] ({label}) {what}: {len(card_run['rounds'])} rounds, "
-            f"{len(card_run['nodes'])} nodes, {len(card_run['unbound'])} pods unplaced, "
-            f"launches {got}; == the device='cpu' controller pod for pod (partition, "
-            f"instance types, zones, capacity types, labels, taints, finalizers, "
-            f"status.resources, Active); card {card}")
-        out[kernel][f"launches_{label}"] = got[kernel]
+        for freeze in freezes:
+            part = label + ("_frozen" if freeze else "")
+            start = counts()
+            card_run = inline_controller(device, catalog, make(), freeze=freeze, gc_hook=gc_hook)
+            got = delta(start)
+            launched = check_rounds(card_run["rounds"], {kernel}, f"controller ({part})")
+            if freeze is not None:
+                launched[V1] = launched.get(V1, 0) + card_run["warm"]["pack_dispatches"]
+            expect_launches(part, got, launched)
+            for key in ("nodes", "unbound", "resources", "created", "active"):
+                if card_run[key] != ref[key]:
+                    raise AssertionError(f"controller ({part}): {key} differs from the "
+                                         f"device='cpu' controller")
+            if card_run["resources"] != card_run["capacity"]:
+                raise AssertionError(f"controller ({part}): counter {card_run['resources']} != "
+                                     f"capacity {card_run['capacity']}")
+            for i, (r, w) in enumerate(zip(card_run["rounds"], card_run["walls"])):
+                log(f"[controller] ({part}) {what} round {i}: batch {r['pods']}, nodes "
+                    f"{r['nodes']}, {r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
+                    f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms, provision_once {w:.3f} ms")
+            gc_line = ""
+            if freeze is not None:
+                gc_line = (f"; after the warm-up ({card_run['warm']['packer_backend']}), "
+                           f"{'with' if freeze else 'without'} freeze_after_warmup: "
+                           f"{len(card_run['full_gc_ms'])} generation-2 collections in the "
+                           f"rounds, pauses {[round(t, 3) for t in card_run['full_gc_ms']]} ms"
+                           + (f" (the freeze's own collection "
+                              f"{[round(t, 3) for t in card_run['freeze_gc_ms']]} ms)"
+                              if freeze else ""))
+            log(f"[controller] ({part}) {what}: {len(card_run['rounds'])} rounds, "
+                f"{len(card_run['nodes'])} nodes, {len(card_run['unbound'])} pods unplaced, "
+                f"launches {got}; == the device='cpu' controller pod for pod (partition, "
+                f"instance types, zones, capacity types, labels, taints, finalizers, "
+                f"status.resources, Active){gc_line}; card {card}")
+            out[kernel][f"launches_{part}"] = got[kernel]
+            out["summary"][part] = {
+                "rounds": len(card_run["rounds"]), "nodes": len(card_run["nodes"]),
+                "unplaced": len(card_run["unbound"]),
+                "provision_once_ms": card_run["walls"],
+                "scheduling_ms": [r["scheduling_ms"] for r in card_run["rounds"]],
+            }
+            if freeze is not None:
+                out["summary"][part]["full_gc_ms"] = card_run["full_gc_ms"]
+                out["summary"][part]["freeze_gc_ms"] = card_run["freeze_gc_ms"]
+    return out
+
+
+def wire_lifecycle(manager, cluster, provider):
+    """The node lifecycle controllers on ``manager`` as the reference's
+    main.py registers them: termination and node (concurrency 10 each),
+    the node and pod metrics controllers (2 each), and their own watches.
+    Returns the TerminationController (its eviction queue has a thread to
+    stop)."""
+    from karpenter_tpu_torch.controllers.metrics_node import NodeMetricsController
+    from karpenter_tpu_torch.controllers.metrics_pod import PodMetricsController
+    from karpenter_tpu_torch.controllers.node import NodeController
+    from karpenter_tpu_torch.controllers.termination import TerminationController
+
+    termination = TerminationController(cluster, provider)
+    node = NodeController(cluster, cloud_provider=provider)
+    metrics_node = NodeMetricsController(cluster)
+    metrics_pod = PodMetricsController(cluster)
+    manager.register("termination", termination.reconcile, concurrency=10)
+    manager.register("node", node.reconcile, concurrency=10)
+    manager.register("metrics_node", metrics_node.reconcile, concurrency=2)
+    manager.register("metrics_pod", metrics_pod.reconcile, concurrency=2)
+    for controller in (node, termination, metrics_node, metrics_pod):
+        controller.register(manager)
+    return termination
+
+
+def live_cluster(device: str, teams: bool = False, owned: bool = False,
+                 finalizers: bool = False, n_nodes: int = 1000, **kw) -> tuple:
+    """The reference's consolidation benchmark cluster (bench.py:1255-1303,
+    BASELINE config 5): instance_types(400), Random(7), nodes live-{i} of a
+    random fake-it-300..399 type with 16 cpu / 32Gi / 100 pods in
+    test-zone-1 on-demand, each holding 1-3 bound pods of cpu 0.5/1/2 named
+    p-{i}-{j}. ``teams``: the same layout on the team mix
+    (instance_types_tradeoff(400), Random(9), types trade-it-300..399, node
+    i labelled team: t{i % 64}, its pods cpu 0.25/0.5/1 with that
+    nodeSelector, as bench.py:171-199). ``owned`` gives the pods a
+    ReplicaSet owner, ``finalizers`` the nodes the termination finalizer.
+    The ConsolidationController (``kw``) reaches the fake cloud through
+    cpmetrics.decorate. Returns (cluster, bare provider, provisioner,
+    controller)."""
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.api.objects import OwnerReference
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.cloudprovider.fake import (
+        FakeCloudProvider, instance_types, instance_types_tradeoff)
+    from karpenter_tpu_torch.cloudprovider.requirements import catalog_requirements
+    from karpenter_tpu_torch.controllers.consolidation import ConsolidationController
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+    from karpenter_tpu_torch.testing.factories import make_node
+
+    rng = random.Random(9 if teams else 7)
+    catalog = instance_types_tradeoff(400) if teams else instance_types(400)
+    prefix, sizes = ("trade-it", (0.25, 0.5, 1)) if teams else ("fake-it", (0.5, 1, 2))
+    cluster = Cluster()
+    provider = FakeCloudProvider(catalog)
+    prov = make_provisioner(solver="tpu")
+    c = prov.spec.constraints
+    c.requirements = c.requirements.merge(catalog_requirements(catalog))
+    cluster.create("provisioners", prov)
+    owner = OwnerReference(api_version="apps/v1", kind="ReplicaSet", name="rs") if owned else None
+    for i in range(n_nodes):
+        labels = {lbl.INSTANCE_TYPE: f"{prefix}-{rng.randrange(300, 400)}",
+                  lbl.TOPOLOGY_ZONE: "test-zone-1", lbl.CAPACITY_TYPE: "on-demand"}
+        selector = {"team": f"t{i % 64}"} if teams else None
+        if teams:
+            labels.update(selector)
+        node = make_node(name=f"live-{i}", capacity={"cpu": "16", "memory": "32Gi", "pods": "100"},
+                         provisioner_name="default", labels=labels,
+                         finalizers=[lbl.TERMINATION_FINALIZER] if finalizers else None)
+        cluster.create("nodes", node)
+        for j in range(rng.randrange(1, 4)):
+            cluster.create("pods", make_pod(
+                name=f"p-{i}-{j}", requests={"cpu": f"{rng.choice(sizes)}"},
+                node_selector=selector, node_name=node.metadata.name, unschedulable=False,
+                owner=owner))
+    ctl = ConsolidationController(cluster, cpmetrics.decorate(provider), device=device, **kw)
+    return cluster, provider, prov, ctl
+
+
+def plan_record(plan) -> dict:
+    """A consolidation plan with each node named by what it is (its type
+    and its pods), so plans over clusters whose launched nodes got other
+    names compare: the candidates, the pods, each proposed node's types and
+    pods in order, keep / retire (in retirement order) / launch, the moves,
+    both prices and worthwhile."""
+    from karpenter_tpu_torch.api import labels as lbl
+
+    def names(objs):
+        return [o.metadata.name for o in objs]
+
+    def node(n):
+        return (n.metadata.labels.get(lbl.INSTANCE_TYPE, ""),
+                tuple(sorted(names(plan.node_pods.get(n.metadata.name, [])))))
+
+    def vnodes(vs):
+        return [([it.name for it in v.instance_type_options], names(v.pods)) for v in vs]
+
+    return {
+        "nodes": [node(n) for n in plan.nodes], "pods": names(plan.pods),
+        "proposed": vnodes(plan.proposed), "keep": [node(n) for n in plan.keep],
+        "retire": [node(n) for n in plan.retire], "launch": vnodes(plan.launch),
+        "moves": names(plan.moves), "current_price": plan.current_price,
+        "proposed_price": plan.proposed_price, "worthwhile": plan.worthwhile,
+    }
+
+
+class PlanProbe:
+    """Times the host steps of ConsolidationController.plan around the
+    solve: _shadow_cluster with the pods' deep copies, minimal_move_match
+    with order_retirement, and the facade's build of its TorchScheduler;
+    keeps each plan's Scheduler for its stage profile. Patches the
+    consolidation module's names while open."""
+
+    def __init__(self, controller):
+        import copy
+
+        from karpenter_tpu_torch.controllers import consolidation as cons
+
+        self.times = {}
+        self.scheds = []
+        probe, base = self, cons.Scheduler
+
+        class Captured(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                probe.scheds.append(self)
+
+            @property
+            def torch(self):
+                if self._torch is not None:
+                    return self._torch
+                return probe.timed("backend_build", base.torch.fget)(self)
+
+        self._patches = [
+            mock.patch.object(cons, "Scheduler", Captured),
+            mock.patch.object(cons, "copy",
+                              mock.Mock(deepcopy=self.timed("shadow", copy.deepcopy))),
+            mock.patch.object(controller, "_shadow_cluster",
+                              self.timed("shadow", controller._shadow_cluster)),
+            mock.patch.object(cons, "minimal_move_match",
+                              self.timed("repack", cons.minimal_move_match)),
+            mock.patch.object(cons, "order_retirement",
+                              self.timed("repack", cons.order_retirement)),
+        ]
+
+    def timed(self, key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.times[key] = self.times.get(key, 0.0) + time.perf_counter() - t0
+
+        return run
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+    def take(self) -> dict:
+        times, self.times = self.times, {}
+        return {k: v * 1e3 for k, v in times.items()}
+
+
+def node_gauge_names(provisioner: str) -> set:
+    """The node names the karpenter_nodes_allocatable gauge holds for
+    ``provisioner``."""
+    from karpenter_tpu_torch import metrics
+
+    return {s.labels["node_name"] for fam in metrics.NODES_ALLOCATABLE.collect()
+            for s in fam.samples if s.labels.get("provisioner") == provisioner}
+
+
+def deprovision_phase(card: str, device: str = "cuda", n_nodes: int = 1000) -> dict:
+    """Phase 16: the deprovisioning plane on the card at the reference's
+    consolidation size. Returns the kernels line's ``deprovision``
+    entries."""
+    from karpenter_tpu_torch.api.objects import PodCondition
+    from karpenter_tpu_torch.controllers.consolidation import (
+        EVICT_WAVE_SIZE, WAVE_CHECK_INTERVAL)
+    from karpenter_tpu_torch.controllers.termination import TerminationController
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.testing import make_pod
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    out = {V1: {}, V2: {}, "summary": {}}
+
+    def counts() -> dict:
+        return {name: m.launches for name, m in modules.items()}
+
+    def delta(start: dict) -> dict:
+        return {name: n - start[name] for name, n in counts().items()}
+
+    def sync():
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+
+    def uploads() -> float:
+        return metric("karpenter_solver_session_catalog_uploads_total")
+
+    def card_plan(ctl, prov, probe, kernel, what) -> tuple:
+        """One plan on the card: its record, wall, profile and launches;
+        fails unless it launched ``kernel`` once per dispatch and nothing
+        else, and re-seated every pod."""
+        start, up = counts(), uploads()
+        t0 = time.perf_counter()
+        plan = ctl.plan(prov)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = delta(start)
+        prof = probe.scheds[-1].last_stage_profile()
+        if prof.get("packer_backend") != kernel:
+            raise AssertionError(f"deprovision ({what}): served by {prof.get('packer_backend')!r}")
+        expect_launches(f"deprovision {what}", got, {kernel: prof["pack_dispatches"]})
+        placed = sum(len(v.pods) for v in plan.proposed)
+        if placed != len(plan.pods):
+            raise AssertionError(f"deprovision ({what}): {len(plan.pods) - placed} pods dropped")
+        return plan, {"wall_ms": wall, "prof": prof, "launches": got[kernel],
+                      "uploads": uploads() - up, **probe.take()}
+
+    def plan_line(label, i, plan, m) -> str:
+        prof = m["prof"]
+        stages = " ".join(f"{k}={prof[k] * 1e3:.3f}ms" for k in (
+            "sort_s", "inject_s", "encode_s", "pack_fetch_s", "decode_s", "validate_s"))
+        return (f"[deprovision] ({label}) plan {i}: {m['wall_ms']:.3f} ms, "
+                f"{prof['packer_backend']} ({prof['pack_route']}, dispatches "
+                f"{prof['pack_dispatches']}), {stages}; shadow cluster + deep copies "
+                f"{m.get('shadow', 0.0):.3f} ms, minimal_move_match + order_retirement "
+                f"{m.get('repack', 0.0):.3f} ms, TorchScheduler build "
+                f"{m.get('backend_build', 0.0):.3f} ms, session uploads {m['uploads']:.0f}; "
+                f"nodes_in {len(plan.nodes)}, nodes_out {len(plan.proposed)} (keep "
+                f"{len(plan.keep)}, retire {len(plan.retire)}, launch {len(plan.launch)}), "
+                f"pods {len(plan.pods)}, repack_drops 0, savings_frac "
+                f"{plan.savings / max(plan.current_price, 1e-9):.6f}")
+
+    # -- (a) config 5 and (b) its team-mix twin: 1 warm-up + 5 plans -------
+    records = {}
+    for label, teams, kernel in (("a", False, V1), ("b", True, V2)):
+        _, _, cpu_prov, cpu_ctl = live_cluster("cpu", teams=teams, n_nodes=n_nodes)
+        with mock.patch.dict(os.environ, {"KARPENTER_PACKER": "native"}):
+            ref = plan_record(cpu_ctl.plan(cpu_prov))
+        del cpu_ctl
+        cluster, _, prov, ctl = live_cluster(device, teams=teams, n_nodes=n_nodes)
+        plans = []
+        with PlanProbe(ctl) as probe:
+            for i in range(6):
+                plan, m = card_plan(ctl, prov, probe, kernel, f"{label} plan {i}")
+                if plan_record(plan) != ref:
+                    raise AssertionError(f"deprovision ({label}) plan {i} differs from the "
+                                         f"device='cpu' plan")
+                log(plan_line(label, "warm-up" if i == 0 else i, plan, m))
+                plans.append(m)
+        records[label] = ref
+        out[kernel][f"launches_{label}"] = sum(m["launches"] for m in plans[1:])
+        out[kernel][f"launches_{label}_warmup"] = plans[0]["launches"]
+        walls = [m["wall_ms"] for m in plans]
+        log(f"[deprovision] ({label}) {'team mix' if teams else 'config 5'}: 6 plans (the first "
+            f"the warm-up), each a new Scheduler: walls {[round(w, 3) for w in walls]} ms, "
+            f"TorchScheduler builds {[round(m.get('backend_build', 0.0), 3) for m in plans]} ms, "
+            f"session uploads {[int(m['uploads']) for m in plans]}; every plan == the "
+            f"device='cpu' plan (native packer), {kernel} only, 0 drops, worthwhile "
+            f"{ref['worthwhile']}; card {card}")
         out["summary"][label] = {
-            "rounds": len(card_run["rounds"]), "nodes": len(card_run["nodes"]),
-            "unplaced": len(card_run["unbound"]),
-            "provision_once_ms": card_run["walls"],
-            "scheduling_ms": [r["scheduling_ms"] for r in card_run["rounds"]],
+            "nodes_in": len(ref["nodes"]), "nodes_out": len(ref["proposed"]),
+            "pods": len(ref["pods"]), "plan_ms": walls,
+            "backend_build_ms": [m.get("backend_build", 0.0) for m in plans],
+            "shadow_ms": [m.get("shadow", 0.0) for m in plans],
+            "repack_ms": [m.get("repack", 0.0) for m in plans],
+            "pack_fetch_ms": [m["prof"]["pack_fetch_s"] * 1e3 for m in plans],
+            "dispatches": [m["prof"]["pack_dispatches"] for m in plans],
+            "savings_frac": (ref["current_price"] - ref["proposed_price"]) / ref["current_price"],
         }
+        del cluster, ctl, plans
+
+    # -- (c) execute (a)'s plan, bind migration, under a Manager -----------
+    def ready(cluster, nodes):
+        # no kubelet here: the launched nodes report Ready by hand
+        for n in nodes:
+            cluster.get("nodes", n.metadata.name, namespace="").status.conditions = [
+                PodCondition(type="Ready", status="True")]
+
+    cluster, provider, prov, ctl = live_cluster(device, finalizers=True, n_nodes=n_nodes)
+    manager, provisioning, _ = wire_controllers(cluster, provider, device, start_workers=False)
+    termination = wire_lifecycle(manager, cluster, provider)
+    manager.start()
+    start = counts()
+    try:
+        with PlanProbe(ctl) as probe:
+            plan, m = card_plan(ctl, prov, probe, V1, "c plan")
+        if plan_record(plan) != records["a"] or not plan.worthwhile:
+            raise AssertionError("deprovision (c): the plan differs from (a)'s")
+        binds = {}
+        bind = cluster.bind
+
+        def counting_bind(pod, node_name):
+            binds.setdefault(pod.key, []).append(node_name)
+            bind(pod, node_name)
+
+        cluster.bind = counting_bind
+        retired = {n.metadata.name for n in plan.retire}
+        t0 = time.perf_counter()
+        launched = ctl.execute(plan)
+        execute_ms = (time.perf_counter() - t0) * 1e3
+        ready(cluster, launched)
+        deadline = time.time() + 120
+        while time.time() < deadline and any(
+                cluster.try_get("nodes", n, namespace="") is not None for n in retired):
+            time.sleep(0.005)
+        gone_ms = (time.perf_counter() - t0) * 1e3
+        left = [n for n in retired if cluster.try_get("nodes", n, namespace="") is not None]
+        if left:
+            raise AssertionError(f"deprovision (c): {len(left)} retired nodes not terminated")
+        launched_names = {n.metadata.name for n in launched}
+        moved = {p.key for p in plan.moves}
+        wrong = {k: v for k, v in binds.items() if len(v) != 1 or v[0] not in launched_names}
+        if set(binds) != moved or wrong:
+            raise AssertionError(f"deprovision (c): {len(moved)} moved pods, {len(binds)} bound, "
+                                 f"{len(wrong)} bound twice or off a launched node")
+        if sorted(provider.delete_calls) != sorted(retired):
+            raise AssertionError(f"deprovision (c): {len(provider.delete_calls)} cloud deletes "
+                                 f"for {len(retired)} retired nodes")
+        live = {n.metadata.name for n in cluster.nodes()}
+        if live != {n.metadata.name for n in plan.keep} | launched_names:
+            raise AssertionError("deprovision (c): live nodes != kept + launched")
+        capacity = fits_and_counts(cluster, "default", "deprovision (c)")
+        deadline = time.time() + 60
+        while time.time() < deadline and (counted(cluster, "default") != capacity
+                                          or node_gauge_names("default") != live):
+            time.sleep(0.01)
+        if counted(cluster, "default") != capacity:
+            raise AssertionError(f"deprovision (c): counter {counted(cluster, 'default')} != "
+                                 f"capacity {capacity}")
+        if node_gauge_names("default") != live:
+            raise AssertionError("deprovision (c): the node gauges do not cover the live nodes")
+        with PlanProbe(ctl) as probe:
+            again, m2 = card_plan(ctl, prov, probe, V1, "c second plan")
+    finally:
+        manager.stop()
+        provisioning.stop()
+        termination.stop()
+    c_launches = delta(start)
+    # the cpu twin: the same plan executed, termination inline, planned again
+    cpu_cluster, cpu_provider, cpu_prov, cpu_ctl = live_cluster("cpu", finalizers=True,
+                                                                n_nodes=n_nodes)
+    with mock.patch.dict(os.environ, {"KARPENTER_PACKER": "native"}):
+        cpu_plan = cpu_ctl.plan(cpu_prov)
+        cpu_launched = cpu_ctl.execute(cpu_plan)
+        cpu_term = TerminationController(cpu_cluster, cpu_provider, start_queue=False)
+        for n in cpu_plan.retire:
+            cpu_term.reconcile(n.metadata.name)
+        ready(cpu_cluster, cpu_launched)
+        cpu_again = cpu_ctl.plan(cpu_prov)
+    if plan_record(again) != plan_record(cpu_again):
+        raise AssertionError("deprovision (c): the second plan differs from the device='cpu' one")
+    log(f"[deprovision] (c) bind migration of (a)'s plan under a Manager (provisioning, "
+        f"selection, node, termination, counter, pvc, metrics): execute {execute_ms:.3f} ms, "
+        f"execute -> last of {len(retired)} retired nodes gone {gone_ms:.3f} ms; "
+        f"{len(launched)} launched through the metered fake cloud, {len(binds)} pods bound "
+        f"once each to a launched node, {len(provider.delete_calls)} cloud deletes, live = "
+        f"{len(plan.keep)} kept + {len(launched)} launched, counter == capacity {capacity}, "
+        f"node gauges == the {len(live)} live nodes; plan {m['wall_ms']:.3f} ms; second plan "
+        f"{m2['wall_ms']:.3f} ms: keep {len(again.keep)}, retire {len(again.retire)}, "
+        f"worthwhile {again.worthwhile}, == the device='cpu' second plan; launches "
+        f"{c_launches}; card {card}")
+    out[V1]["launches_c"] = c_launches[V1]
+    out["summary"]["c"] = {
+        "execute_ms": execute_ms, "retired_gone_ms": gone_ms, "launched": len(launched),
+        "retired": len(retired), "second_keep": len(again.keep),
+        "second_retire": len(again.retire),
+    }
+    del cluster, ctl, cpu_cluster, cpu_ctl, manager, provisioning, termination
+
+    # -- (d) the evict migration end to end --------------------------------
+    cluster, provider, prov, ctl = live_cluster(device, owned=True, finalizers=True,
+                                                n_nodes=n_nodes, migration="evict")
+    manager, provisioning, _ = wire_controllers(cluster, provider, device, start_workers=True)
+    termination = wire_lifecycle(manager, cluster, provider)
+    by_node = {}
+    for p in cluster.pods():
+        by_node.setdefault(p.spec.node_name, []).append(p.metadata.name)
+    recreated = {}
+
+    def replicaset(event, pod):
+        # the owner's controller: an evicted pod comes back pending
+        if event == "DELETED" and pod.metadata.owner_references and pod.spec.node_name:
+            clone = make_pod(name=f"{pod.metadata.name}-r",
+                             requests={"cpu": str(pod.spec.containers[0].requests["cpu"])},
+                             owner=pod.metadata.owner_references[0])
+            recreated[pod.metadata.name] = clone
+            cluster.create("pods", clone)
+
+    cluster.watch("pods", replicaset)
+    manager.start()
+    start = counts()
+    try:
+        manager.enqueue("provisioning", "default")
+        deadline = time.time() + 120
+        while time.time() < deadline and not provisioning.workers:
+            time.sleep(0.01)
+        worker = provisioning.workers["default"]
+        worker.batcher.idle_duration = 0.05
+        if not worker.warmed.wait(timeout=600):
+            raise AssertionError("deprovision (d): the worker's warm-up never finished")
+        warm = worker.scheduler.last_stage_profile()
+        rounds = []
+        record_rounds(worker, rounds)
+        with PlanProbe(ctl) as probe:
+            t0 = time.perf_counter()
+            requeue = ctl.reconcile("default")
+            first = probe.scheds[-1].last_stage_profile()
+            victims = list(ctl._pending_waves["default"][0])
+            if len(victims) != EVICT_WAVE_SIZE or requeue != WAVE_CHECK_INTERVAL:
+                raise AssertionError(f"deprovision (d): first wave {victims}, requeue {requeue}")
+            evicted = sorted(p for v in victims for p in by_node[v])
+            deadline = time.time() + 120
+            while time.time() < deadline and not ctl.wave_settled("default"):
+                time.sleep(0.005)
+            settle_ms = (time.perf_counter() - t0) * 1e3
+            if not ctl.wave_settled("default"):
+                raise AssertionError("deprovision (d): the wave never settled")
+            seated = [p for p in recreated.values() if p.spec.node_name]
+            if sorted(recreated) != evicted or len(seated) != len(evicted):
+                raise AssertionError(f"deprovision (d): {len(evicted)} evicted, "
+                                     f"{len(recreated)} recreated, {len(seated)} seated")
+            if any(cluster.try_get("nodes", v, namespace="") is not None for v in victims) \
+                    or not set(victims) <= set(provider.delete_calls):
+                raise AssertionError("deprovision (d): a victim was not terminated")
+            first_rounds = list(rounds)
+            check_rounds(first_rounds, {V1}, "deprovision (d)")
+            before_next = set(ctl.ledger._in_flight.get("default", ()))
+            ctl.reconcile("default")
+            second = probe.scheds[-1].last_stage_profile()
+            next_wave = ctl._pending_waves.get("default", ((),))[0]
+            if not 0 < len(next_wave) <= EVICT_WAVE_SIZE or before_next or \
+                    set(next_wave) & set(victims):
+                raise AssertionError(f"deprovision (d): next wave {next_wave}")
+    finally:
+        manager.stop()
+        provisioning.stop()
+        termination.stop()
+    # the next wave's evictions keep the worker busy until the Manager
+    # stops: its rounds count too, once its thread is done
+    worker._thread.join(timeout=120)
+    if worker._thread.is_alive():
+        raise AssertionError("deprovision (d): the provisioning worker did not stop")
+    provisioned = check_rounds(rounds, {V1}, "deprovision (d)")
+    d_launches = delta(start)
+    want = {V1: warm["pack_dispatches"] + first["pack_dispatches"] + second["pack_dispatches"]
+            + provisioned.get(V1, 0)}
+    expect_launches("deprovision d", d_launches, want)
+    log(f"[deprovision] (d) evict migration: the first reconcile retired {len(victims)} nodes "
+        f"(EVICT_WAVE_SIZE {EVICT_WAVE_SIZE}), termination drained them and the cloud deleted "
+        f"them, {len(evicted)} evicted pods recreated pending and seated by "
+        f"{len(first_rounds)} card provisioning round(s) (batches "
+        f"{[r['pods'] for r in first_rounds]}, SCHEDULING_DURATION "
+        f"{[round(r['scheduling_ms'], 3) for r in first_rounds]} ms); reconcile -> "
+        f"wave_settled {settle_ms:.3f} ms; the next reconcile retired {len(next_wave)}; "
+        f"launches {d_launches} (the worker's warm-up, 2 plans, {len(rounds)} rounds in all "
+        f"before the Manager stopped); card {card}")
+    out[V1]["launches_d"] = d_launches[V1]
+    out["summary"]["d"] = {
+        "victims": len(victims), "evicted": len(evicted), "rounds": len(first_rounds),
+        "settle_ms": settle_ms, "next_wave": len(next_wave),
+    }
+    del cluster, ctl, manager, provisioning, termination
+
+    # -- (e) one plan of (a) through the card sidecar -----------------------
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        log("[deprovision] grpc not installed on this host: (e) is held by the CPU tests")
+        return out
+    from karpenter_tpu_torch.solver import service as S
+
+    address = free_address()
+    server = S.serve(address, service=S.SolverService(device=device))
+    start = counts()
+    try:
+        _, _, prov, ctl = live_cluster("cpu", n_nodes=n_nodes, solver_service_address=address)
+        with mock.patch.dict(os.environ, {"KARPENTER_PACKER": "fused"}), PlanProbe(ctl) as probe:
+            t0 = time.perf_counter()
+            plan = ctl.plan(prov)
+            wall = (time.perf_counter() - t0) * 1e3
+            prof = probe.scheds[-1].last_stage_profile()
+        served_by = dict(server.solver_service.served)
+    finally:
+        server.stop(grace=None)
+    e_launches = delta(start)
+    if prof.get("packer_backend") != "sidecar" or plan_record(plan) != records["a"]:
+        raise AssertionError(f"deprovision (e): served by {prof.get('packer_backend')!r}, "
+                             f"equal to (a): {plan_record(plan) == records['a']}")
+    if device == "cuda":
+        expect_launches("deprovision e", e_launches, {V1: served_by.get(V1, 0)})
+    log(f"[deprovision] (e) one (a) plan through the card sidecar: {wall:.3f} ms, the sidecar "
+        f"served {served_by}, wire_ser_s {prof.get('wire_ser_s', 0) * 1e3:.3f} ms, "
+        f"pack_fetch_s {prof['pack_fetch_s'] * 1e3:.3f} ms; == the in-process plan; launches "
+        f"{e_launches}; card {card}")
+    out[V1]["launches_e"] = e_launches[V1]
+    out["summary"]["e"] = {"plan_ms": wall, "served": served_by}
     return out
 
 
@@ -3651,7 +4264,10 @@ def main() -> int:
     observed = obs_phase(dev, card, classes, catalogs, batches)
 
     # -- 15. controller ---------------------------------------------------
-    controller = controller_phase(card)
+    controller = controller_phase(card, gc_hook=gc_hook)
+
+    # -- 16. deprovision --------------------------------------------------
+    deprovision = deprovision_phase(card)
 
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
@@ -3674,6 +4290,7 @@ def main() -> int:
         "stream": stream["pack_first_fit"],
         "obs": {**observed["pack_first_fit"], **observed["summary"]},
         "controller": {**controller["pack_first_fit"], **controller["summary"]},
+        "deprovision": {**deprovision["pack_first_fit"], **deprovision["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -3698,6 +4315,7 @@ def main() -> int:
         "stream": stream["pack_first_fit_v2"],
         "obs": {**observed["pack_first_fit_v2"], **observed["summary"]},
         "controller": {**controller["pack_first_fit_v2"], **controller["summary"]},
+        "deprovision": {**deprovision["pack_first_fit_v2"], **deprovision["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

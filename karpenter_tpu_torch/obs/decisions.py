@@ -30,8 +30,9 @@ This module is the flight-recorder twin for decisions (the port's copy of
   annotation. A round that places the pod
   resets its streak.
 
-``record_consolidation`` is not ported yet: nothing in the port runs a
-consolidation wave.
+- :meth:`DecisionLog.record_consolidation` records one consolidation
+  wave (victims, nodes kept in place, pod moves, hourly savings); its id
+  is stamped on the wave's events.
 """
 
 from __future__ import annotations
@@ -456,6 +457,64 @@ class DecisionLog:
             metrics.DECISIONS_DROPPED.labels(reason=reason).inc()
         except Exception:
             pass
+
+    def record_consolidation(
+        self,
+        provisioner: str,
+        victims: List[str],
+        keep: int,
+        moves: int,
+        savings: float,
+        context: Optional[Dict[str, Any]] = None,
+        trace_id: str = "",
+    ) -> Optional[Dict[str, Any]]:
+        """Record one consolidation wave decision: which nodes the re-pack
+        retires, how many it left untouched (the minimal-move objective's
+        receipt), how many pod moves the wave costs, and the hourly
+        savings that justify it. The record id is what every wave event
+        carries — `/decisions/<id>` answers
+        "why is consolidation draining my node". Same contract as
+        ``record_round``: NEVER raises, never fails the wave."""
+        if not enabled():
+            return None
+        try:
+            with self._lock:
+                self._seq += 1
+                seq = self._seq
+            rec_id = f"d-{os.urandom(8).hex()}"
+            record: Dict[str, Any] = {
+                "id": rec_id,
+                "recorded_at": self.clock(),
+                "provisioner": provisioner,
+                "trace_id": trace_id,
+                "kind": "consolidation",
+                "route": (context or {}).get("route"),
+                "state": {
+                    "victims": list(victims),
+                    "kept_nodes": int(keep),
+                    "moves": int(moves),
+                    "savings_per_hour": float(savings),
+                    **{
+                        k: v for k, v in (context or {}).items()
+                        if k not in ("batch", "assignment", "n_max")
+                    },
+                },
+                "pods_considered": int(moves),
+                "nodes": len(victims) + int(keep),
+                "unschedulable_count": 0,
+                "unschedulable": [],
+                "_pods": [],
+                "_nodes": [],
+            }
+            self._enqueue_write(record, None, None, None, seq)
+            with self._lock:
+                self._records.append(record)
+                self._last_id_by_provisioner[provisioner] = rec_id
+            return record
+        except Exception:
+            logger.debug("consolidation decision record failed", exc_info=True)
+            self._count_drop("error")
+            return None
 
     def _enqueue_write(self, record, batch, assignment, n_max, seq) -> None:
         """Hand the record to the writer thread. The hot path pays only

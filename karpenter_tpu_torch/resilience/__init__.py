@@ -5,10 +5,12 @@ scheduler keeps its per-shape-class pack breakers on and the metered cloud
 provider its per-method breakers, the
 :class:`BreakerOpen` a caller raises when a breaker refuses a call, the
 solver wire's typed verdicts (:class:`IntegrityError`,
-:class:`OverloadedError`, :class:`DeadlineExceededError`), and the round
+:class:`OverloadedError`, :class:`DeadlineExceededError`), the round
 :class:`Budget` with :func:`decorrelated_jitter` backoff, the
-:class:`RetryPolicy` the metered cloud provider retries through, and the
-``@idempotent`` marker that opts a callable into its retries."""
+:class:`RetryPolicy` the metered cloud provider retries through, the
+``@idempotent`` marker that opts a callable into its retries, and the
+:class:`MissTracker` that debounces a cloud's describe misses before a
+node counts as gone."""
 
 from karpenter_tpu_torch.resilience.breaker import (  # noqa: F401
     BreakerBoard,
@@ -16,6 +18,7 @@ from karpenter_tpu_torch.resilience.breaker import (  # noqa: F401
     CircuitBreaker,
 )
 from karpenter_tpu_torch.resilience.integrity import IntegrityError  # noqa: F401
+from karpenter_tpu_torch.resilience.liveness import MissTracker  # noqa: F401
 from karpenter_tpu_torch.resilience.markers import idempotent, is_idempotent  # noqa: F401
 from karpenter_tpu_torch.resilience.overload import (  # noqa: F401
     DeadlineExceededError,

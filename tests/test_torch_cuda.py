@@ -1153,3 +1153,93 @@ def test_warmup_and_first_round_share_one_card_scheduler(cuda):
     finally:
         controller.stop()
     assert dispatches and pack_kernel.launches - before == 1 + sum(dispatches)
+
+
+# -- the deprovisioning plane on the card ------------------------------------
+
+
+@pytest.mark.parametrize("teams,kernel", [(False, pack_kernel), (True, pack_kernel_v2)],
+                         ids=["config5", "team-mix"])
+def test_consolidation_plan_on_card_equals_the_cpu_plan(cuda, teams, kernel):
+    """A re-pack of 200 live nodes (the config-5 layout and its team-mix
+    twin) on a card controller: one launch of its kernel, the plan equal to
+    a device="cpu" controller's name for name."""
+    from torch_parity import deprov, live_fleet, packer, plan_view
+
+    M = deprov("karpenter_tpu_torch")
+    views = {}
+    for device in ("cuda", "cpu"):
+        _, _, prov, ctl = live_fleet(M, teams=teams, n_nodes=200, device=device)
+        before = (pack_kernel.launches, pack_kernel_v2.launches)
+        with packer(None if device == "cuda" else "fused"):
+            views[device] = plan_view(ctl.plan(prov))
+        launched = (pack_kernel.launches - before[0], pack_kernel_v2.launches - before[1])
+        if device == "cuda":
+            assert launched == ((0, 1) if teams else (1, 0))
+    assert views["cuda"] == views["cpu"] and views["cuda"]["worthwhile"]
+
+
+def evict_wave_on_a_manager(device: str) -> dict:
+    """An evict wave of a card controller under a Manager holding the
+    ported controllers (consolidation reconciled by hand): termination
+    drains the victims, their pods are recreated pending, as a ReplicaSet
+    would, and the provisioning worker seats them; then the wave settles
+    and the next reconcile retires at most one more wave."""
+    import time
+
+    from torch_parity import deprov, fleet, stop, wire_all
+
+    M = deprov("karpenter_tpu_torch")
+    cluster, provider, prov, ctl = fleet(M, 12, solver="tpu", owned=True, finalizers=True,
+                                         migration="evict", device=device)
+    wired = wire_all(M, cluster, provider, device=device)
+    wired.manager.start()
+    try:
+        wired.manager.enqueue("provisioning", "default")
+        deadline = time.time() + 300
+        while time.time() < deadline and not wired.provisioning.workers:
+            time.sleep(0.01)
+        worker = wired.provisioning.workers["default"]
+        worker.batcher.idle_duration = 0.05
+        assert worker.warmed.wait(timeout=300)
+        recreated = {}
+
+        def replicaset(event, pod):
+            # the owner's controller: an evicted pod comes back pending
+            if event == "DELETED" and pod.metadata.owner_references and pod.spec.node_name:
+                recreated[pod.metadata.name] = M.f.make_pod(
+                    name=f"{pod.metadata.name}-r", requests={"cpu": "0.5"},
+                    owner=pod.metadata.owner_references[0])
+                cluster.create("pods", recreated[pod.metadata.name])
+
+        cluster.watch("pods", replicaset)
+        launches = pack_kernel.launches
+        ctl.reconcile("default")
+        victims = ctl._pending_waves["default"][0]
+        evicted = sorted(f"pod-{v[len('big-'):]}-0" for v in victims)  # one pod a node
+        deadline = time.time() + 120
+        while time.time() < deadline and not ctl.wave_settled("default"):
+            time.sleep(0.02)
+        settled = ctl.wave_settled("default")
+        before_next = {n.metadata.name for n in cluster.nodes()}
+        ctl.reconcile("default")
+        return {
+            "victims": victims, "settled": settled, "recreated": sorted(recreated),
+            "evicted": evicted, "victims_left": [v for v in victims
+                                                       if cluster.try_get("nodes", v, namespace="")],
+            "seated": all(p.spec.node_name for p in recreated.values()),
+            "deleted": sorted(provider.delete_calls), "launches": pack_kernel.launches - launches,
+            "next_wave": len(before_next - {n.metadata.name for n in cluster.nodes()
+                                            if n.metadata.deletion_timestamp is None}),
+        }
+    finally:
+        stop(wired)
+
+
+def test_evict_wave_drains_on_a_card_manager(cuda):
+    out = evict_wave_on_a_manager("cuda")
+    assert len(out["victims"]) == 5 and out["settled"] and out["victims_left"] == []
+    assert out["recreated"] == out["evicted"] and out["seated"]
+    assert out["deleted"] == sorted(out["victims"])
+    assert out["launches"] >= 2  # the plan and the recreations' round
+    assert 0 < out["next_wave"] <= 5

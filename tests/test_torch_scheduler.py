@@ -118,7 +118,10 @@ def test_importing_the_port_loads_no_jax():
         "    'solver.router', 'solver.native', 'solver.integrity', 'resilience.breaker',\n"
         "    'kube.events', 'solver.stream', 'solver.pool', 'testing.chaos',\n"
         "    'controllers.provisioning', 'controllers.selection', 'controllers.manager',\n"
-        "    'utils.batcher', 'kube.serde', 'cloudprovider.metrics', 'interruption.types'))\n"
+        "    'utils.batcher', 'kube.serde', 'cloudprovider.metrics', 'interruption.types',\n"
+        "    'controllers.consolidation', 'controllers.termination', 'controllers.node',\n"
+        "    'controllers.metrics_node', 'controllers.metrics_pod', 'solver.repack',\n"
+        "    'resilience.liveness', 'utils.gcpolicy', 'utils.node'))\n"
         "bad += ['grpc'] if 'grpc' in sys.modules else []\n"
         "print(n, new, bad)\n"
     )

@@ -312,3 +312,166 @@ def synth_fields(P, S, F, R, C, n_hosts, seed=0, pkg="karpenter_tpu_torch") -> d
         open_sig_by_core=open_sig_by_core,
         base_has_hostname=True,
     ), pkg)
+
+
+# -- the deprovisioning plane (consolidation, budget, node lifecycle) -------
+
+
+def deprov(pkg: str) -> SimpleNamespace:
+    """The deprovisioning plane's modules, from one package."""
+    def m(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    return SimpleNamespace(
+        pkg=pkg, lbl=m("api.labels"), O=m("api.objects"), fake=m("cloudprovider.fake"),
+        catreq=m("cloudprovider.requirements"), Cluster=m("kube.client").Cluster,
+        f=m("testing.factories"), res=m("utils.resources"), metrics=m("metrics"),
+        cons=m("controllers.consolidation"), dis=m("controllers.disruption"),
+        repack=m("solver.repack"), term=m("controllers.termination"),
+        node=m("controllers.node"), mnode=m("controllers.metrics_node"),
+        mpod=m("controllers.metrics_pod"), manager=m("controllers.manager"),
+        prov=m("controllers.provisioning"), sel=m("controllers.selection"),
+        counter=m("controllers.counter"), pvc=m("controllers.pvc"),
+        ffd=m("scheduling.ffd"), gcpolicy=m("utils.gcpolicy"),
+        liveness=m("resilience.liveness"), brownout=m("resilience.brownout"),
+    )
+
+
+def on_cpu(M, kw: dict) -> dict:
+    """``kw`` with ``device="cpu"`` for the port's controllers."""
+    if M.pkg == "karpenter_tpu_torch":
+        kw.setdefault("device", "cpu")
+    return kw
+
+
+def fleet(M, n_nodes, solver="ffd", catalog=None, clock=None, owned=False,
+          finalizers=False, pods_per_node=1, itype="fake-it-19", budget=None, **kw):
+    """The reference consolidation tests' cluster: ``n_nodes`` big nodes
+    (20 cpu), each nearly empty (``pods_per_node`` pods of cpu 0.5 named
+    ``pod-{i}-{j}``), a provisioner with the catalog's requirements, and a
+    ConsolidationController (``kw``). ``owned`` gives the pods a ReplicaSet
+    owner (evict mode needs one), ``finalizers`` the nodes the termination
+    finalizer. Returns (cluster, provider, provisioner, controller)."""
+    lbl = M.lbl
+    cluster = M.Cluster(clock=clock) if clock else M.Cluster()
+    provider = M.fake.FakeCloudProvider(catalog if catalog is not None else M.fake.instance_types(20))
+    provisioner = M.f.make_provisioner(solver=solver)
+    provisioner.spec.disruption_budget = budget
+    c = provisioner.spec.constraints
+    c.requirements = c.requirements.merge(M.catreq.catalog_requirements(provider.get_instance_types()))
+    cluster.create("provisioners", provisioner)
+    controller = M.cons.ConsolidationController(cluster, provider, **on_cpu(M, kw))
+    owner = M.O.OwnerReference(api_version="apps/v1", kind="ReplicaSet", name="rs") if owned else None
+    for i in range(n_nodes):
+        node = M.f.make_node(
+            name=f"big-{i}", capacity={"cpu": "20", "memory": "40Gi", "pods": "200"},
+            provisioner_name="default",
+            labels={lbl.INSTANCE_TYPE: itype, lbl.TOPOLOGY_ZONE: "test-zone-1",
+                    lbl.CAPACITY_TYPE: "on-demand"},
+            finalizers=[lbl.TERMINATION_FINALIZER] if finalizers else None,
+        )
+        cluster.create("nodes", node)
+        for j in range(pods_per_node):
+            cluster.create("pods", M.f.make_pod(
+                name=f"pod-{i}-{j}", requests={"cpu": "0.5"}, node_name=node.metadata.name,
+                unschedulable=False, owner=owner))
+    return cluster, provider, provisioner, controller
+
+
+def live_fleet(M, teams=False, n_nodes=1000, owned=False, finalizers=False, solver="tpu", **kw):
+    """The reference's consolidation benchmark cluster (``bench.py:1255-1303``,
+    BASELINE config 5): ``instance_types(400)``, ``Random(7)``, nodes
+    ``live-{i}`` of a random ``fake-it-300..399`` type with 16 cpu / 32Gi /
+    100 pods in test-zone-1 on-demand, each holding 1-3 bound pods of cpu
+    0.5/1/2. ``teams``: the same layout on the team mix
+    (``instance_types_tradeoff(400)``, ``Random(9)``, types
+    ``trade-it-300..399``, node i labelled ``team: t{i % 64}``, its pods cpu
+    0.25/0.5/1 with that ``nodeSelector``). Returns (cluster, provider,
+    provisioner, controller)."""
+    lbl = M.lbl
+    rng = random.Random(9 if teams else 7)
+    catalog = M.fake.instance_types_tradeoff(400) if teams else M.fake.instance_types(400)
+    prefix, sizes = ("trade-it", (0.25, 0.5, 1)) if teams else ("fake-it", (0.5, 1, 2))
+    cluster = M.Cluster()
+    provider = M.fake.FakeCloudProvider(catalog)
+    provisioner = M.f.make_provisioner(solver=solver)
+    c = provisioner.spec.constraints
+    c.requirements = c.requirements.merge(M.catreq.catalog_requirements(catalog))
+    cluster.create("provisioners", provisioner)
+    owner = M.O.OwnerReference(api_version="apps/v1", kind="ReplicaSet", name="rs") if owned else None
+    for i in range(n_nodes):
+        labels = {lbl.INSTANCE_TYPE: f"{prefix}-{rng.randrange(300, 400)}",
+                  lbl.TOPOLOGY_ZONE: "test-zone-1", lbl.CAPACITY_TYPE: "on-demand"}
+        selector = {"team": f"t{i % 64}"} if teams else None
+        if teams:
+            labels.update(selector)
+        node = M.f.make_node(
+            name=f"live-{i}", capacity={"cpu": "16", "memory": "32Gi", "pods": "100"},
+            provisioner_name="default", labels=labels,
+            finalizers=[lbl.TERMINATION_FINALIZER] if finalizers else None)
+        cluster.create("nodes", node)
+        for j in range(rng.randrange(1, 4)):
+            cluster.create("pods", M.f.make_pod(
+                name=f"p-{i}-{j}", requests={"cpu": f"{rng.choice(sizes)}"},
+                node_selector=selector, node_name=node.metadata.name, unschedulable=False,
+                owner=owner))
+    controller = M.cons.ConsolidationController(cluster, provider, **on_cpu(M, kw))
+    return cluster, provider, provisioner, controller
+
+
+def plan_view(plan) -> dict:
+    """A consolidation plan by names: the candidates and their pods, each
+    proposed node's instance types and pods in order, keep / retire (in
+    retirement order) / launch, the moves, both prices and worthwhile."""
+    def names(objs):
+        return [o.metadata.name for o in objs]
+
+    def vnodes(vs):
+        return [([it.name for it in v.instance_type_options], names(v.pods)) for v in vs]
+
+    return {
+        "nodes": names(plan.nodes), "pods": names(plan.pods), "proposed": vnodes(plan.proposed),
+        "keep": names(plan.keep), "retire": names(plan.retire), "launch": vnodes(plan.launch),
+        "moves": names(plan.moves), "current_price": plan.current_price,
+        "proposed_price": plan.proposed_price, "worthwhile": plan.worthwhile,
+    }
+
+
+def wire_all(M, cluster, provider, consolidation=None, start_workers=True, **kw):
+    """The reference ``main.py:354-466`` wiring of every ported controller
+    on one Manager: the names, the concurrency and the watches. Returns a
+    namespace holding the Manager and each controller; ``stop(ns)`` stops
+    them."""
+    kw = on_cpu(M, kw)
+    manager = M.manager.Manager(cluster)
+    provisioning = M.prov.ProvisioningController(cluster, provider, start_workers=start_workers, **kw)
+    out = SimpleNamespace(
+        manager=manager, provisioning=provisioning,
+        selection=M.sel.SelectionController(cluster, provisioning, wait=False),
+        termination=M.term.TerminationController(cluster, provider, start_queue=start_workers),
+        node=M.node.NodeController(cluster, cloud_provider=provider),
+        consolidation=consolidation, counter=M.counter.CounterController(cluster),
+        pvc=M.pvc.PVCController(cluster), metrics_node=M.mnode.NodeMetricsController(cluster),
+        metrics_pod=M.mpod.PodMetricsController(cluster),
+    )
+    for name, concurrency in (("provisioning", 10), ("selection", 32), ("termination", 10),
+                              ("node", 10), ("consolidation", 2), ("counter", 2), ("pvc", 2),
+                              ("metrics_node", 2), ("metrics_pod", 2)):
+        controller = getattr(out, name)
+        if controller is not None:
+            manager.register(name, controller.reconcile, concurrency=concurrency)
+    cluster.watch("provisioners", lambda e, o: manager.enqueue("provisioning", o.metadata.name))
+    cluster.watch("pods", lambda e, o: manager.enqueue(
+        "selection", (o.metadata.name, o.metadata.namespace)))
+    for name in ("node", "consolidation", "counter", "pvc", "termination", "metrics_node",
+                 "metrics_pod"):
+        controller = getattr(out, name)
+        if controller is not None:
+            controller.register(manager)
+    return out
+
+
+def stop(wired) -> None:
+    wired.manager.stop()
+    wired.provisioning.stop()
+    wired.termination.stop()
