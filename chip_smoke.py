@@ -282,6 +282,45 @@ Phases (any failure exits non-zero; nothing is swallowed):
              EVICT_WAVE_SIZE more. (e) when grpc imports: one (a) plan of a
              device="cpu" controller through serve() on the card equals the
              in-process plan;
+17. interruption — (after phase 16) interruption and crash-safe launch at
+             full width; each part reads both kernels' launch counters
+             around itself and fails where they differ from its rounds'
+             pack_dispatches, the warm-ups included. (a) spot churn
+             (bench.py:1308-1402 with the headline's catalog and count): a
+             Manager with provisioning (a FileLaunchJournal), selection,
+             node, termination, counter, pvc, interruption (poll 0.1 s) and
+             garbage collection over a decorated
+             FakeCloudProvider(instance_types(400)), a solver: tpu
+             provisioner with batch idle 0.2 s; 10,000 pods (cpu
+             0.1/0.25/0.5, Random(17)) bound, then 5 rounds each preempting
+             ceil(5%) of the live nodes (grace 120 s) and waiting until every
+             victim is gone and every released pod is bound again: notices,
+             pods replaced, notice->re-bind lead time p50 and p99, each
+             replacement round's batch, kernel, route and
+             SCHEDULING_DURATION, the wall; it fails on evicted_unready > 0,
+             a pod bound other than once a release or left unbound, a
+             victim still present, a node over its allocatable, a round
+             that names no kernel or raised, creates != launched nodes, or
+             a journal entry left open. (b) the headline and the team mix
+             seated inline in batches of 2,000, then 5% of the nodes (the
+             first by pod index) noticed through handle_notice and the
+             released pods seated: equal to a device="cpu" controller
+             taking the same notices, by pod index (partition, taints,
+             cordon, events, unplaced pods). (c) a card round through a
+             LaunchCrashCluster dies before the Node write; a fresh
+             collector over the file journal adopts the orphan (one Node,
+             the entry resolved, one instance for the token) and the next
+             round binds the pods once; a crash after the Node write
+             resolves as node_exists with no second Node; a token-less
+             instance past the leak grace is reaped and a young one spared;
+             the counters by outcome and each sweep's wall. (d) phase 16
+             (d)'s evict wave with the interruption orchestrator and a
+             MemoryLaunchJournal: journaled before the first cordon, each
+             victim tainted karpenter.sh/interruption=consolidation, its
+             pods submitted to the card worker and never evicted, one card
+             round seats them, the wave settles and its entry resolves;
+             then a wave that dies after its first cordon is replayed by a
+             GC sweep (consolidation_replayed) and the victim un-cordoned;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -294,7 +333,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              by part and the B of each coalesced launch, and ``obs``: phase
              14's launches by part, traced kernel and fetch times, and what
              (a)-(g) measured, and ``deprovision``: phase 16's launches by
-             part, each plan's wall, build, shadow and repack times.
+             part, each plan's wall, build, shadow and repack times, and
+             ``interruption``: phase 17's launches by part, (a)'s lead
+             times and rounds, (b)'s replacement rounds, (c)'s sweeps.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -315,10 +356,13 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from unittest import mock
@@ -3146,12 +3190,13 @@ STORM_PODS = 10000
 CONTROLLER_BATCH = 2000  # the batcher's default max_items
 
 
-def wire_controllers(cluster, provider, device: str, start_workers: bool):
+def wire_controllers(cluster, provider, device: str, start_workers: bool, journal=None):
     """The five ported controllers wired as the reference's main.py wires
-    them: a Manager with provisioning (concurrency 10), selection (32,
-    wait=False), counter and pvc (2 each), the provisioners and pods
-    watches, counter's and pvc's own watches, and the cloud provider behind
-    cpmetrics.decorate. Returns (manager, provisioning, counter)."""
+    them: a Manager with provisioning (concurrency 10, its launch
+    ``journal``), selection (32, wait=False), counter and pvc (2 each), the
+    provisioners and pods watches, counter's and pvc's own watches, and the
+    cloud provider behind cpmetrics.decorate. Returns (manager,
+    provisioning, counter)."""
     from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
     from karpenter_tpu_torch.controllers.counter import CounterController
     from karpenter_tpu_torch.controllers.manager import Manager
@@ -3161,7 +3206,8 @@ def wire_controllers(cluster, provider, device: str, start_workers: bool):
 
     manager = Manager(cluster)
     provisioning = ProvisioningController(
-        cluster, cpmetrics.decorate(provider), start_workers=start_workers, device=device)
+        cluster, cpmetrics.decorate(provider), start_workers=start_workers, device=device,
+        journal=journal)
     selection = SelectionController(cluster, provisioning, wait=False)
     counter = CounterController(cluster)
     pvc = PVCController(cluster)
@@ -3543,12 +3589,12 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
     return out
 
 
-def wire_lifecycle(manager, cluster, provider):
+def wire_lifecycle(manager, cluster, provider, metrics: bool = True):
     """The node lifecycle controllers on ``manager`` as the reference's
     main.py registers them: termination and node (concurrency 10 each),
-    the node and pod metrics controllers (2 each), and their own watches.
-    Returns the TerminationController (its eviction queue has a thread to
-    stop)."""
+    the node and pod metrics controllers (2 each; left out with
+    ``metrics=False``), and their own watches. Returns the
+    TerminationController (its eviction queue has a thread to stop)."""
     from karpenter_tpu_torch.controllers.metrics_node import NodeMetricsController
     from karpenter_tpu_torch.controllers.metrics_pod import PodMetricsController
     from karpenter_tpu_torch.controllers.node import NodeController
@@ -3556,13 +3602,16 @@ def wire_lifecycle(manager, cluster, provider):
 
     termination = TerminationController(cluster, provider)
     node = NodeController(cluster, cloud_provider=provider)
-    metrics_node = NodeMetricsController(cluster)
-    metrics_pod = PodMetricsController(cluster)
     manager.register("termination", termination.reconcile, concurrency=10)
     manager.register("node", node.reconcile, concurrency=10)
-    manager.register("metrics_node", metrics_node.reconcile, concurrency=2)
-    manager.register("metrics_pod", metrics_pod.reconcile, concurrency=2)
-    for controller in (node, termination, metrics_node, metrics_pod):
+    controllers = [node, termination]
+    if metrics:
+        metrics_node = NodeMetricsController(cluster)
+        metrics_pod = PodMetricsController(cluster)
+        manager.register("metrics_node", metrics_node.reconcile, concurrency=2)
+        manager.register("metrics_pod", metrics_pod.reconcile, concurrency=2)
+        controllers += [metrics_node, metrics_pod]
+    for controller in controllers:
         controller.register(manager)
     return termination
 
@@ -4052,6 +4101,635 @@ def deprovision_phase(card: str, device: str = "cuda", n_nodes: int = 1000) -> d
     return out
 
 
+def canonical_nodes(pods, victims) -> dict:
+    """Node name -> a name that does not depend on the fake cloud's counter:
+    ``victim-<k>`` for the k-th noticed node, ``holds-<i>`` for a node whose
+    lowest-indexed pod is pods[i]."""
+    names = {v: f"victim-{k}" for k, v in enumerate(victims)}
+    for i, p in enumerate(pods):
+        if p.spec.node_name and p.spec.node_name not in names:
+            names[p.spec.node_name] = f"holds-{i}"
+    return names
+
+
+def inline_interruption(device: str, catalog, pods, requirements=None, frac: float = 0.05) -> dict:
+    """One provisioner's controller with start_workers=False (topology rng
+    seeded): every pod created and queued, provision_once until the queue
+    drains (batches of CONTROLLER_BATCH); then ceil(frac) of the nodes, the
+    first by pod index, get a preemption notice through
+    InterruptionController.handle_notice in that order, and provision_once
+    seats the released pods (``submit`` hands each to the first worker
+    whose provisioner admits it: the team mix's provisioner needs its
+    ``requirements`` for that). Returns the rounds, the bound state by pod
+    index, the victims' cordon, taints, finalizers and deletion, the events
+    (node names made canonical) and the orchestrator's counts."""
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.interruption import InterruptionController
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.controllers.termination import TerminationController
+    from karpenter_tpu_torch.interruption import PREEMPTION, DisruptionNotice
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    cluster = Cluster()
+    provider = cpmetrics.decorate(FakeCloudProvider(catalog))
+    provisioning = ProvisioningController(cluster, provider, start_workers=False, device=device)
+    ic = InterruptionController(cluster, provider, provisioning=provisioning,
+                                termination=TerminationController(cluster, provider,
+                                                                  start_queue=False))
+    prov = make_provisioner(solver="tpu", requirements=requirements)
+    cluster.create("provisioners", prov)
+    provisioning.reconcile(prov.name)
+    worker = provisioning.workers[prov.name]
+    worker.batcher.idle_duration = 0.01
+    worker.scheduler.torch.topology.rng = random.Random(1)
+    rounds = []
+    record_rounds(worker, rounds)
+    for p in pods:
+        cluster.create("pods", p)
+        worker.add(p)
+    walls = []
+    try:
+        while worker.batcher.depth():
+            worker.provision_once()
+        seating = len(rounds)
+        order = list(dict.fromkeys(p.spec.node_name for p in pods if p.spec.node_name))
+        victims = order[: math.ceil(len(order) * frac)]
+        t0 = time.perf_counter()
+        for name in victims:
+            ic.handle_notice(DisruptionNotice(kind=PREEMPTION, node_name=name,
+                                              grace_period_seconds=120.0))
+        notice_ms = (time.perf_counter() - t0) * 1e3
+        cordon = [(n.spec.unschedulable, sorted((t.key, t.value, t.effect) for t in n.spec.taints),
+                   sorted(n.metadata.finalizers), n.metadata.deletion_timestamp is not None)
+                  for n in (cluster.get("nodes", v, namespace="") for v in victims)]
+        released = sum(1 for p in pods if not p.spec.node_name)
+        while worker.batcher.depth():
+            t0 = time.perf_counter()
+            worker.provision_once()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        provisioning.stop()
+    random_keys = {k for k, vs in worker.provisioner.spec.constraints.requirements._sets
+                   if vs.op_type() == "Exists"}
+    nodes, unbound = bound_state(cluster, pods, random_keys)
+    canon = canonical_nodes(pods, victims)
+    events = sorted((e.reason, e.type, e.involved_kind, canon.get(e.involved_name, e.involved_name),
+                     e.message) for e in cluster.list("events"))
+    return {
+        "rounds": rounds, "seating": seating, "walls": walls, "nodes": nodes, "unbound": unbound,
+        "victims": len(victims), "cordon": cordon, "events": events, "released": released,
+        "notices": ic.notices_handled, "lead_times": len(ic.lead_times),
+        "evicted_unready": ic.evicted_unready, "notice_ms": notice_ms,
+        "fits": fits_and_counts(cluster, prov.name, f"interruption inline {device}"),
+    }
+
+
+def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
+                       n_types: int = 400, n_nodes: int = 1000) -> dict:
+    """Phase 17: interruption and crash-safe launch on the card, at full
+    width. Returns the kernels line's ``interruption`` entries."""
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.api.objects import NodeSelectorRequirement
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.cloudprovider.fake import (
+        FakeCloudProvider, instance_types, instance_types_tradeoff)
+    from karpenter_tpu_torch.cloudprovider.types import NodeRequest
+    from karpenter_tpu_torch.controllers.garbage_collection import (
+        GC_POLL_KEY, LEAK_GRACE_PERIOD, GarbageCollectionController)
+    from karpenter_tpu_torch.controllers.interruption import InterruptionController
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.controllers.termination import TerminationController
+    from karpenter_tpu_torch.interruption import Orchestrator
+    from karpenter_tpu_torch.interruption.types import DisruptionNotice
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.launch import FileLaunchJournal, MemoryLaunchJournal
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.testing import diverse_pods, make_pod, make_provisioner
+    from karpenter_tpu_torch.testing.chaos import LaunchCrash, LaunchCrashCluster
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    out = {V1: {}, V2: {}, "summary": {}}
+    outcomes = ("adopted", "node_exists", "never_launched", "speculation_expired",
+                "consolidation_replayed")
+
+    def counts() -> dict:
+        return {name: m.launches for name, m in modules.items()}
+
+    def delta(start: dict) -> dict:
+        return {name: n - start[name] for name, n in counts().items()}
+
+    def replays() -> dict:
+        return {o: metric("karpenter_launch_journal_replays_total", {"outcome": o})
+                for o in outcomes}
+
+    def round_line(part, i, r) -> str:
+        return (f"[interruption] ({part}) round {i}: batch {r['pods']}, nodes {r['nodes']}, "
+                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
+                f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms")
+
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-journal-")
+    part_s, t_part = {}, time.perf_counter()
+
+    def part_done(label):
+        nonlocal t_part
+        part_s[label] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    try:
+        # -- (a) spot churn through a running Manager ---------------------
+        cluster = Cluster()
+        provider = FakeCloudProvider(instance_types(n_types))
+        metered = cpmetrics.decorate(provider)
+        journal_path = os.path.join(scratch, "a.json")
+        manager, provisioning, _ = wire_controllers(
+            cluster, provider, device, start_workers=True,
+            journal=FileLaunchJournal(journal_path))
+        # the controllers bench_interruption_churn's runtime runs the churn
+        # through, less the node and pod metrics controllers: their
+        # reconcile on every pod event sets the load's pace at 10,000 pods
+        termination = wire_lifecycle(manager, cluster, metered, metrics=False)
+        interruption = InterruptionController(cluster, metered, provisioning=provisioning,
+                                              termination=termination, poll_interval=0.1)
+        collector = GarbageCollectionController(cluster, metered,
+                                                journal=FileLaunchJournal(journal_path),
+                                                termination=termination)
+        manager.register("interruption", interruption.reconcile, concurrency=2)
+        manager.register("garbage_collection", collector.reconcile, concurrency=1)
+        interruption.register(manager)
+        collector.register(manager)
+        binds, releases = {}, {}
+        totals = {"binds": 0, "releases": 0}
+        lock = threading.Lock()
+        bind, release = cluster.bind, interruption.orchestrator._release
+
+        def counting_bind(pod, node_name):
+            with lock:
+                binds[pod.key] = binds.get(pod.key, 0) + 1
+                totals["binds"] += 1
+            bind(pod, node_name)
+
+        def counting_release(pod):
+            with lock:
+                releases[pod.key] = releases.get(pod.key, 0) + 1
+                totals["releases"] += 1
+            return release(pod)
+
+        cluster.bind = counting_bind
+        interruption.orchestrator._release = counting_release
+        manager.start()
+        start = counts()
+        t_start = time.perf_counter()
+        try:
+            cluster.create("provisioners", make_provisioner(solver="tpu"))
+            deadline = time.time() + 60
+            while time.time() < deadline and not provisioning.workers:
+                time.sleep(0.01)
+            worker = provisioning.workers["default"]
+            worker.batcher.idle_duration = 0.2
+            if not worker.warmed.wait(timeout=600):
+                raise AssertionError("interruption (a): the warm-up never finished")
+            warm = worker.scheduler.torch.completed_profile()
+            rounds = []
+            record_rounds(worker, rounds)
+            rng = random.Random(17)
+            pods = [make_pod(name=f"churn-{i}", requests={"cpu": f"{rng.choice([0.1, 0.25, 0.5])}"})
+                    for i in range(n_pods)]
+            t0 = time.perf_counter()
+            for p in pods:
+                cluster.create("pods", p)
+
+            def settled(timeout: float) -> bool:
+                # every pod bound once, and once more for each release
+                stop = time.time() + timeout
+                while time.time() < stop:
+                    with lock:
+                        if totals["binds"] >= n_pods + totals["releases"]:
+                            return True
+                    time.sleep(0.005)
+                return False
+
+            if not settled(600):
+                raise AssertionError("interruption (a): the load never bound")
+            load_s = time.perf_counter() - t0
+            load_rounds = len(rounds)
+            churn = []
+            for k in range(5):
+                live = [n.metadata.name for n in cluster.nodes()
+                        if n.metadata.deletion_timestamp is None]
+                victims = rng.sample(live, max(1, math.ceil(len(live) * 0.05)))
+                first = len(rounds)
+                t0 = time.perf_counter()
+                for name in victims:
+                    provider.preempt(name, grace_period_seconds=120.0)
+                stop = time.time() + 120
+                while time.time() < stop and any(
+                        cluster.try_get("nodes", v, namespace="") is not None for v in victims):
+                    time.sleep(0.02)
+                if any(cluster.try_get("nodes", v, namespace="") is not None for v in victims):
+                    raise AssertionError(f"interruption (a) round {k}: a victim is still present")
+                # the victims are gone, so every release of the round happened
+                if not settled(120):
+                    raise AssertionError(f"interruption (a) round {k}: released pods not re-bound")
+                churn.append({"victims": len(victims), "live": len(live),
+                              "wall_s": time.perf_counter() - t0, "rounds": rounds[first:]})
+            wall = time.perf_counter() - t_start
+        finally:
+            manager.stop()
+            provisioning.stop()
+            termination.stop()
+        worker._thread.join(timeout=120)
+        if worker._thread.is_alive():
+            raise AssertionError("interruption (a): the provisioning worker did not stop")
+        a_launches = delta(start)
+        launched = check_rounds(rounds, {V1, V2}, "interruption (a)")
+        launched[V1] = launched.get(V1, 0) + warm.get("pack_dispatches", 0)
+        expect_launches("interruption a", a_launches, launched)
+        with lock:
+            wrong = {k: n for k, n in binds.items() if n != 1 + releases.get(k, 0)}
+        unbound = [p.key for p in cluster.pods() if not p.spec.node_name]
+        if wrong or unbound or len(binds) != n_pods:
+            raise AssertionError(f"interruption (a): {len(wrong)} pods bound other than once a "
+                                 f"release, {len(unbound)} unbound, {len(binds)} of {n_pods} bound")
+        if interruption.evicted_unready:
+            raise AssertionError(f"interruption (a): evicted_unready "
+                                 f"{interruption.evicted_unready}")
+        planned = sum(r["nodes"] for r in rounds)
+        live_nodes = cluster.nodes()
+        if not (planned == len(provider.create_calls)
+                == len(live_nodes) + len(provider.delete_calls)):
+            raise AssertionError(f"interruption (a): {planned} virtual nodes, "
+                                 f"{len(provider.create_calls)} creates, {len(live_nodes)} live + "
+                                 f"{len(provider.delete_calls)} deleted nodes")
+        capacity = fits_and_counts(cluster, "default", "interruption (a)")
+        open_entries = FileLaunchJournal(journal_path).unresolved()
+        if open_entries:
+            raise AssertionError(f"interruption (a): {len(open_entries)} journal entries open")
+        lead = sorted(interruption.lead_times)
+        if len(lead) != sum(releases.values()):
+            raise AssertionError(f"interruption (a): {len(lead)} lead times for "
+                                 f"{sum(releases.values())} released pods")
+        p50 = lead[len(lead) // 2]
+        p99 = lead[min(len(lead) - 1, int(len(lead) * 0.99))]
+        for k, c in enumerate(churn):
+            for i, r in enumerate(c["rounds"]):
+                log(round_line(f"a, churn {k}", i, r))
+            log(f"[interruption] (a) churn round {k}: {c['victims']} of {c['live']} live nodes "
+                f"preempted, gone and every released pod re-bound in {c['wall_s']:.3f} s, "
+                f"{len(c['rounds'])} replacement round(s)")
+        log(f"[interruption] (a) spot churn of {n_pods} pods (cpu 0.1/0.25/0.5, Random(17)) "
+            f"through a Manager: load bound in {load_s:.3f} s ({load_rounds} rounds); 5 churn "
+            f"rounds of 5% preempted: {interruption.notices_handled} notices handled, "
+            f"{len(lead)} pods replaced, notice->re-bind lead time p50 {p50 * 1e3:.1f} ms, p99 "
+            f"{p99 * 1e3:.1f} ms; evicted_unready 0, every pod bound once a release, "
+            f"{len(provider.create_calls)} creates = {planned} virtual nodes = {len(live_nodes)} "
+            f"live + {len(provider.delete_calls)} deleted, 0 journal entries open, counter "
+            f"capacity {capacity}; GC sweeps {collector.sweeps}; launches {a_launches} (the "
+            f"warm-up and {len(rounds)} rounds); wall {wall:.3f} s; card {card}")
+        for name in (V1, V2):
+            if a_launches[name]:
+                out[name]["launches_a"] = a_launches[name]
+        out["summary"]["a"] = {
+            "pods": n_pods, "notices": interruption.notices_handled, "replaced": len(lead),
+            "lead_p50_ms": p50 * 1e3, "lead_p99_ms": p99 * 1e3, "wall_s": wall,
+            "load_s": load_s, "churn_s": [c["wall_s"] for c in churn],
+            "victims": [c["victims"] for c in churn],
+            "replacement_scheduling_ms": [r["scheduling_ms"] for c in churn for r in c["rounds"]],
+        }
+        del cluster, provider, metered, manager, provisioning, termination, interruption
+        del collector, pods, binds, releases
+        part_done("a")
+
+        # -- (b) inline determinism against a device="cpu" controller ------
+        team = [NodeSelectorRequirement(key="team", operator="Exists")]
+        parts = (
+            ("b", "headline", instance_types(n_types),
+             lambda: diverse_pods(n_pods, random.Random(42)), None, V1),
+            ("b_teams", "team mix", instance_types_tradeoff(n_types),
+             lambda: team_pods(n_pods, 9), team, V2),
+        )
+        for label, what, catalog, make, requirements, kernel in parts:
+            ref = inline_interruption("cpu", catalog, make(), requirements)
+            start = counts()
+            got = inline_interruption(device, catalog, make(), requirements)
+            b_launches = delta(start)
+            # the seating rounds take the part's kernel; a replacement round
+            # takes what the route's shape rule picks for its batch
+            check_rounds(got["rounds"][:got["seating"]], {kernel}, f"interruption ({label})")
+            expect_launches(f"interruption {label}", b_launches,
+                            check_rounds(got["rounds"], {V1, V2}, f"interruption ({label})"))
+            for key in ("nodes", "unbound", "victims", "cordon", "events", "released", "notices",
+                        "lead_times", "evicted_unready", "fits", "seating"):
+                if got[key] != ref[key]:
+                    raise AssertionError(f"interruption ({label}): {key} differs from the "
+                                         f"device='cpu' controller")
+            replaced = got["rounds"][got["seating"]:]
+            for i, (r, w) in enumerate(zip(replaced, got["walls"])):
+                log(round_line(label, i, r) + f", provision_once {w:.3f} ms")
+            log(f"[interruption] ({label}) {what}: {got['seating']} seating rounds, notices for "
+                f"{got['victims']} of the nodes ({got['notice_ms']:.3f} ms for handle_notice), "
+                f"{got['released']} pods released, {len(replaced)} replacement round(s) through "
+                f"{sorted({r['backend'] for r in replaced})}, {len(got['unbound'])} pods "
+                f"unplaced, launches {b_launches}; == the device='cpu' controller pod for pod "
+                f"(partition, labels, taints, finalizers, the victims' cordon, taints and "
+                f"deletion, events, unplaced pods); card {card}")
+            for name in (V1, V2):
+                if b_launches[name]:
+                    out[name][f"launches_{label}"] = b_launches[name]
+            out["summary"][label] = {
+                "victims": got["victims"], "released": got["released"],
+                "replacement_rounds": len(replaced),
+                "replacement_kernels": [r["backend"] for r in replaced],
+                "replacement_scheduling_ms": [r["scheduling_ms"] for r in replaced],
+                "provision_once_ms": got["walls"], "unplaced": len(got["unbound"]),
+            }
+            del ref, got
+        part_done("b")
+
+        # -- (c) crash recovery through the file journal -------------------
+        cluster = Cluster()
+        proxy = LaunchCrashCluster(cluster)
+        provider = FakeCloudProvider(instance_types(n_types))
+        metered = cpmetrics.decorate(provider)
+        journal_path = os.path.join(scratch, "c.json")
+        provisioning = ProvisioningController(proxy, metered, start_workers=False, device=device,
+                                              journal=FileLaunchJournal(journal_path))
+        termination = TerminationController(cluster, metered, start_queue=False)
+        cluster.create("provisioners", make_provisioner(solver="tpu"))
+        provisioning.reconcile("default")
+        worker = provisioning.workers["default"]
+        worker.batcher.idle_duration = 0.01
+        rounds = []
+        record_rounds(worker, rounds)
+        binds = {}
+        bind = cluster.bind
+
+        def counting_bind(pod, node_name):
+            binds[pod.key] = binds.get(pod.key, 0) + 1
+            bind(pod, node_name)
+
+        cluster.bind = counting_bind
+        collector = GarbageCollectionController(cluster, metered,
+                                                journal=FileLaunchJournal(journal_path),
+                                                termination=termination, replay_after=0.0)
+        sweeps = []
+
+        def sweep(what):
+            before = replays()
+            adopted = metric("karpenter_launch_orphans_adopted_total")
+            leaked = metric("karpenter_launch_instances_leaked_total")
+            t0 = time.perf_counter()
+            collector.reconcile(GC_POLL_KEY)
+            ms = (time.perf_counter() - t0) * 1e3
+            moved = {o: n - before[o] for o, n in replays().items() if n != before[o]}
+            moved["orphans_adopted"] = metric("karpenter_launch_orphans_adopted_total") - adopted
+            moved["instances_leaked"] = metric("karpenter_launch_instances_leaked_total") - leaked
+            sweeps.append((what, ms, moved))
+            return moved
+
+        def crash_round(point, tag):
+            pods = [make_pod(name=f"{tag}-{i}", requests={"cpu": "0.5"}) for i in range(8)]
+            for p in pods:
+                cluster.create("pods", p)
+                worker.add(p)
+            proxy.arm(point)
+            first = len(rounds)
+            try:
+                worker.provision_once()
+            except LaunchCrash:
+                pass
+            if not proxy.crashed.is_set() or len(rounds) != first + 1:
+                raise AssertionError(f"interruption (c): the {point} crash did not fire in one "
+                                     f"round")
+            return pods, proxy.crash_nodes[point]
+
+        def reseat(pods, what):
+            for p in pods:
+                worker.add(p)
+            worker.provision_once()
+            twice = [p.key for p in pods if binds.get(p.key) != 1 or not p.spec.node_name]
+            if twice:
+                raise AssertionError(f"interruption (c): {what}: {len(twice)} pods not bound once")
+
+        def tracking(name) -> list:
+            node = cluster.try_get("nodes", name, namespace="")
+            pid = node.spec.provider_id if node is not None else None
+            return [n for n in cluster.nodes() if n.metadata.name == name
+                    or (pid and n.spec.provider_id == pid)]
+
+        start = counts()
+        try:
+            pods, orphan = crash_round("before_node_write", "adopt")
+            (entry,) = FileLaunchJournal(journal_path).unresolved()
+            instances = [i for i in provider.list_instances() if i.launch_token == entry.token]
+            if cluster.try_get("nodes", orphan, namespace="") is not None or len(instances) != 1:
+                raise AssertionError("interruption (c): the crash left no orphan")
+            moved = sweep("adopt")
+            if moved.get("adopted") != 1 or collector.adopted != 1 or len(tracking(orphan)) != 1:
+                raise AssertionError(f"interruption (c): adoption {moved}, "
+                                     f"{len(tracking(orphan))} Nodes for the instance")
+            if FileLaunchJournal(journal_path).unresolved() or len(
+                    [i for i in provider.list_instances() if i.launch_token == entry.token]) != 1:
+                raise AssertionError("interruption (c): the entry is open or the token launched "
+                                     "twice")
+            reseat(pods, "after the adoption")
+            pods, written = crash_round("after_node_write", "exists")
+            moved = sweep("node exists")
+            if moved.get("node_exists") != 1 or len(tracking(written)) != 1 or \
+                    FileLaunchJournal(journal_path).unresolved():
+                raise AssertionError(f"interruption (c): after the Node write {moved}, "
+                                     f"{len(tracking(written))} Nodes for the instance")
+            reseat(pods, "after the node-exists resolve")
+            template = worker.provisioner.spec.constraints
+            old, young = (provider.create(NodeRequest(template=template,
+                                                      instance_type_options=instance_types(1)))
+                          for _ in range(2))
+            for live in provider.list_instances():
+                if live.id == old.metadata.name:
+                    live.created_at -= 2 * LEAK_GRACE_PERIOD  # launched out of band long ago
+            moved = sweep("leak")
+            left = {i.id for i in provider.list_instances()}
+            if moved.get("instances_leaked") != 1 or old.metadata.name in left \
+                    or young.metadata.name not in left:
+                raise AssertionError(f"interruption (c): leak sweep {moved}")
+        finally:
+            provisioning.stop()
+            termination.stop()
+        c_launches = delta(start)
+        launched = check_rounds(rounds, {V1}, "interruption (c)")
+        expect_launches("interruption c", c_launches, launched)
+        for what, ms, moved in sweeps:
+            log(f"[interruption] (c) sweep '{what}': {ms:.3f} ms, counters moved {moved}")
+        log(f"[interruption] (c) crash recovery through a FileLaunchJournal: a card round "
+            f"({rounds[0]['backend']}, dispatches {rounds[0]['dispatches']}) died before the "
+            f"Node write; a fresh collector (replay_after 0) adopted the orphan (one Node for "
+            f"the instance, the entry resolved, one instance for the token) and the next round "
+            f"bound its 8 pods once; a crash after the Node write resolved as node_exists with "
+            f"no second Node; a token-less instance past the {LEAK_GRACE_PERIOD:g} s grace was "
+            f"reaped and a young one spared; {len(rounds)} rounds, launches {c_launches}; card "
+            f"{card}")
+        out[V1]["launches_c"] = c_launches[V1]
+        out["summary"]["c"] = {"sweep_ms": [ms for _, ms, _ in sweeps],
+                               "moved": [moved for _, _, moved in sweeps]}
+        del cluster, proxy, provider, metered, provisioning, termination, collector
+        part_done("c")
+
+        # -- (d) consolidation through the orchestrator --------------------
+        cluster, provider, prov, ctl = live_cluster(device, owned=True, finalizers=True,
+                                                    n_nodes=n_nodes, migration="evict")
+        manager, provisioning, _ = wire_controllers(cluster, provider, device, start_workers=True)
+        termination = wire_lifecycle(manager, cluster, provider)
+        metered = cpmetrics.decorate(provider)
+        ctl.orchestrator = Orchestrator(cluster, metered, provisioning, termination)
+        ctl.journal = journal = MemoryLaunchJournal()
+        by_node = {}
+        for p in cluster.pods():
+            by_node.setdefault(p.spec.node_name, []).append(p.key)
+        trail = []  # ("intent", cordoned) / ("taint", node, value) / ("submit", pod) / ("evict", pod)
+        record_intent, migrate = journal.record_intent, ctl.orchestrator._migrate
+        submit, evict = provisioning.submit, cluster.evict
+
+        def spy_intent(*a, **kw):
+            trail.append(("intent", sum(1 for n in cluster.nodes() if n.spec.unschedulable)))
+            return record_intent(*a, **kw)
+
+        def spy_migrate(node, on_release=None):
+            live = cluster.get("nodes", node.metadata.name, namespace="")
+            taints = {t.key: t.value for t in live.spec.taints}
+            trail.append(("taint", node.metadata.name, taints.get(lbl.INTERRUPTION_TAINT_KEY),
+                          live.spec.unschedulable))
+            return migrate(node, on_release)
+
+        def spy_submit(pod):
+            w = submit(pod)
+            trail.append(("submit", pod.key, w is not None and w.scheduler.device.type == device))
+            return w
+
+        def spy_evict(pod):
+            trail.append(("evict", pod.key))
+            return evict(pod)
+
+        journal.record_intent = spy_intent
+        ctl.orchestrator._migrate = spy_migrate
+        provisioning.submit = spy_submit
+        cluster.evict = spy_evict
+        manager.start()
+        start = counts()
+        try:
+            manager.enqueue("provisioning", "default")
+            deadline = time.time() + 120
+            while time.time() < deadline and not provisioning.workers:
+                time.sleep(0.01)
+            worker = provisioning.workers["default"]
+            worker.batcher.idle_duration = 0.05
+            if not worker.warmed.wait(timeout=600):
+                raise AssertionError("interruption (d): the worker's warm-up never finished")
+            warm = worker.scheduler.last_stage_profile()
+            rounds = []
+            record_rounds(worker, rounds)
+            with PlanProbe(ctl) as probe:
+                t0 = time.perf_counter()
+                ctl.reconcile("default")
+                plan_prof = probe.scheds[-1].last_stage_profile()
+                (entry,) = journal.unresolved()
+                victims = list(entry.victims)
+                deadline = time.time() + 120
+                while time.time() < deadline and not ctl.wave_settled("default"):
+                    time.sleep(0.005)
+                settle_ms = (time.perf_counter() - t0) * 1e3
+            if not ctl.wave_settled("default") or journal.unresolved():
+                raise AssertionError("interruption (d): the wave never settled or its entry "
+                                     "is open")
+        finally:
+            manager.stop()
+            provisioning.stop()
+            termination.stop()
+        worker._thread.join(timeout=120)
+        if worker._thread.is_alive():
+            raise AssertionError("interruption (d): the provisioning worker did not stop")
+        moved_pods = sorted(k for v in victims for k in by_node[v])
+        submitted = [t[1] for t in trail if t[0] == "submit"]
+        tainted = [t for t in trail if t[0] == "taint"]
+        evicted = [t[1] for t in trail if t[0] == "evict"]
+        if trail[0] != ("intent", 0) or [t[1] for t in tainted] != victims or any(
+                t[2] != "consolidation" or not t[3] for t in tainted):
+            raise AssertionError(f"interruption (d): journal and cordon order {trail[:3]}")
+        if sorted(submitted) != moved_pods or not all(t[2] for t in trail if t[0] == "submit") \
+                or set(evicted) & set(moved_pods):
+            raise AssertionError(f"interruption (d): {len(moved_pods)} pods on the victims, "
+                                 f"{len(submitted)} submitted to a card worker, "
+                                 f"{len(set(evicted) & set(moved_pods))} evicted")
+        if any(cluster.try_get("nodes", v, namespace="") is not None for v in victims) or \
+                not all(p.spec.node_name for p in cluster.pods()):
+            raise AssertionError("interruption (d): a victim stands or a pod is unbound")
+        provisioned = check_rounds(rounds, {V1}, "interruption (d)")
+        want = {V1: warm["pack_dispatches"] + plan_prof["pack_dispatches"]
+                + provisioned.get(V1, 0)}
+        # the crashed wave: the orchestrator dies after cordoning its first
+        # victim, a BaseException like a killed process
+        real = ctl.orchestrator
+
+        class CrashAfterCordon:
+            def __init__(self):
+                self.crash_node = ""
+
+            def consolidate(self, node, decision_id="", on_release=None):
+                real._taint_and_cordon(node, DisruptionNotice(
+                    kind="consolidation", node_name=node.metadata.name, grace_period_seconds=0.0))
+                self.crash_node = node.metadata.name
+                raise LaunchCrash(f"simulated crash mid-wave ({node.metadata.name})")
+
+        crasher = ctl.orchestrator = CrashAfterCordon()
+        journal.record_intent = record_intent
+        with PlanProbe(ctl) as probe:
+            try:
+                ctl.reconcile("default")
+            except LaunchCrash:
+                pass
+            crash_prof = probe.scheds[-1].last_stage_profile()
+        want[V1] += crash_prof["pack_dispatches"]
+        stuck = cluster.get("nodes", crasher.crash_node, namespace="")
+        if not stuck.spec.unschedulable or len(journal.unresolved()) != 1:
+            raise AssertionError("interruption (d): the crashed wave left no breadcrumb")
+        collector = GarbageCollectionController(cluster, metered, journal=journal,
+                                                termination=termination, replay_after=0.0)
+        before = replays()
+        t0 = time.perf_counter()
+        collector.reconcile(GC_POLL_KEY)
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        moved = {o: n - before[o] for o, n in replays().items() if n != before[o]}
+        stuck = cluster.get("nodes", crasher.crash_node, namespace="")
+        if moved != {"consolidation_replayed": 1.0} or stuck.spec.unschedulable or any(
+                t.key == lbl.INTERRUPTION_TAINT_KEY for t in stuck.spec.taints) \
+                or journal.unresolved():
+            raise AssertionError(f"interruption (d): crashed wave replay {moved}")
+        d_launches = delta(start)
+        expect_launches("interruption d", d_launches, want)
+        for i, r in enumerate(rounds):
+            log(round_line("d", i, r))
+        log(f"[interruption] (d) evict wave through the orchestrator: journaled with 0 nodes "
+            f"cordoned, {len(victims)} victims tainted karpenter.sh/interruption=consolidation "
+            f"and cordoned, {len(submitted)} pods submitted to the card worker and none "
+            f"evicted, seated by {len(rounds)} card round(s), reconcile -> wave_settled "
+            f"{settle_ms:.3f} ms, the entry resolved; a wave crashed after its first cordon "
+            f"replayed by a GC sweep in {replay_ms:.3f} ms ({moved}), the victim un-cordoned; "
+            f"launches {d_launches} (the worker's warm-up, 2 plans, {len(rounds)} rounds); "
+            f"card {card}")
+        out[V1]["launches_d"] = d_launches[V1]
+        out["summary"]["d"] = {"victims": len(victims), "moved": len(submitted),
+                               "rounds": len(rounds), "settle_ms": settle_ms,
+                               "replay_ms": replay_ms}
+        part_done("d")
+        out["summary"]["part_s"] = part_s
+        log(f"[interruption] walls by part {({k: round(v, 3) for k, v in part_s.items()})} s, "
+            f"phase 17 {sum(part_s.values()):.3f} s; card {card}")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4269,6 +4947,9 @@ def main() -> int:
     # -- 16. deprovision --------------------------------------------------
     deprovision = deprovision_phase(card)
 
+    # -- 17. interruption -------------------------------------------------
+    interruption = interruption_phase(card)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -4291,6 +4972,7 @@ def main() -> int:
         "obs": {**observed["pack_first_fit"], **observed["summary"]},
         "controller": {**controller["pack_first_fit"], **controller["summary"]},
         "deprovision": {**deprovision["pack_first_fit"], **deprovision["summary"]},
+        "interruption": {**interruption["pack_first_fit"], **interruption["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -4316,6 +4998,7 @@ def main() -> int:
         "obs": {**observed["pack_first_fit_v2"], **observed["summary"]},
         "controller": {**controller["pack_first_fit_v2"], **controller["summary"]},
         "deprovision": {**deprovision["pack_first_fit_v2"], **deprovision["summary"]},
+        "interruption": {**interruption["pack_first_fit_v2"], **interruption["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

@@ -24,18 +24,24 @@ Execute has two migration modes:
   cloud provider and rebind pods directly; every retired node is deleted
   at once and the termination controller drains it;
 - ``evict``: retire at most ``wave_size`` victims a reconcile, admitted by
-  the disruption budget; each is deleted and the termination controller
-  drains it (the reference's path without an orchestrator). Workload
+  the disruption budget. With an ``orchestrator`` wired, each victim runs
+  the interruption subsystem's taint→replace→drain sequence (its pods are
+  released and submitted to provisioning BEFORE any eviction); without
+  one, each is deleted and the termination controller drains it. Workload
   recreations flow through the normal provisioning path. The next wave
   waits until the victims are gone and the pods displaced since the wave
   began are seated (``wave_settled``).
 
 The robustness envelope around an evict wave: the disruption budget
 (``controllers/disruption.py``), enforced per wave AND across concurrently
-settling waves through a shared ledger; a decision record per wave whose
-id every wave event carries; brownout rung 1 pauses new waves; a fenced or
-non-owning replica never executes one. The reference's taint→replace→drain
-orchestrator and its wave journal are not part of this package yet.
+settling waves through a shared ledger; the ``journal``
+(``launch/journal.py``, ``consolidation`` marker): the wave's victims are
+journaled BEFORE the first cordon, so a mid-wave crash is replayed by the
+recovery ladder — survivors un-cordoned, entry resolved; a decision record
+per wave whose id the journal entry and every wave event carry; brownout
+rung 1 pauses new waves; a fenced or non-owning replica never executes
+one. With neither ``orchestrator`` nor ``journal`` an evict wave takes the
+plain delete path and leaves no breadcrumb.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from __future__ import annotations
 import copy
 import logging
 import threading
+import uuid
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -82,8 +89,8 @@ WAVE_CHECK_INTERVAL = 10.0
 # safety valve: a wave that has not settled after this long (e.g. an
 # unrelated permanently-unschedulable pod appeared, or a replacement
 # launch failed terminally) stops blocking further consolidation — and is
-# FINISHED cleanly (survivors un-cordoned, budget released), because
-# bounded disruption must not become unbounded deadlock
+# FINISHED cleanly (survivors un-cordoned, journal resolved, budget
+# released), because bounded disruption must not become unbounded deadlock
 WAVE_SETTLE_TIMEOUT = 300.0
 
 
@@ -143,6 +150,8 @@ class ConsolidationController:
         ledger: Optional[BudgetLedger] = None,
         risk=None,  # disruption.InterruptionRiskTracker override (tests)
         default_budget: Optional[str] = None,
+        orchestrator=None,  # interruption.Orchestrator (taint→replace→drain)
+        journal=None,  # launch.journal.LaunchJournal (wave crash safety)
         device="cuda",
     ):
         self.cluster = cluster
@@ -156,6 +165,11 @@ class ConsolidationController:
         # concurrently (N× the configured disruption pacing)
         self.ownership = ownership
         self._decisions = decisions
+        # the disruption-safety envelope — each piece optional: no
+        # orchestrator → plain delete path, no journal → no crash
+        # breadcrumb, no budget → wave-size pacing only
+        self.orchestrator = orchestrator
+        self.journal = journal
         self.ledger = ledger if ledger is not None else BudgetLedger()
         self.risk = risk if risk is not None else risk_tracker()
         self.default_budget = default_budget
@@ -172,8 +186,8 @@ class ConsolidationController:
         self.wave_size = max(1, wave_size)
         # in-flight evict wave PER PROVISIONER (reconciles of different
         # provisioners run concurrently): name -> (node names, pod keys
-        # already pending when the wave launched, settle deadline,
-        # decision id)
+        # already pending when the wave launched, settle deadline, journal
+        # token, decision id)
         self._wave_lock = threading.Lock()
         self._pending_waves: Dict[str, tuple] = {}
         # brownout ladder rung 1 (resilience/brownout.py): consolidation is
@@ -424,6 +438,7 @@ class ConsolidationController:
         from karpenter_tpu_torch import obs
 
         moves = 0
+        token = ""
         with obs.tracer().span(
             "consolidation.wave",
             attrs={
@@ -431,11 +446,38 @@ class ConsolidationController:
                 "victims": len(retire),
                 "decision_id": decision_id,
             },
-        ):
+        ) as wave_sp:
+            if self.migration == "evict" and self.journal is not None:
+                # journal the WHOLE wave before the first victim is
+                # touched: the entry is what recovery replays after a
+                # mid-wave crash (launch/recovery.py un-cordons survivors)
+                token = f"consolidation-{uuid.uuid4().hex[:16]}"
+                self.journal.record_intent(
+                    token, prov_name, trace=obs.to_traceparent(wave_sp),
+                    marker="consolidation",
+                    victims=[n.metadata.name for n in retire],
+                    decision_id=decision_id,
+                )
             for old in retire:
                 try:
-                    moves += len(plan.node_pods.get(old.metadata.name, ()))
-                    self.cluster.delete("nodes", old.metadata.name, namespace="")
+                    if self.migration == "evict" and self.orchestrator is not None:
+                        # taint→replace→drain per victim: replacement pods
+                        # are injected into provisioning BEFORE any eviction
+                        resp = self.orchestrator.consolidate(
+                            old, decision_id=decision_id
+                        )
+                        if resp is not None:
+                            moves += len(resp.migrated)
+                            if resp.blocked:
+                                # plan-time screening should make this
+                                # impossible; a non-zero count is the hard
+                                # bar's tripwire, not business as usual
+                                metrics.CONSOLIDATION_EVICTED_UNREADY.inc(
+                                    len(resp.blocked)
+                                )
+                    else:
+                        moves += len(plan.node_pods.get(old.metadata.name, ()))
+                        self.cluster.delete("nodes", old.metadata.name, namespace="")
                 except Exception:
                     logger.exception("retiring node %s", old.metadata.name)
         if self.migration == "evict":
@@ -444,6 +486,7 @@ class ConsolidationController:
                     [n.metadata.name for n in retire],
                     baseline,
                     self.cluster.clock() + WAVE_SETTLE_TIMEOUT,
+                    token,
                     decision_id,
                 )
         # plan-time estimate of the wave's $-delta: the admitted victims'
@@ -483,9 +526,9 @@ class ConsolidationController:
         timeout (a victim deleted out-of-band or a terminally-failed
         replacement launch must not wedge the loop): un-cordon any victim
         still standing (its drain never finished; a cordoned survivor is
-        pure capacity loss), release the budget, and count what was
-        actually reclaimed."""
-        node_names = wave[0]
+        pure capacity loss), resolve the journal entry, release the
+        budget, and count what was actually reclaimed."""
+        node_names, _baseline, _deadline, token, _decision_id = wave
         reclaimed = 0
         for name in node_names:
             node = self.cluster.try_get("nodes", name, namespace="")
@@ -519,6 +562,11 @@ class ConsolidationController:
                 )
             except Exception:
                 logger.exception("un-cordon of wave victim %s", name)
+        if self.journal is not None and token:
+            try:
+                self.journal.resolve(token)
+            except Exception:
+                logger.exception("resolving wave journal entry %s", token)
         self.ledger.release(provisioner_name, node_names)
         if reclaimed:
             metrics.CONSOLIDATION_RECLAIMED_NODES.labels(provisioner_name).inc(
@@ -533,7 +581,7 @@ class ConsolidationController:
         for capacity (pods already pending before the wave don't gate it) —
         only then may the next wave disrupt more nodes. A wave past its
         settle deadline stops gating AND is finished cleanly (survivors
-        un-cordoned, budget released): bounded
+        un-cordoned, journal resolved, budget released): bounded
         disruption must not become unbounded deadlock on an out-of-band
         node delete, a dead replacement launch, or an unrelated stuck
         pod."""

@@ -10,9 +10,13 @@ and binding pods directly (provisioner.go:81-181).
 ``device`` is where a ``solver: tpu`` provisioner's solve runs (``cuda``,
 the default, or ``cpu`` for the plain PyTorch version); each worker's
 ``Scheduler`` builds its accelerated backend on the first such solve, so a
-``solver: ffd`` provisioner needs no card. Warm-pool claiming and the
-launch journal are not ported: a worker solves every pod it batches and
-launches without a write-ahead record.
+``solver: ffd`` provisioner needs no card. With a launch ``journal`` (the
+write-ahead record of ``karpenter_tpu_torch/launch``) each launch records
+its intent before the cloud create, marks the Node written, and resolves
+after the bind. ``ProvisioningController.submit`` is the interruption
+subsystem's hook: a released pod goes straight to the first admitting
+worker. Warm-pool claiming is not ported: a worker solves every pod it
+batches.
 """
 
 from __future__ import annotations
@@ -84,6 +88,7 @@ class ProvisionerWorker:
         solver_shm_dir: Optional[str] = None,
         solver_delta: Optional[bool] = None,
         unschedulable_event_rounds: int = 3,
+        journal=None,
         device="cuda",
     ):
         self.provisioner = provisioner
@@ -97,6 +102,10 @@ class ProvisionerWorker:
         # this worker's decision path annotate it; "" until the first
         # record lands
         self.last_decision_id = ""
+        # write-ahead launch journal (launch/journal.py): intent recorded
+        # BEFORE the cloud create, resolved only after the bind — the
+        # breadcrumb crash recovery replays. None = journaling off.
+        self.journal = journal
         self.scheduler = scheduler or Scheduler(
             cluster, device=device, solver_service_address=solver_service_address,
             pack_checksum=pack_checksum, canary_rate=canary_rate,
@@ -462,13 +471,16 @@ class ProvisionerWorker:
             )
             # the launch token IS the launch's identity: stamped on the
             # cloud instance (providers replay a committed token, so the
-            # metered retry policy can cover create) and annotated on the
-            # Node
+            # metered retry policy can cover create), journaled BEFORE the
+            # cloud call (crash recovery re-describes by it), annotated on
+            # the Node (the GC cross-check pairs instance and Node by it)
             import uuid as _uuid
 
             token = _uuid.uuid4().hex
             if launch_span is not None:
                 launch_span.set_attribute("launch_token", token[:12])
+            if self.journal is not None:
+                self.journal.record_intent(token, self.provisioner.name, trace)
             node = self.cloud_provider.create(
                 NodeRequest(
                     template=vnode.constraints,
@@ -502,7 +514,13 @@ class ProvisionerWorker:
                 # node self-registered first — idempotent create
                 # (reference: provisioner.go:155-164)
                 pass
+            if self.journal is not None:
+                self.journal.mark_created(token, node.metadata.name)
             self._bind(vnode.pods, node.metadata.name)
+            if self.journal is not None:
+                # bind done: the launch is fully committed across all three
+                # stores — the journal entry has nothing left to protect
+                self.journal.resolve(token)
             from karpenter_tpu_torch.kube.events import recorder_for
 
             recorder_for(self.cluster).event(
@@ -605,6 +623,7 @@ class ProvisioningController:
         solver_shm_dir: Optional[str] = None,
         solver_delta: Optional[bool] = None,
         unschedulable_event_rounds: int = 3,
+        journal=None,
         device="cuda",
     ):
         self.cluster = cluster
@@ -628,6 +647,7 @@ class ProvisioningController:
         self.solver_shm_dir = solver_shm_dir
         # resident delta encoding (None = the KARPENTER_SOLVER_DELTA twin)
         self.solver_delta = solver_delta
+        self.journal = journal  # write-ahead launch journal, shared by workers
         # fleet.ShardManager (or None = this replica owns everything):
         # reconcile only runs workers for owned shards, and each worker's
         # launch path re-checks through the same manager
@@ -765,6 +785,7 @@ class ProvisioningController:
                 solver_shm_dir=self.solver_shm_dir,
                 solver_delta=self.solver_delta,
                 unschedulable_event_rounds=self.unschedulable_event_rounds,
+                journal=self.journal,
                 device=self.device,
             )
             self.workers[provisioner.name] = worker
@@ -823,6 +844,27 @@ class ProvisioningController:
         order (reference: controller.go:136-145)."""
         with self._lock:
             return [self.workers[k] for k in sorted(self.workers)]
+
+    def submit(self, pod: Pod) -> Optional[ProvisionerWorker]:
+        """Inject a pod straight into the first admitting worker's batcher,
+        bypassing the selection controller — the interruption subsystem's
+        proactive-replacement hook: pods released from a disrupted node
+        enter the provisioning pipeline BEFORE the node drains, so
+        replacement capacity is launching while the old node still runs.
+        Returns the worker, or None when no provisioner admits the pod
+        (the caller leaves it pending for selection to retry)."""
+        # volume topology must ride along even though selection is bypassed:
+        # a replacement pod with a zone-bound PV packed into another zone
+        # would bind where its volume cannot attach — and selection cannot
+        # repair it later (is_pending short-circuits its reconcile)
+        from karpenter_tpu_torch.controllers.selection import VolumeTopology
+
+        VolumeTopology(self.cluster).inject(pod)
+        for worker in self.list_workers():
+            if not worker.provisioner.spec.constraints.validate_pod(pod):
+                worker.add(pod)
+                return worker
+        return None
 
     def stop(self) -> None:
         # snapshot under the lock: reconcile threads may still be mutating

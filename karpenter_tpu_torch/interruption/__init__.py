@@ -1,8 +1,13 @@
-"""The disruption event model (``types.py``): the notices a cloud provider
-announces and the poll protocol it serves them through. The orchestrator
-that responds to them is not ported yet."""
+"""Interruption subsystem: preemption-aware node lifecycle.
 
-from karpenter_tpu_torch.interruption.types import (  # noqa: F401
+Watches a cloud disruption-event stream (``DisruptionSource``) and
+orchestrates the response — taint + cordon, Kubernetes event, proactive
+replacement through the provisioning batcher, then finalizer-driven
+termination under a grace-period deadline.
+"""
+
+from karpenter_tpu_torch.interruption.orchestrator import Orchestrator, Response
+from karpenter_tpu_torch.interruption.types import (
     CAPACITY_RECLAIM,
     DEFAULT_GRACE_PERIOD_SECONDS,
     KINDS,
@@ -12,3 +17,16 @@ from karpenter_tpu_torch.interruption.types import (  # noqa: F401
     DisruptionSource,
     NoticeQueue,
 )
+
+__all__ = [
+    "CAPACITY_RECLAIM",
+    "DEFAULT_GRACE_PERIOD_SECONDS",
+    "DisruptionNotice",
+    "DisruptionSource",
+    "KINDS",
+    "MAINTENANCE",
+    "NoticeQueue",
+    "Orchestrator",
+    "PREEMPTION",
+    "Response",
+]

@@ -1,7 +1,7 @@
 """In-memory cluster state store with watch events.
 
 The controllers speak to this ``Cluster`` interface: typed stores of pods,
-nodes, daemonsets, provisioners, PVCs, PVs, storage classes, PDBs and
+nodes, daemonsets, provisioners, PVCs, PVs, storage classes, PDBs, leases and
 events; create / get / update / merge_patch / patch_status / delete with
 finalizer semantics; the Bind and Evict subresources; and watches, which
 are synchronous callbacks dispatched outside the store lock. It is the
@@ -62,10 +62,11 @@ class _Store:
 
 class Cluster:
     """Typed object store: pods, nodes, daemonsets, provisioners, PVCs, PVs,
-    storage classes, PDBs, events."""
+    storage classes, PDBs, leases (the launch journal's kube backend keeps
+    one per open entry), events."""
 
     KINDS = ("pods", "nodes", "daemonsets", "provisioners", "pvcs", "pvs",
-             "storageclasses", "pdbs", "events")
+             "storageclasses", "pdbs", "leases", "events")
 
     def __init__(self, clock: Optional[Callable[[], float]] = None):
         self._lock = threading.RLock()

@@ -17,7 +17,9 @@ with the methods in ``CHAOS_METHODS``) into a misbehaving dependency:
   fired.
 
 Anything else passes through unwrapped. ``SidecarChaos`` runs a few
-in-process sidecars with kill and restart controls.
+in-process sidecars with kill and restart controls. ``LaunchCrash`` and
+``LaunchCrashCluster`` simulate a replica dying between the launch path's
+writes (cloud create → Node object → bind).
 """
 
 from __future__ import annotations
@@ -341,6 +343,86 @@ def _nan_inject(frame: bytes, seed: int) -> bytes:
         return False
 
     return _reframe(frame, seed, patch)
+
+
+# ---------------------------------------------------------------------------
+# crash-consistency scenarios: kill a replica
+# between the launch path's three writes (cloud create → Node object → bind)
+# ---------------------------------------------------------------------------
+
+
+class LaunchCrash(BaseException):
+    """Simulated process death at an armed launch-path point.
+
+    Deliberately a ``BaseException``: the provisioning worker's launch and
+    run loops contain ``Exception`` (a failed launch requeues its pods and
+    the loop continues), but a CRASH kills the thread outright — nothing
+    runs after the armed point, exactly like a SIGKILL between two writes.
+    The journal entry the launch recorded beforehand is the only survivor.
+    """
+
+
+class LaunchCrashCluster:
+    """Cluster proxy that simulates a replica dying mid-launch.
+
+    Wraps the (shared) cluster a runtime is built over and intercepts the
+    Node write the launch path makes; everything else proxies through, so
+    the OTHER replicas of a fleet scenario keep using the bare cluster.
+
+    Armable one-shot points, named for the launch path's crash windows:
+
+    - ``before_node_write`` — the cloud create committed (instance exists,
+      token stamped, journal entry in ``intent``) but the Node object was
+      never written: the orphan the GC sweep must ADOPT.
+    - ``after_node_write`` — the Node object landed but no pod was bound
+      (journal entry still unresolved): recovery must confirm the Node
+      already tracks the instance and resolve, with the pods re-entering
+      selection on their own.
+    """
+
+    POINTS = ("before_node_write", "after_node_write")
+
+    def __init__(self, cluster):
+        self._cluster = cluster
+        self._mu = threading.Lock()
+        self._armed: Optional[str] = None  # guarded-by: self._mu
+        self.crashes: Dict[str, int] = {}  # point -> fired count; guarded-by: self._mu
+        # point -> node/instance name the interrupted write was for — the
+        # scenario's authoritative handle on WHICH instance was orphaned
+        # (scanning the provider for "newest untracked instance" would race
+        # the other replicas' healthy in-flight launches)
+        self.crash_nodes: Dict[str, str] = {}  # guarded-by: self._mu
+        # set when an armed crash fires — the scenario's cue to kill the
+        # replica whose launch thread just died
+        self.crashed = threading.Event()
+
+    def arm(self, point: str) -> None:
+        if point not in self.POINTS:
+            raise ValueError(f"unknown crash point {point!r}")
+        with self._mu:
+            self._armed = point
+        self.crashed.clear()
+
+    def _maybe_crash(self, point: str, node_name: str) -> None:
+        with self._mu:
+            if self._armed != point:
+                return
+            self._armed = None
+            self.crashes[point] = self.crashes.get(point, 0) + 1
+            self.crash_nodes[point] = node_name
+        self.crashed.set()
+        raise LaunchCrash(f"simulated crash {point} (node {node_name})")
+
+    def create(self, kind: str, obj):
+        if kind == "nodes":
+            self._maybe_crash("before_node_write", obj.metadata.name)
+        out = self._cluster.create(kind, obj)
+        if kind == "nodes":
+            self._maybe_crash("after_node_write", obj.metadata.name)
+        return out
+
+    def __getattr__(self, name: str):
+        return getattr(self._cluster, name)
 
 
 # ---------------------------------------------------------------------------

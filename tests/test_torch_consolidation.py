@@ -10,10 +10,11 @@ leaves in the cluster, the waves. The port's controller runs on
 ``device="cpu"``; a ``solver: tpu`` re-pack is pinned to each package's
 plain rung (``torch_parity.pinned``), the full-width plans (BASELINE
 config 5 and its team-mix twin) to the native packer on both sides.
-``TestWaveSettleHardening`` runs without the reference's orchestrator and
-journal, which the port does not have yet: the wave's victims take the
-legacy delete path. ``TestJournaledWave`` and ``TestCrashedWaveReplay``
-wait for the journal and the orchestrator.
+``TestWaveSettleHardening`` runs without an orchestrator or a journal (the
+wave's victims take the plain delete path); ``TestJournaledWave`` wires the
+interruption orchestrator and a ``MemoryLaunchJournal`` as the reference's
+``main.py`` does, and ``TestCrashedWaveReplay`` replays a crashed wave's
+entry through both packages' recovery ladders.
 """
 
 import time
@@ -21,8 +22,10 @@ import time
 import pytest
 
 from torch_parity import (  # noqa: F401
-    PACKAGES, deprov, fleet, fresh_router, live_fleet, packer, pinned, plan_view, stop, wire_all,
+    PACKAGES, both_canon, deprov, fleet, fresh_router, live_fleet, packer, pinned, plan_view, stop,
+    wire_all, wire_doc,
 )
+from torch_parity import journal_docs as docs
 
 PORT = "karpenter_tpu_torch"
 
@@ -437,6 +440,131 @@ def test_timeout_uncordons_stranded_victims(monkeypatch):
     stranded, held, settled, cordoned, taints, in_flight = both(run)
     assert len(stranded) == 5 and (held, settled, in_flight) == (False, True, 0)
     assert cordoned == [False] * 5 and taints == [["dedicated"]] * 5
+
+
+# -- TestJournaledWave -------------------------------------------------------
+
+
+def orchestrated(M, n_nodes, journal=None):
+    """An evict-mode controller with the interruption orchestrator and a
+    launch journal, as the reference's ``main.py`` wires them."""
+    cluster, provider, prov, ctl = fleet(M, n_nodes, owned=True, migration="evict",
+                                         clock=lambda: 1000.0)
+    ctl.orchestrator = M.orch.Orchestrator(cluster, provider, None, None)
+    ctl.journal = journal if journal is not None else M.launch.MemoryLaunchJournal(
+        clock=lambda: 0.0)
+    return cluster, ctl
+
+
+def test_wave_journaled_before_first_victim_is_touched():
+    def run(M):
+        cordoned_at_record = []
+
+        class SpyJournal(M.launch.MemoryLaunchJournal):
+            def record_intent(self, *args, **kwargs):
+                cordoned_at_record.append(sum(1 for n in cluster.nodes() if n.spec.unschedulable))
+                return super().record_intent(*args, **kwargs)
+
+        cluster, ctl = orchestrated(M, 12, journal=SpyJournal(clock=lambda: 0.0))
+        ctl.reconcile("default")
+        (entry,) = ctl.journal.unresolved()
+        victims = [wire_doc(M, "nodes", cluster.get("nodes", n, namespace="")) for n in entry.victims]
+        doc = {k: v for k, v in entry.to_doc().items() if k not in ("token", "decision_id", "trace")}
+        return cordoned_at_record, doc, bool(entry.decision_id), victims
+
+    cordoned, doc, has_decision, victims = both_canon(run)
+    assert cordoned == [0] and has_decision and doc["marker"] == "consolidation"
+    assert len(doc["victims"]) == 5
+    for node in victims:
+        assert node["metadata"]["deletionTimestamp"] and node["spec"]["unschedulable"]
+        assert {"key": "karpenter.sh/interruption", "value": "consolidation",
+                "effect": "NoSchedule"} in node["spec"]["taints"]
+
+
+def test_settled_wave_resolves_journal_and_counts_reclaimed():
+    def run(M):
+        cluster, ctl = orchestrated(M, 12)
+        ctl.reconcile("default")
+        (entry,) = ctl.journal.unresolved()
+        released = sorted(p.metadata.name for p in cluster.pods() if not p.spec.node_name)
+        for name in entry.victims:
+            cluster.remove_finalizer("nodes", cluster.get("nodes", name, namespace=""),
+                                     M.lbl.TERMINATION_FINALIZER)
+        survivor = next(n for n in cluster.nodes() if n.metadata.name not in entry.victims)
+        for p in cluster.pods():
+            if not p.spec.node_name:
+                cluster.bind(p, survivor.metadata.name)
+        return (released, ctl.wave_settled("default"), ctl.journal.unresolved(),
+                ctl.nodes_reclaimed, ctl.ledger.in_flight("default"), ctl.moves_executed)
+
+    released, settled, left, reclaimed, in_flight, moves = both_canon(run)
+    assert len(released) == 5 and (settled, left, reclaimed, in_flight, moves) == (
+        True, [], 5, 0, 5)
+
+
+def test_events_carry_the_decision_id():
+    def run(M):
+        cluster, ctl = orchestrated(M, 12)
+        ctl.reconcile("default")
+        (entry,) = ctl.journal.unresolved()
+        stamped = sorted(e.reason for e in cluster.list("events")
+                         if e.metadata.annotations.get("karpenter.sh/decision-id")
+                         == entry.decision_id)
+        return stamped, [wire_doc(M, "events", e) for e in cluster.list("events")]
+
+    stamped, _ = both_canon(run)
+    assert stamped == ["Consolidated"] + ["ConsolidationDrain"] * 5
+
+
+# -- TestCrashedWaveReplay ---------------------------------------------------
+
+CRASHED_WAVE = ["replayed", "unrelated taints", "deleted victim", "young", "failed uncordon"]
+
+
+@pytest.mark.parametrize("case", CRASHED_WAVE)
+def test_crashed_consolidation_wave_replay(case):
+    """A wave entry whose replica died after cordoning two of three victims:
+    the ladder's marker branch un-cordons the survivors and resolves,
+    keeps unrelated taints, skips a deleted victim, leaves a young entry
+    and retries a failed un-cordon."""
+    def run(M):
+        cluster = M.Cluster(clock=lambda: 1000.0)
+        journal = M.launch.MemoryLaunchJournal(clock=lambda: 0.0)
+        for i in range(3):
+            cluster.create("nodes", M.f.make_node(name=f"victim-{i}", provisioner_name="default"))
+        for i in range(2):
+            node = cluster.get("nodes", f"victim-{i}", namespace="")
+            node.spec.unschedulable = True
+            node.spec.taints.append(M.O.Taint(key=M.lbl.INTERRUPTION_TAINT_KEY,
+                                              value="consolidation", effect="NoSchedule"))
+        if case == "unrelated taints":
+            cluster.get("nodes", "victim-0", namespace="").spec.taints.append(
+                M.O.Taint(key="dedicated", value="gpu", effect="NoSchedule"))
+        if case == "deleted victim":
+            cluster.delete("nodes", "victim-2", namespace="")
+        if case == "failed uncordon":
+            def failing_patch(*args, **kwargs):
+                raise RuntimeError("store blip")
+
+            cluster.merge_patch = failing_patch
+        journal.record_intent("consolidation-deadbeef", "default",
+                              marker=M.recovery.CONSOLIDATION_MARKER,
+                              victims=["victim-0", "victim-1", "victim-2"], decision_id="d-123")
+        (entry,) = journal.unresolved()
+        outcome = M.recovery.replay_entry(journal, cluster, None, entry, {},
+                                          now=5.0 if case == "young" else 100.0,
+                                          replay_after=10.0)
+        return outcome, docs(journal), [wire_doc(M, "nodes", n) for n in cluster.nodes()]
+
+    outcome, left, nodes = both_canon(run)
+    if case in ("young", "failed uncordon"):
+        assert outcome == "pending" and len(left) == 1
+    else:
+        assert outcome == "consolidation_replayed" and left == []
+        assert not any(n["spec"].get("unschedulable") for n in nodes)
+        keys = [[t["key"] for t in n["spec"].get("taints", [])] for n in nodes]
+        assert keys[0] == (["dedicated"] if case == "unrelated taints" else [])
+
 
 
 # -- brownout and the decision record ----------------------------------------

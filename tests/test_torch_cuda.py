@@ -8,7 +8,8 @@ each, byte-equal to ``solve_bytes`` and to the plain version, the next
 kernel when the first raises) and arena solves, and two threads on one
 card scheduler; and the observability plane on the card (a traced round's
 one launch and its stage spans, the session HBM gauges, the sidecar's
-spans, the decision replay blob through the kernel ladder). Every
+spans, the decision replay blob through the kernel ladder); a notice's
+replacement round and an adopted crash on the card. Every
 comparison is exact.
 
 Marked ``cuda``; each skips without a CUDA device (decided in a fixture,
@@ -1243,3 +1244,129 @@ def test_evict_wave_drains_on_a_card_manager(cuda):
     assert out["deleted"] == sorted(out["victims"])
     assert out["launches"] >= 2  # the plan and the recreations' round
     assert 0 < out["next_wave"] <= 5
+
+
+# -- interruption and crash-safe launch on the card --------------------------
+
+
+def replacement_round(device):
+    """The 1,500-pod diverse batch seated by one inline round on
+    ``device``, then a notice for 5% of its nodes (the first by pod index)
+    through ``InterruptionController.handle_notice`` and one replacement
+    round. Returns the bound state by pod index after each round, the
+    victims' taints and cordon, the event reasons, the notices and lead
+    times, and each round's launches of both kernels."""
+    import math
+
+    from karpenter_tpu_torch.controllers.interruption import InterruptionController
+    from karpenter_tpu_torch.controllers.termination import TerminationController
+    from karpenter_tpu_torch.interruption import DisruptionNotice
+
+    prov, catalog, pods = scenario("karpenter_tpu_torch", "diverse", 1500, 42, 60)
+    launches = []
+
+    def round_(fn):
+        before = {m: m.launches for m in (pack_kernel, pack_kernel_v2)}
+        fn()
+        launches.append(tuple(m.launches - n for m, n in before.items()))
+
+    cluster, controller, worker = controller_round(device, prov, catalog, [])
+    ic = InterruptionController(cluster, controller.cloud_provider, provisioning=controller,
+                                termination=TerminationController(cluster, controller.cloud_provider,
+                                                                  start_queue=False))
+    worker.scheduler.torch.topology.rng = random.Random(1)
+    for p in pods:
+        cluster.create("pods", p)
+        worker.add(p)
+    round_(worker.provision_once)
+    seated = bound_by_index(cluster, pods)
+    order = list(dict.fromkeys(p.spec.node_name for p in pods if p.spec.node_name))
+    victims = order[: math.ceil(len(order) * 0.05)]
+    for name in victims:
+        ic.handle_notice(DisruptionNotice(kind="preemption", node_name=name,
+                                          grace_period_seconds=120.0))
+    cordoned = [(n.spec.unschedulable, sorted((t.key, t.value) for t in n.spec.taints))
+                for n in (cluster.get("nodes", v, namespace="") for v in victims)]
+    round_(worker.provision_once)
+    controller.stop()
+    reasons = sorted(e.reason for e in cluster.list("events") if e.type == "Warning")
+    return (seated, bound_by_index(cluster, pods), cordoned, reasons, ic.notices_handled,
+            len(ic.lead_times), ic.evicted_unready, launches)
+
+
+def test_replacement_round_on_card_equals_the_cpu_controller(cuda):
+    card, plain = replacement_round("cuda"), replacement_round("cpu")
+    assert card[:-1] == plain[:-1]
+    assert card[-1] == [(1, 0), (1, 0)]
+    seated, replaced, cordoned, reasons, notices, leads, unready = card[:-1]
+    assert notices == len(cordoned) > 0 and leads > 0 and unready == 0
+    assert all(c == (True, [("karpenter.sh/interruption", "preemption"),
+                            ("karpenter.sh/not-ready", "")]) for c in cordoned)
+    # a released pod the replacement round cannot seat (its spread or
+    # anti-affinity against the pods still bound) stays pending, as in the
+    # reference: the cpu twin leaves the same ones
+    assert len(replaced[1]) >= len(seated[1]) and reasons.count("InterruptionNotice") == notices
+
+
+def adopted_crash(device, path):
+    """A worker on ``device`` over a ``LaunchCrashCluster`` armed at
+    ``before_node_write``: its round dies between the cloud create and the
+    Node write; a fresh collector over the same file journal
+    (``replay_after=0``) sweeps once; the pods are queued again and one more
+    round runs. Returns what each step left and each round's launches of
+    ``pack_first_fit``."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.garbage_collection import (
+        GC_POLL_KEY, GarbageCollectionController)
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.launch import FileLaunchJournal
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+    from karpenter_tpu_torch.testing.chaos import LaunchCrash, LaunchCrashCluster
+
+    cluster = Cluster()
+    proxy = LaunchCrashCluster(cluster)
+    provider = FakeCloudProvider(instance_types(60))
+    controller = ProvisioningController(proxy, provider, start_workers=False, device=device,
+                                        journal=FileLaunchJournal(path))
+    cluster.create("provisioners", make_provisioner(solver="tpu"))
+    controller.reconcile("default")
+    worker = controller.workers["default"]
+    pods = [make_pod(name=f"crash-{i}", requests={"cpu": "0.5"}) for i in range(4)]
+    for p in pods:
+        cluster.create("pods", p)
+        worker.add(p)
+    proxy.arm("before_node_write")
+    launches = [pack_kernel.launches]
+    with pytest.raises(LaunchCrash):
+        worker.provision_once()
+    launches.append(pack_kernel.launches)
+    wreck = (len(cluster.nodes()), len(FileLaunchJournal(path).unresolved()),
+             len(provider.list_instances()))
+    gc = GarbageCollectionController(cluster, provider, journal=FileLaunchJournal(path),
+                                     replay_after=0.0)
+    gc.reconcile(GC_POLL_KEY)
+    adopted = (gc.adopted, len(FileLaunchJournal(path).unresolved()),
+               [n.metadata.name for n in cluster.nodes()] == [proxy.crash_nodes["before_node_write"]])
+    binds = []
+    bind = cluster.bind
+    cluster.bind = lambda pod, node: (binds.append(pod.key), bind(pod, node))
+    for p in pods:
+        worker.add(p)
+    worker.provision_once()
+    launches.append(pack_kernel.launches)
+    controller.stop()
+    tokens = [i.launch_token for i in provider.list_instances()]
+    return (wreck, adopted, sorted(binds) == sorted(p.key for p in pods),
+            all(p.spec.node_name for p in pods), len(tokens), len(set(tokens)),
+            [b - a for a, b in zip(launches, launches[1:])])
+
+
+def test_adopted_crash_on_card(cuda, tmp_path):
+    """The crash of ``adopted_crash`` on the card: each round launched
+    pack_first_fit once, the orphan was adopted once, the pods bound once."""
+    wreck, adopted, bound_once, seated, n_tokens, n_unique, launches = adopted_crash(
+        "cuda", str(tmp_path / "journal.json"))
+    assert wreck == (0, 1, 1) and adopted == (1, 0, True)
+    assert bound_once and seated and n_tokens == n_unique == 2
+    assert launches == [1, 1]

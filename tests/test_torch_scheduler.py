@@ -121,7 +121,9 @@ def test_importing_the_port_loads_no_jax():
         "    'utils.batcher', 'kube.serde', 'cloudprovider.metrics', 'interruption.types',\n"
         "    'controllers.consolidation', 'controllers.termination', 'controllers.node',\n"
         "    'controllers.metrics_node', 'controllers.metrics_pod', 'solver.repack',\n"
-        "    'resilience.liveness', 'utils.gcpolicy', 'utils.node'))\n"
+        "    'resilience.liveness', 'utils.gcpolicy', 'utils.node', 'interruption.orchestrator',\n"
+        "    'controllers.interruption', 'controllers.garbage_collection', 'launch.journal',\n"
+        "    'launch.recovery', 'utils.lease', 'fleet'))\n"
         "bad += ['grpc'] if 'grpc' in sys.modules else []\n"
         "print(n, new, bad)\n"
     )

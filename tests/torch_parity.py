@@ -334,6 +334,10 @@ def deprov(pkg: str) -> SimpleNamespace:
         counter=m("controllers.counter"), pvc=m("controllers.pvc"),
         ffd=m("scheduling.ffd"), gcpolicy=m("utils.gcpolicy"),
         liveness=m("resilience.liveness"), brownout=m("resilience.brownout"),
+        intr=m("controllers.interruption"), orch=m("interruption.orchestrator"),
+        itypes=m("interruption.types"), gc=m("controllers.garbage_collection"),
+        launch=m("launch"), recovery=m("launch.recovery"), chaos=m("testing.chaos"),
+        serde=m("kube.serde"), ctypes=m("cloudprovider.types"), utilpod=m("utils.pod"),
     )
 
 
@@ -437,25 +441,39 @@ def plan_view(plan) -> dict:
     }
 
 
-def wire_all(M, cluster, provider, consolidation=None, start_workers=True, **kw):
+def wire_all(M, cluster, provider, consolidation=None, start_workers=True, interruption=False,
+             journal=None, gc=None, **kw):
     """The reference ``main.py:354-466`` wiring of every ported controller
-    on one Manager: the names, the concurrency and the watches. Returns a
+    on one Manager: the names, the concurrency and the watches.
+    ``interruption`` adds the interruption controller; ``journal`` is the
+    provisioning controller's launch journal; ``gc`` (a dict of keyword
+    arguments) adds the garbage collector over that journal. Returns a
     namespace holding the Manager and each controller; ``stop(ns)`` stops
     them."""
     kw = on_cpu(M, kw)
     manager = M.manager.Manager(cluster)
-    provisioning = M.prov.ProvisioningController(cluster, provider, start_workers=start_workers, **kw)
+    provisioning = M.prov.ProvisioningController(cluster, provider, start_workers=start_workers,
+                                                 journal=journal, **kw)
+    termination = M.term.TerminationController(cluster, provider, start_queue=start_workers)
     out = SimpleNamespace(
         manager=manager, provisioning=provisioning,
         selection=M.sel.SelectionController(cluster, provisioning, wait=False),
-        termination=M.term.TerminationController(cluster, provider, start_queue=start_workers),
+        termination=termination,
+        interruption=M.intr.InterruptionController(
+            cluster, provider, provisioning=provisioning, termination=termination)
+        if interruption else None,
         node=M.node.NodeController(cluster, cloud_provider=provider),
-        consolidation=consolidation, counter=M.counter.CounterController(cluster),
+        consolidation=consolidation,
+        garbage_collection=M.gc.GarbageCollectionController(
+            cluster, provider, journal=journal, termination=termination, **gc)
+        if gc is not None else None,
+        counter=M.counter.CounterController(cluster),
         pvc=M.pvc.PVCController(cluster), metrics_node=M.mnode.NodeMetricsController(cluster),
         metrics_pod=M.mpod.PodMetricsController(cluster),
     )
     for name, concurrency in (("provisioning", 10), ("selection", 32), ("termination", 10),
-                              ("node", 10), ("consolidation", 2), ("counter", 2), ("pvc", 2),
+                              ("interruption", 2), ("node", 10), ("consolidation", 2),
+                              ("garbage_collection", 1), ("counter", 2), ("pvc", 2),
                               ("metrics_node", 2), ("metrics_pod", 2)):
         controller = getattr(out, name)
         if controller is not None:
@@ -463,8 +481,8 @@ def wire_all(M, cluster, provider, consolidation=None, start_workers=True, **kw)
     cluster.watch("provisioners", lambda e, o: manager.enqueue("provisioning", o.metadata.name))
     cluster.watch("pods", lambda e, o: manager.enqueue(
         "selection", (o.metadata.name, o.metadata.namespace)))
-    for name in ("node", "consolidation", "counter", "pvc", "termination", "metrics_node",
-                 "metrics_pod"):
+    for name in ("node", "interruption", "garbage_collection", "consolidation", "counter", "pvc",
+                 "termination", "metrics_node", "metrics_pod"):
         controller = getattr(out, name)
         if controller is not None:
             controller.register(manager)
@@ -475,3 +493,59 @@ def stop(wired) -> None:
     wired.manager.stop()
     wired.provisioning.stop()
     wired.termination.stop()
+
+
+# -- interruption and the launch journal --------------------------------------
+
+# annotations whose values are random by design (launch tokens, trace and
+# decision ids): compared by presence
+RANDOM_ANNOTATIONS = ("karpenter.sh/launch-token", "karpenter.sh/trace-context",
+                      "karpenter.sh/trace-id", "karpenter.sh/decision-id")
+
+
+def wire_doc(M, kind, obj) -> dict:
+    """``obj``'s wire form without the store's uid and resourceVersion, the
+    random annotations' values replaced by ``<set>``."""
+    doc = M.serde.to_wire(kind, obj)
+    meta = doc["metadata"]
+    meta.pop("uid", None)
+    meta.pop("resourceVersion", None)
+    ann = meta.get("annotations") or {}
+    for key in RANDOM_ANNOTATIONS:
+        if key in ann:
+            ann[key] = "<set>"
+    return doc
+
+
+def events(M, cluster) -> list:
+    """Every event's wire form (``wire_doc``), in creation order."""
+    return [wire_doc(M, "events", e) for e in cluster.list("events")]
+
+
+def journal_docs(journal) -> list:
+    """A launch journal's open entries as documents, by token."""
+    return sorted((e.to_doc() for e in journal.unresolved()), key=lambda d: d["token"])
+
+
+def canon(value) -> str:
+    """``value`` as sorted JSON with the fake cloud's node names
+    (``fake-node-<n>``, a per-package counter) renamed ``node#<k>`` by
+    their order of creation, so the two packages' results compare."""
+    import json
+    import re
+
+    text = json.dumps(value, sort_keys=True, default=repr)
+    seen = sorted({int(n) for n in re.findall(r"fake-node-(\d+)", text)})
+    rank = {n: k for k, n in enumerate(seen)}
+    return re.sub(r"fake-node-(\d+)", lambda m: f"node#{rank[int(m.group(1))]}", text)
+
+
+def both_canon(fn):
+    """``fn(M)`` on each package under its pinned packer; the port's
+    result, once it equals the reference's under ``canon``."""
+    out = []
+    for pkg in PACKAGES:
+        with pinned(pkg):
+            out.append(fn(deprov(pkg)))
+    assert canon(out[1]) == canon(out[0])
+    return out[1]
