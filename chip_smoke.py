@@ -321,6 +321,37 @@ Phases (any failure exits non-zero; nothing is swallowed):
              round seats them, the wave settles and its entry resolves;
              then a wave that dies after its first cordon is replayed by a
              GC sweep (consolidation_replayed) and the victim un-cordoned;
+18. warmpool — (after phase 17) predictive provisioning; each part reads
+             both kernels' launch counters around itself and fails where
+             they differ from its rounds' pack_dispatches, the warm-ups
+             included. (a) the forecast storm (bench.py:1956-2068 with its
+             parameters: 30 s of ArrivalPattern(3.0, 0.7, period 15, tick 1,
+             flashes at 16.5 and 24 of 24 pods over 3 s, seed 20260807),
+             pods of cpu 0.25 alternating the selectors of provisioners
+             fc-0 and fc-1) over a SimulatedCloudProvider whose create_fleet
+             sleeps 0.5 s, a Manager with provisioning (a memory journal),
+             selection, node, termination, counter, pvc and garbage
+             collection (interval 1 s, replay_after 3 s, warm-pool TTL 8 s),
+             run twice on the same schedule: cold (no warm pool, no
+             forecaster) and warm (the forecaster, bucket 1 s, alpha 0.35,
+             horizon 8 s; the steal; a WarmPoolController, a wave every
+             0.5 s, 12 warm nodes at most), then speculation paused until no
+             warm node stands and no entry is open. The provisioners are
+             solver: tpu on the card, where the reference's leg defaults to
+             ffd. Per pass: time-to-ready p50 and p99, the spike p99, warm
+             hits, misses and hit rate, speculative launches, expirations,
+             each round's batch, kernel and route; the warm-over-cold spike
+             speedup beside the reference's 2.0 bar (reported, not
+             enforced). It fails on a pod unbound or bound twice, a leaked
+             instance, an entry left open, no warm hit in the warm pass, or
+             a round that names no kernel or raised. (b) the headline and
+             the team mix seated inline in batches of 2,000 by a
+             warm_pool=True worker over FakeCloudProvider after one wave of
+             10 warm nodes (a forecaster on a fake clock): each batch steals
+             first and sends the remainder to the card; equal to a
+             device="cpu" controller by pod index (warm claims by rank, the
+             remainder's plan, unplaced pods, the warm_claim and
+             warm_pool_wave records, hits and misses by batch);
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -335,7 +366,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              (a)-(g) measured, and ``deprovision``: phase 16's launches by
              part, each plan's wall, build, shadow and repack times, and
              ``interruption``: phase 17's launches by part, (a)'s lead
-             times and rounds, (b)'s replacement rounds, (c)'s sweeps.
+             times and rounds, (b)'s replacement rounds, (c)'s sweeps, and
+             ``warmpool``: phase 18's launches by part, both passes of (a)
+             and (b)'s claims and rounds.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -3190,13 +3223,14 @@ STORM_PODS = 10000
 CONTROLLER_BATCH = 2000  # the batcher's default max_items
 
 
-def wire_controllers(cluster, provider, device: str, start_workers: bool, journal=None):
+def wire_controllers(cluster, provider, device: str, start_workers: bool, journal=None,
+                     warm_pool: bool = False):
     """The five ported controllers wired as the reference's main.py wires
     them: a Manager with provisioning (concurrency 10, its launch
-    ``journal``), selection (32, wait=False), counter and pvc (2 each), the
-    provisioners and pods watches, counter's and pvc's own watches, and the
-    cloud provider behind cpmetrics.decorate. Returns (manager,
-    provisioning, counter)."""
+    ``journal``, the warm-hit steal with ``warm_pool``), selection (32,
+    wait=False), counter and pvc (2 each), the provisioners and pods
+    watches, counter's and pvc's own watches, and the cloud provider behind
+    cpmetrics.decorate. Returns (manager, provisioning, counter)."""
     from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
     from karpenter_tpu_torch.controllers.counter import CounterController
     from karpenter_tpu_torch.controllers.manager import Manager
@@ -3207,7 +3241,7 @@ def wire_controllers(cluster, provider, device: str, start_workers: bool, journa
     manager = Manager(cluster)
     provisioning = ProvisioningController(
         cluster, cpmetrics.decorate(provider), start_workers=start_workers, device=device,
-        journal=journal)
+        journal=journal, warm_pool=warm_pool)
     selection = SelectionController(cluster, provisioning, wait=False)
     counter = CounterController(cluster)
     pvc = PVCController(cluster)
@@ -4730,6 +4764,429 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
     return out
 
 
+FORECAST_S = 30.0  # bench_forecast_storm's parameters (bench.py:1956-2068)
+FORECAST_SEED = 20260807
+FORECAST_TTL_S = 8.0
+FORECAST_MAX_WARM = 12
+FORECAST_PROVISIONERS = 2
+FORECAST_LAUNCH_S = 0.5  # the simulated cloud's create_fleet latency
+FORECAST_WAVE_S = 0.5
+
+
+def forecast_pass(card: str, label: str, schedule, in_flash, warm_pool: bool,
+                  device: str) -> dict:
+    """One pass of the forecast storm (the reference's ``_forecast_phase``,
+    bench.py:1735-1955): a Manager wired as the reference's main.py wires
+    it for these options over a decorated SimulatedCloudProvider whose
+    create_fleet sleeps 0.5 s — provisioning (a memory launch journal, the
+    steal with ``warm_pool``), selection, node, termination, counter, pvc
+    and garbage collection (interval 1 s, replay_after 3 s, the warm-pool
+    TTL), and with ``warm_pool`` the forecaster (bucket 1 s, alpha 0.35,
+    horizon 8 s) and the WarmPoolController (a wave every 0.5 s, at most 12
+    warm nodes), registered and enqueued. Two solver: tpu provisioners
+    ``fc-<i>`` each admit pods with ``fc: fc-<i>``; the compiled schedule
+    drives pods of cpu 0.25 in real time, alternating selectors; then every
+    pod bound, and in the warm pass the epilogue: speculation paused until
+    no warm node stands and no journal entry is open. Returns what the
+    kernels line and the checks read; raises on a pod unbound or bound
+    twice, a leaked instance, an open entry, no warm hit in the warm pass,
+    or a round that names no kernel or raised."""
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.api.objects import NodeSelectorRequirement
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.cloudprovider.simulated import SimCloudAPI, SimulatedCloudProvider
+    from karpenter_tpu_torch.controllers.garbage_collection import GarbageCollectionController
+    from karpenter_tpu_torch.controllers.warmpool import WarmPoolController
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.launch import MemoryLaunchJournal
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    names = [f"fc-{i}" for i in range(FORECAST_PROVISIONERS)]
+    families = ("karpenter_warmpool_hits_total", "karpenter_warmpool_misses_total",
+                "karpenter_warmpool_speculative_launches_total")
+
+    def sample() -> dict:
+        out = {f: sum(metric(f, {"provisioner": n}) for n in names) for f in families}
+        out["karpenter_warmpool_expired_total"] = metric("karpenter_warmpool_expired_total")
+        out["guard"] = sum(metric("karpenter_fleet_duplicate_launch_guard_total", {"reason": r})
+                           for r in ("fenced", "lost_ownership"))
+        return out
+
+    counters = sample()
+    cluster = Cluster()
+    api = SimCloudAPI()
+    api.launch_latency_s = FORECAST_LAUNCH_S
+    provider = SimulatedCloudProvider(api=api)
+    metered = cpmetrics.decorate(provider)
+    journal = MemoryLaunchJournal()
+    created, bound_at, last_node, rebinds, binds = {}, {}, {}, [], {}
+    lock = threading.Lock()
+    bind = cluster.bind
+
+    def counting_bind(pod, node_name):
+        with lock:
+            binds[pod.key] = binds.get(pod.key, 0) + 1
+        bind(pod, node_name)
+
+    def on_pod(event, pod):
+        if event == "DELETED" or not pod.spec.node_name:
+            return
+        now = time.perf_counter()
+        with lock:
+            prev = last_node.get(pod.metadata.name)
+            if prev and prev != pod.spec.node_name:
+                rebinds.append((pod.metadata.name, prev, pod.spec.node_name))
+            last_node[pod.metadata.name] = pod.spec.node_name
+            if pod.metadata.name in created and pod.metadata.name not in bound_at:
+                bound_at[pod.metadata.name] = now - created[pod.metadata.name]
+
+    cluster.bind = counting_bind
+    cluster.watch("pods", on_pod)
+    engine = obs.configure_forecast(bucket_s=1.0, alpha=0.35, default_horizon_s=8.0) \
+        if warm_pool else None
+    manager, provisioning, _ = wire_controllers(cluster, provider, device, start_workers=True,
+                                                journal=journal, warm_pool=warm_pool)
+    termination = wire_lifecycle(manager, cluster, metered, metrics=False)
+    collector = GarbageCollectionController(cluster, metered, journal=journal,
+                                            termination=termination, gc_interval=1.0,
+                                            warm_pool_ttl=FORECAST_TTL_S)
+    collector.replay_after = 3.0
+    manager.register("garbage_collection", collector.reconcile, concurrency=1)
+    collector.register(manager)
+    wave = None
+    if warm_pool:
+        wave = WarmPoolController(cluster, metered, provisioning, journal=journal,
+                                  interval=FORECAST_WAVE_S, warm_pool_ttl=FORECAST_TTL_S,
+                                  max_nodes=FORECAST_MAX_WARM)
+        manager.register("warmpool", wave.reconcile, concurrency=1)
+        wave.register(manager)
+    rounds, warmups = {}, {}
+    start = {V1: pack_kernel.launches, V2: pack_kernel_v2.launches}
+    manager.start()
+    try:
+        for name in names:
+            cluster.create("provisioners", make_provisioner(
+                name=name, solver="tpu",
+                requirements=[NodeSelectorRequirement(key="fc", operator="In", values=[name])]))
+        deadline = time.time() + 60
+        while time.time() < deadline and not all(n in provisioning.workers for n in names):
+            time.sleep(0.01)
+        for name in names:
+            worker = provisioning.workers[name]
+            worker.batcher.idle_duration = 0.1
+            # the storm starts once the kernels are warm: a cold first
+            # round would put the build in a pod's time-to-ready
+            if not worker.warmed.wait(timeout=600):
+                raise AssertionError(f"warmpool (a) {label}: {name}'s warm-up never finished")
+            warmups[name] = worker.scheduler.torch.completed_profile()
+            rounds[name] = []
+            record_rounds(worker, rounds[name])
+        t_start = time.perf_counter()
+        n_created = 0
+        for tick, (t_off, count) in enumerate(schedule):
+            delay = t_off - (time.perf_counter() - t_start)
+            if delay > 0:
+                time.sleep(delay)
+            prefix = "flash" if in_flash(t_off) else "base"
+            for j in range(count):
+                pod_name = f"{prefix}-{label}-{tick}-{j}"
+                with lock:
+                    created[pod_name] = time.perf_counter()
+                cluster.create("pods", make_pod(name=pod_name, requests={"cpu": "0.25"},
+                                                node_selector={"fc": names[n_created % len(names)]}))
+                n_created += 1
+        drive_s = time.perf_counter() - t_start
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            with lock:
+                if len(bound_at) >= n_created:
+                    break
+            time.sleep(0.02)
+        settle_s = time.perf_counter() - t_start - drive_s
+        epilogue_s = 0.0
+        if wave is not None:
+            t0 = time.perf_counter()
+            wave.set_paused(True)
+            deadline = time.time() + FORECAST_TTL_S * 4 + 15
+            while time.time() < deadline:
+                standing = [n for n in cluster.nodes()
+                            if lbl.WARM_POOL_ANNOTATION in n.metadata.annotations
+                            and n.metadata.deletion_timestamp is None]
+                if not standing and not journal.unresolved():
+                    break
+                time.sleep(0.2)
+            epilogue_s = time.perf_counter() - t0
+        else:
+            # a cold launch's entry resolves right after its binds
+            deadline = time.time() + 10
+            while time.time() < deadline and journal.unresolved():
+                time.sleep(0.02)
+        node_names = {n.metadata.name for n in cluster.nodes()}
+        provider_ids = {n.spec.provider_id for n in cluster.nodes()}
+        live = [i for i in api.list_instances() if i.state != "terminated"]
+        leaked = [i.id for i in live if i.id not in node_names
+                  and f"sim:///{i.zone}/{i.id}" not in provider_ids]
+        open_entries = journal.unresolved()
+    finally:
+        manager.stop()
+        provisioning.stop()
+        termination.stop()
+        if engine is not None:
+            obs.shutdown_forecast(engine)
+    for name in names:
+        worker = provisioning.workers.get(name)
+        if worker is not None and worker._thread is not None:
+            worker._thread.join(timeout=120)
+    launches = {V1: pack_kernel.launches - start[V1], V2: pack_kernel_v2.launches - start[V2]}
+    all_rounds = [r for name in names for r in rounds[name]]
+    launched = check_rounds(all_rounds, {V1, V2}, f"warmpool (a) {label}")
+    for prof in warmups.values():
+        if prof.get("packer_backend") not in (V1, V2):
+            raise AssertionError(f"warmpool (a) {label}: a warm-up served by "
+                                 f"{prof.get('packer_backend')!r}")
+        launched[prof["packer_backend"]] = (launched.get(prof["packer_backend"], 0)
+                                            + prof.get("pack_dispatches", 0))
+    expect_launches(f"warmpool a {label}", launches, launched)
+    with lock:
+        unbound = [k for k in created if k not in bound_at]
+        twice = {k: n for k, n in binds.items() if n != 1}
+        lat = sorted(bound_at.values())
+        spike = sorted(v for k, v in bound_at.items() if k.startswith("flash-"))
+    if unbound or twice or rebinds or len(binds) != n_created:
+        raise AssertionError(f"warmpool (a) {label}: {len(unbound)} pods unbound, {len(twice)} "
+                             f"bound other than once, {len(rebinds)} re-bound, {len(binds)} of "
+                             f"{n_created} bound")
+    if leaked:
+        raise AssertionError(f"warmpool (a) {label}: leaked instances {leaked}")
+    if open_entries:
+        raise AssertionError(f"warmpool (a) {label}: {len(open_entries)} journal entries open")
+    moved = {k: v - counters[k] for k, v in sample().items()}
+    hits = moved["karpenter_warmpool_hits_total"]
+    misses = moved["karpenter_warmpool_misses_total"]
+    if warm_pool and hits <= 0:
+        raise AssertionError(f"warmpool (a) {label}: no warm hit")
+
+    def p99(xs):  # bench.py's _p99
+        return xs[min(len(xs) - 1, max(math.ceil(0.99 * len(xs)) - 1, 0))]
+
+    out = {
+        "phase": label, "pods": n_created, "bound": len(bound_at),
+        "p50_s": lat[len(lat) // 2], "p99_s": p99(lat), "spike_p99_s": p99(spike),
+        "warm_hits": int(hits), "warm_misses": int(misses),
+        "hit_rate": hits / (hits + misses) if hits + misses else 0.0,
+        "speculative": int(moved["karpenter_warmpool_speculative_launches_total"]),
+        "expired": int(moved["karpenter_warmpool_expired_total"]),
+        "guard": moved["guard"], "waves": wave.waves if wave is not None else 0,
+        "launches": launches, "rounds": len(all_rounds), "drive_s": drive_s,
+        "settle_s": settle_s, "epilogue_s": epilogue_s, "creates": len(api.instances),
+        "gc_sweeps": collector.sweeps,
+        "scheduling_ms": [r["scheduling_ms"] for r in all_rounds],
+    }
+    for name in names:
+        for i, r in enumerate(rounds[name]):
+            log(f"[warmpool] (a) {label} {name} round {i}: batch {r['pods']}, nodes {r['nodes']}, "
+                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
+                f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms")
+    log(f"[warmpool] (a) {label} pass ({'warm pool + forecaster' if warm_pool else 'reactive'}, "
+        f"solver: tpu on the card where the reference's leg defaults to ffd): {n_created} pods "
+        f"over {len(names)} provisioners, time-to-ready p50 {out['p50_s'] * 1e3:.1f} ms, p99 "
+        f"{out['p99_s'] * 1e3:.1f} ms, spike p99 {out['spike_p99_s'] * 1e3:.1f} ms "
+        f"({len(spike)} flash pods); warm hits {out['warm_hits']}, misses {out['warm_misses']}, "
+        f"hit rate {out['hit_rate']:.4f}; speculative launches {out['speculative']}, expired "
+        f"{out['expired']}, {out['waves']} waves; {out['creates']} instances launched, 0 leaked, "
+        f"0 entries open, every pod bound once; {len(all_rounds)} card rounds, launches "
+        f"{launches} (with {len(warmups)} warm-ups); drive {drive_s:.3f} s, settle "
+        f"{settle_s:.3f} s, epilogue {epilogue_s:.3f} s, {collector.sweeps} GC sweeps; card "
+        f"{card}")
+    return out
+
+
+def inline_warm(device: str, catalog, pods, requirements=None) -> dict:
+    """One provisioner's ``warm_pool=True`` controller with
+    start_workers=False (topology rng seeded) over a decorated
+    FakeCloudProvider and a memory journal. First one wave of a
+    WarmPoolController (its default ``max_nodes``, 10) on a forecaster with
+    a fake clock, fed one ``provision.round`` span (2,000 pods on 200 nodes
+    in a closed 1 s bucket: 50,000 pods wanted); then every pod created and
+    queued and provision_once until the queue drains (batches of
+    CONTROLLER_BATCH): the steal first, the remainder to the scheduler.
+    Returns, by pod index, the bound state, the warm claims (pods on each
+    warm node by the rank of its name, the order the steal walks), the
+    warm-claim and wave decision records (warm nodes by rank), the hits and
+    misses of each batch, the rounds."""
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.controllers.warmpool import WARM_POOL_KEY, WarmPoolController
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.launch import MemoryLaunchJournal
+    from karpenter_tpu_torch.obs.trace import Span
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    obs.configure_decisions("")
+    clock = [0.0]
+    eng = obs.configure_forecast(bucket_s=1.0, alpha=1.0, default_horizon_s=5.0,
+                                 clock=lambda: clock[0])
+    cluster = Cluster()
+    provider = cpmetrics.decorate(FakeCloudProvider(catalog))
+    journal = MemoryLaunchJournal()
+    provisioning = ProvisioningController(cluster, provider, start_workers=False, device=device,
+                                          journal=journal, warm_pool=True)
+    prov = make_provisioner(solver="tpu", requirements=requirements)
+    cluster.create("provisioners", prov)
+    provisioning.reconcile(prov.name)
+    worker = provisioning.workers[prov.name]
+    worker.batcher.idle_duration = 0.01
+    worker.scheduler.torch.topology.rng = random.Random(1)
+    labels = {"provisioner": prov.name}
+    try:
+        eng(Span(name="provision.round", trace_id="t" * 32, span_id="s" * 16, parent_id=None,
+                 parent=None, attrs={"provisioner": prov.name, "batch": 2000, "nodes": 200}))
+        clock[0] = 1.0
+        wave = WarmPoolController(cluster, provider, provisioning, journal=journal)
+        t0 = time.perf_counter()
+        wave.reconcile(WARM_POOL_KEY)
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        warm = sorted(n.metadata.name for n in cluster.nodes()
+                      if lbl.WARM_POOL_ANNOTATION in n.metadata.annotations)
+        rank = {name: k for k, name in enumerate(warm)}
+        rounds = []
+        record_rounds(worker, rounds)
+        for p in pods:
+            cluster.create("pods", p)
+            worker.add(p)
+        batches, walls = [], []
+        while worker.batcher.depth():
+            hits = metric("karpenter_warmpool_hits_total", labels)
+            misses = metric("karpenter_warmpool_misses_total", labels)
+            t0 = time.perf_counter()
+            worker.provision_once()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            batches.append((metric("karpenter_warmpool_hits_total", labels) - hits,
+                            metric("karpenter_warmpool_misses_total", labels) - misses))
+        records = []
+        for r in reversed(obs.decision_log().recent(limit=64)):
+            state = dict(r.get("state") or {})
+            if state.get("warm_claim") or state.get("warm_pool_wave"):
+                if "warm_nodes" in state:
+                    state["warm_nodes"] = [rank[n] for n in state["warm_nodes"]]
+                records.append((state, r["pods_considered"], r["nodes"],
+                                r["unschedulable_count"]))
+    finally:
+        provisioning.stop()
+        obs.shutdown_forecast(eng)
+    random_keys = {k for k, vs in worker.provisioner.spec.constraints.requirements._sets
+                   if vs.op_type() == "Exists"}
+    nodes, unbound = bound_state(cluster, pods, random_keys)
+    claims = [[i for i, p in enumerate(pods) if p.spec.node_name == name] for name in warm]
+    return {
+        "rounds": rounds, "walls": walls, "nodes": nodes, "unbound": unbound, "claims": claims,
+        "records": records, "batches": batches, "speculative": wave.speculative_launches,
+        "standing": sum(1 for n in cluster.nodes()
+                        if lbl.WARM_POOL_ANNOTATION in n.metadata.annotations),
+        "open": len(journal.unresolved()), "wave_ms": wave_ms,
+        "fits": fits_and_counts(cluster, prov.name, f"warmpool inline {device}"),
+    }
+
+
+def warmpool_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
+                   n_types: int = 400, duration_s: float = FORECAST_S) -> dict:
+    """Phase 18: predictive provisioning on the card. Returns the kernels
+    line's ``warmpool`` entries."""
+    from karpenter_tpu_torch.api.objects import NodeSelectorRequirement
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.testing import diverse_pods
+    from karpenter_tpu_torch.testing.chaos import ArrivalPattern
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    out = {V1: {}, V2: {}, "summary": {}}
+    part_s, t_part = {}, time.perf_counter()
+
+    def counts() -> dict:
+        return {name: m.launches for name, m in modules.items()}
+
+    # -- (a) the forecast storm, cold then warm -----------------------------
+    pattern = ArrivalPattern(base_pods_per_tick=3.0, amplitude=0.7, period_s=duration_s / 2.0,
+                             tick_s=1.0, flash_at=(duration_s * 0.55, duration_s * 0.8),
+                             flash_pods=24, flash_len_s=3.0, seed=FORECAST_SEED)
+    schedule = pattern.schedule(duration_s)
+    passes = {}
+    for label, warm in (("cold", False), ("warm", True)):
+        passes[label] = forecast_pass(card, label, schedule, pattern.in_flash, warm, device)
+        for name in (V1, V2):
+            if passes[label]["launches"][name]:
+                out[name][f"launches_a_{label}"] = passes[label]["launches"][name]
+    speedup = passes["cold"]["spike_p99_s"] / passes["warm"]["spike_p99_s"]
+    log(f"[warmpool] (a) forecast storm {duration_s:g} s, seed {FORECAST_SEED}, "
+        f"{sum(n for _, n in schedule)} pods a pass: spike p99 cold "
+        f"{passes['cold']['spike_p99_s'] * 1e3:.1f} ms, warm "
+        f"{passes['warm']['spike_p99_s'] * 1e3:.1f} ms, warm-over-cold speedup {speedup:.2f} "
+        f"(the reference's bar 2.0, reported, not enforced); warm hit rate "
+        f"{passes['warm']['hit_rate']:.4f}; card {card}")
+    out["summary"]["a"] = {**passes, "spike_speedup": speedup, "spike_speedup_bar": 2.0,
+                           "pods": sum(n for _, n in schedule)}
+    part_s["a"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # -- (b) inline determinism at headline width ----------------------------
+    team = [NodeSelectorRequirement(key="team", operator="Exists")]
+    parts = (
+        ("b", "headline", instance_types(n_types),
+         lambda: diverse_pods(n_pods, random.Random(42)), None, V1),
+        ("b_teams", "team mix", instance_types_tradeoff(n_types),
+         lambda: team_pods(n_pods, 9), team, V2),
+    )
+    for label, what, catalog, make, requirements, kernel in parts:
+        ref = inline_warm("cpu", catalog, make(), requirements)
+        start = counts()
+        got = inline_warm(device, catalog, make(), requirements)
+        b_launches = {name: n - start[name] for name, n in counts().items()}
+        expect_launches(f"warmpool {label}", b_launches,
+                        check_rounds(got["rounds"], {kernel}, f"warmpool ({label})"))
+        for key in ("nodes", "unbound", "claims", "records", "batches", "speculative",
+                    "standing", "open", "fits"):
+            if got[key] != ref[key]:
+                raise AssertionError(f"warmpool ({label}): {key} differs from the device='cpu' "
+                                     f"controller")
+        if got["speculative"] != 10:
+            raise AssertionError(f"warmpool ({label}): the wave launched {got['speculative']}")
+        for i, (r, w, (hits, misses)) in enumerate(zip(got["rounds"], got["walls"],
+                                                       got["batches"])):
+            log(f"[warmpool] ({label}) {what} round {i}: warm hits {hits:g}, misses {misses:g}; "
+                f"remainder {r['pods']} pods, nodes {r['nodes']}, {r['backend']} ({r['route']}, "
+                f"dispatches {r['dispatches']}), SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms, "
+                f"provision_once {w:.3f} ms")
+        log(f"[warmpool] ({label}) {what}: a wave of {got['speculative']} warm nodes "
+            f"({got['wave_ms']:.3f} ms), {sum(len(c) for c in got['claims'])} pods claimed on "
+            f"{sum(1 for c in got['claims'] if c)} of them, {got['standing']} left standing, "
+            f"{got['open']} entries open; {len(got['rounds'])} card rounds, "
+            f"{len(got['nodes'])} nodes, {len(got['unbound'])} pods unplaced, launches "
+            f"{b_launches}; == the device='cpu' controller pod for pod (warm claims by rank, "
+            f"partition, labels, taints, finalizers, unplaced pods, warm_claim and "
+            f"warm_pool_wave records, hits and misses by batch); card {card}")
+        if b_launches[kernel]:
+            out[kernel][f"launches_{label}"] = b_launches[kernel]
+        out["summary"][label] = {
+            "claimed": sum(len(c) for c in got["claims"]), "batches": got["batches"],
+            "rounds": len(got["rounds"]), "provision_once_ms": got["walls"],
+            "scheduling_ms": [r["scheduling_ms"] for r in got["rounds"]],
+            "unplaced": len(got["unbound"]), "wave_ms": got["wave_ms"],
+        }
+        del ref, got
+    part_s["b"] = time.perf_counter() - t_part
+    out["summary"]["part_s"] = part_s
+    log(f"[warmpool] walls by part {({k: round(v, 3) for k, v in part_s.items()})} s, "
+        f"phase 18 {sum(part_s.values()):.3f} s; card {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4950,6 +5407,9 @@ def main() -> int:
     # -- 17. interruption -------------------------------------------------
     interruption = interruption_phase(card)
 
+    # -- 18. warmpool -----------------------------------------------------
+    warmpool = warmpool_phase(card)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -4973,6 +5433,7 @@ def main() -> int:
         "controller": {**controller["pack_first_fit"], **controller["summary"]},
         "deprovision": {**deprovision["pack_first_fit"], **deprovision["summary"]},
         "interruption": {**interruption["pack_first_fit"], **interruption["summary"]},
+        "warmpool": {**warmpool["pack_first_fit"], **warmpool["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -4999,6 +5460,7 @@ def main() -> int:
         "controller": {**controller["pack_first_fit_v2"], **controller["summary"]},
         "deprovision": {**deprovision["pack_first_fit_v2"], **deprovision["summary"]},
         "interruption": {**interruption["pack_first_fit_v2"], **interruption["summary"]},
+        "warmpool": {**warmpool["pack_first_fit_v2"], **warmpool["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

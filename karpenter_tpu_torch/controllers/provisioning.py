@@ -15,8 +15,10 @@ write-ahead record of ``karpenter_tpu_torch/launch``) each launch records
 its intent before the cloud create, marks the Node written, and resolves
 after the bind. ``ProvisioningController.submit`` is the interruption
 subsystem's hook: a released pod goes straight to the first admitting
-worker. Warm-pool claiming is not ported: a worker solves every pod it
-batches.
+worker. With ``warm_pool`` a worker first-fits each batch onto its
+provisioner's standing speculative nodes (``controllers/warmpool.py``
+launches them) and binds the hits before the solve: only the remainder
+goes to ``Scheduler.solve``, and so to the card.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from karpenter_tpu_torch.kube.client import Cluster, Conflict
 from karpenter_tpu_torch.scheduling.ffd import VirtualNode
 from karpenter_tpu_torch.scheduling.scheduler import Scheduler
 from karpenter_tpu_torch.utils import pod as podutil
+from karpenter_tpu_torch.utils import resources as res
 from karpenter_tpu_torch.utils.batcher import Batcher
 
 logger = logging.getLogger("karpenter.provisioning")
@@ -90,6 +93,7 @@ class ProvisionerWorker:
         unschedulable_event_rounds: int = 3,
         journal=None,
         device="cuda",
+        warm_pool: bool = False,
     ):
         self.provisioner = provisioner
         self.cluster = cluster
@@ -106,6 +110,11 @@ class ProvisionerWorker:
         # BEFORE the cloud create, resolved only after the bind — the
         # breadcrumb crash recovery replays. None = journaling off.
         self.journal = journal
+        # warm-pool claiming (controllers/warmpool.py): when on, each
+        # round first-fits its batch onto standing speculative nodes
+        # BEFORE the solver — a warm hit binds immediately instead of
+        # paying the launch-to-ready latency
+        self.warm_pool = warm_pool
         self.scheduler = scheduler or Scheduler(
             cluster, device=device, solver_service_address=solver_service_address,
             pack_checksum=pack_checksum, canary_rate=canary_rate,
@@ -317,6 +326,13 @@ class ProvisionerWorker:
                 ).inc()
                 round_sp.set_attribute("skipped", "lost_ownership")
                 return []
+            if self.warm_pool:
+                # warm-hit steal BEFORE the solver: pods that fit standing
+                # speculative capacity bind now; only the remainder pays
+                # for a solve + cold launch
+                pods = self._steal_warm(pods, round_sp)
+                if not pods:
+                    return []
             metrics.SOLVER_BATCH_SIZE.labels(backend=self.provisioner.spec.solver).observe(len(pods))
             # one time budget for the whole round: catalog, solve, and every
             # launch's retries all draw down the same allowance
@@ -407,6 +423,166 @@ class ProvisionerWorker:
         for stage, seconds in prof.items():
             if stage.endswith("_s") and isinstance(seconds, float):
                 metrics.SOLVER_STAGE_DURATION.labels(stage=stage[:-2]).observe(seconds)
+
+    # -- warm-pool claiming --------------------------------------------------
+    def _steal_warm(self, pods: List[Pod], round_sp) -> List[Pod]:
+        """First-fit the batch onto this provisioner's standing warm-pool
+        nodes (controllers/warmpool.py) and bind the hits immediately —
+        the speculative capacity is already launched (often already
+        ready), so a hit skips the whole solve → create → ready pipeline.
+        Returns the pods the solver still owes capacity. Hit/miss counts
+        are per POD: the measured warm-hit rate is
+        hits / (hits + misses)."""
+        name = self.provisioner.name
+        warm = [
+            n for n in self.cluster.nodes()
+            if n.metadata.labels.get(lbl.PROVISIONER_NAME_LABEL) == name
+            and lbl.WARM_POOL_ANNOTATION in n.metadata.annotations
+            and n.metadata.deletion_timestamp is None
+        ]
+        if not warm:
+            metrics.WARMPOOL_MISSES.labels(provisioner=name).inc(len(pods))
+            return pods
+        # name order: the wave controller and every replica agree, so a
+        # retried round re-claims the same nodes first
+        warm.sort(key=lambda n: n.metadata.name)
+        # plan first, record second, claim last: a stolen batch is still
+        # a decision — the audit record (with the warm nodes as packing)
+        # must land before any bind, same as the solver path, and the ring
+        # must carry EVERY arrival or a replayed window under-counts demand
+        # by exactly the hit rate
+        remaining = list(pods)
+        plan = []
+        for node in warm:
+            if not remaining:
+                break
+            chosen = self._fit_on_warm(remaining, node)
+            if not chosen:
+                continue
+            plan.append((node, chosen))
+            taken = {id(p) for p in chosen}
+            remaining = [p for p in remaining if id(p) not in taken]
+        if not plan:
+            metrics.WARMPOOL_MISSES.labels(provisioner=name).inc(len(pods))
+            return pods
+        decision_id = self._record_warm_claims(plan, round_sp)
+        hits = 0
+        claimed = 0
+        lost = set()
+        for node, chosen in plan:
+            if not self._claim_warm(node, chosen, decision_id):
+                # claim lost (node raced away): its pods fall back to the
+                # solver
+                lost.update(id(p) for p in chosen)
+                continue
+            hits += len(chosen)
+            claimed += 1
+        if lost:
+            # restore original batch positions for the fallen-back pods
+            keep = {id(p) for p in remaining} | lost
+            remaining = [p for p in pods if id(p) in keep]
+        if hits:
+            metrics.WARMPOOL_HITS.labels(provisioner=name).inc(hits)
+            round_sp.set_attribute("warm_hits", hits)
+            round_sp.set_attribute("warm_nodes", claimed)
+        if remaining:
+            metrics.WARMPOOL_MISSES.labels(provisioner=name).inc(
+                len(remaining)
+            )
+        return remaining
+
+    def _fit_on_warm(self, pods: List[Pod], node) -> List[Pod]:
+        """The pods (first-fit, batch order) this warm node can hold:
+        node-selector entries must match the node's labels, the template
+        constraints must admit the pod (cheap re-check — the batch already
+        passed selection), and the accumulated requests must fit the
+        node's allocatable (exact milli-unit arithmetic)."""
+        chosen: List[Pod] = []
+        alloc = node.status.allocatable
+        for pod in pods:
+            sel = pod.spec.node_selector or {}
+            if any(
+                node.metadata.labels.get(k) != v for k, v in sel.items()
+            ):
+                continue
+            if self.provisioner.spec.constraints.validate_pod(pod):
+                continue
+            if not res.fits(res.requests_for_pods(*(chosen + [pod])), alloc):
+                continue
+            chosen.append(pod)
+        return chosen
+
+    def _record_warm_claims(self, plan, round_sp) -> str:
+        """Append the warm-claim plan to the decision audit ring. A round
+        the steal absorbs never reaches ``_record_decision``, and a ring
+        missing those rounds would replay as if the demand they served
+        never arrived. The stand-in packing entries
+        carry the claimed pods so the record shows zero unschedulable."""
+        from types import SimpleNamespace
+
+        from karpenter_tpu_torch import obs
+        from karpenter_tpu_torch.obs import decisions as dec
+
+        if not dec.enabled():
+            return ""
+        try:
+            rec = obs.decision_log().record_round(
+                provisioner=self.provisioner.name,
+                pods=[p for _, chosen in plan for p in chosen],
+                nodes=[
+                    SimpleNamespace(
+                        instance_type_options=[], pods=list(chosen)
+                    )
+                    for _, chosen in plan
+                ],
+                trace_id=round_sp.trace_id,
+                state={
+                    "warm_claim": True,
+                    "warm_nodes": [n.metadata.name for n, _ in plan],
+                },
+            )
+            if rec is not None:
+                self.last_decision_id = rec["id"]
+                round_sp.set_attribute("decision_id", rec["id"])
+                return rec["id"]
+        except Exception:
+            logger.debug("warm claim record failed", exc_info=True)
+        return ""
+
+    def _claim_warm(self, node, pods: List[Pod], decision_id: str = "") -> bool:
+        """Claim the node (remove the warm marker — what tells the GC
+        ladder this speculation landed), bind the pods, and resolve the
+        speculative journal entry by the node's launch token. The claim
+        patch goes FIRST: a crash after it leaves a claimed node whose
+        open entry resolves as NODE_EXISTS on the next sweep, never a
+        double-claim."""
+        try:
+            self.cluster.merge_patch(
+                "nodes", node.metadata.name,
+                {"metadata": {"annotations": {lbl.WARM_POOL_ANNOTATION: None}}},
+                namespace="",
+            )
+        except Exception:
+            # claim lost (node deleted/raced): the pods stay in the batch
+            # and the solver provides for them normally
+            logger.debug(
+                "warm-pool claim failed for %s", node.metadata.name,
+                exc_info=True,
+            )
+            return False
+        self._bind(pods, node.metadata.name)
+        token = node.metadata.annotations.get(lbl.LAUNCH_TOKEN_ANNOTATION, "")
+        if token and self.journal is not None:
+            self.journal.resolve(token)
+        from karpenter_tpu_torch.kube.events import recorder_for
+
+        recorder_for(self.cluster).event(
+            "Node", node.metadata.name, "WarmPoolHit",
+            f"bound {len(pods)} pod(s) to standing warm-pool capacity for "
+            f"provisioner {self.provisioner.name} (no launch paid)",
+            decision_id=decision_id or self.last_decision_id,
+        )
+        return True
 
     def _launch(self, vnode: VirtualNode, budget=None, parent_span=None) -> bool:
         """Returns whether a node was actually created."""
@@ -625,12 +801,16 @@ class ProvisioningController:
         unschedulable_event_rounds: int = 3,
         journal=None,
         device="cuda",
+        warm_pool: bool = False,
     ):
         self.cluster = cluster
         self.cloud_provider = cloud_provider
         self.start_workers = start_workers  # False: tests drive provision_once inline
         # where every worker's solver: tpu solves run (cuda or cpu)
         self.device = device
+        # warm-pool claiming: workers steal onto standing speculative
+        # nodes before solving (controllers/warmpool.py launches them)
+        self.warm_pool = warm_pool
         # decision observability: consecutive failed rounds before a pod's
         # PodUnschedulable Warning event (docs/decisions.md)
         self.unschedulable_event_rounds = unschedulable_event_rounds
@@ -787,6 +967,7 @@ class ProvisioningController:
                 unschedulable_event_rounds=self.unschedulable_event_rounds,
                 journal=self.journal,
                 device=self.device,
+                warm_pool=self.warm_pool,
             )
             self.workers[provisioner.name] = worker
             self._hashes[provisioner.name] = h

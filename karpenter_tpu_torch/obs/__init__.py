@@ -15,13 +15,16 @@ has. Public surface:
   ``slo_snapshot()`` — the online SLO engine (obs/slo.py).
 - ``decision_log()`` / ``configure_decisions(...)`` — the decision audit
   log (obs/decisions.py).
+- ``configure_forecast(...)`` / ``forecaster()`` / ``shutdown_forecast()``
+  — the arrival-rate forecaster (forecast/model.py) the warm-pool
+  controller reads.
 - ``to_traceparent`` / ``from_traceparent`` — the cross-process id form
   (the v3 wire's trailer carries the same ids).
 - ``debug_*_payload`` helpers — the ONE body function per ``/debug/*``
   endpoint of the sidecar's health server.
 
-The JAX package's collector, profiler, sentinel, incidents and forecast
-halves of this facade are not ported yet.
+The JAX package's collector, profiler, sentinel and incidents halves of
+this facade are not ported yet.
 
 Spans are host-side machinery: nothing here may run between a kernel's
 launch and its fetch in a way that waits on the card.
@@ -165,6 +168,73 @@ def slo_snapshot() -> dict:
     return eng.snapshot() if eng is not None else {}
 
 
+# -- the arrival-rate forecaster (forecast/model.py) -------------------------
+
+_forecaster = None  # guarded-by: _lock
+
+
+def configure_forecast(
+    bucket_s: Optional[float] = None,
+    model: Optional[str] = None,
+    alpha: Optional[float] = None,
+    season_len: Optional[int] = None,
+    band_sigma: Optional[float] = None,
+    default_horizon_s: Optional[float] = None,
+    clock=None,
+):
+    """Install (or replace) the arrival-rate forecaster on the default
+    tracer: a span finish-hook over ``provision.round`` (admission
+    counts) and ``node.ready`` (the launch-to-ready horizon), plus the
+    ``forecast`` flight-recorder state panel so every slow-solve record
+    snapshots what the forecaster believed at the time."""
+    from karpenter_tpu_torch.forecast.model import ArrivalForecaster
+
+    global _forecaster
+    kwargs = {}
+    if bucket_s is not None:
+        kwargs["bucket_s"] = bucket_s
+    if model is not None:
+        kwargs["model"] = model
+    if alpha is not None:
+        kwargs["alpha"] = alpha
+    if season_len is not None:
+        kwargs["season_len"] = season_len
+    if band_sigma is not None:
+        kwargs["band_sigma"] = band_sigma
+    if default_horizon_s is not None:
+        kwargs["default_horizon_s"] = default_horizon_s
+    if clock is not None:
+        kwargs["clock"] = clock
+    eng = ArrivalForecaster(**kwargs)
+    with _lock:
+        if _forecaster is not None:
+            _tracer.remove_hook(_forecaster)
+        _forecaster = eng
+    _tracer.add_hook(eng)
+    register_state("forecast", eng.panel)
+    return eng
+
+
+def forecaster():
+    with _lock:
+        return _forecaster
+
+
+def shutdown_forecast(engine=None) -> None:
+    """Detach the forecaster (hook + flight panel). Ownership-checked like
+    ``shutdown_slo``: pass the engine you installed so a stopped owner
+    cannot tear down a LATER configure's engine; ``None`` detaches
+    unconditionally (reset_for_tests)."""
+    global _forecaster
+    with _lock:
+        if engine is not None and _forecaster is not engine:
+            return  # someone else's engine is current — not ours to kill
+        if _forecaster is not None:
+            _tracer.remove_hook(_forecaster)
+        _forecaster = None
+    unregister_state("forecast")
+
+
 # -- the decision audit log (obs/decisions.py) -------------------------------
 
 # memory-only default: /debug/decisions and /debug/explain answer from the
@@ -267,9 +337,17 @@ def debug_explain_payload(query: str = "") -> dict:
     }
 
 
+def debug_forecast_payload(query: str = "") -> dict:
+    """``GET /debug/forecast``: per-provisioner arrival predictions, the
+    measured launch-to-ready horizon, and the model parameters ({} while
+    no forecaster is configured)."""
+    eng = forecaster()
+    return {"forecast": eng.snapshot() if eng is not None else {}}
+
+
 def reset_for_tests() -> None:
     """Drop collected traces and detach any flight recorder / SLO engine /
-    decision log."""
+    forecaster / decision log."""
     global _flight, _decisions
     with _lock:
         if _flight is not None:
@@ -277,6 +355,7 @@ def reset_for_tests() -> None:
         _flight = None
         old_decisions, _decisions = _decisions, DecisionLog()
     old_decisions.close()
+    shutdown_forecast()
     shutdown_slo()
     from karpenter_tpu_torch.obs import decisions as _dec
 

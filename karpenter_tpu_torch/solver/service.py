@@ -1567,7 +1567,7 @@ def _serve_health(service: SolverService, port: int):
     """Plain-HTTP probe endpoints for kubelet — ``/healthz`` (200 once the
     process is up) and ``/readyz`` (503 until the warm-up solve) — plus
     ``/metrics`` (the port's registry) and ``/debug/{traces,slo,flight,
-    decisions,explain}``: the session store and the sidecar's span ring
+    decisions,explain,forecast}``: the session store and the sidecar's span ring
     live in THIS process, so its residency gauges and its half of every
     traced solve are observable only on its own port."""
     import json as _json
@@ -1580,6 +1580,7 @@ def _serve_health(service: SolverService, port: int):
         "/debug/flight": obs.debug_flight_payload,
         "/debug/decisions": obs.debug_decisions_payload,
         "/debug/explain": obs.debug_explain_payload,
+        "/debug/forecast": obs.debug_forecast_payload,
     }
 
     class Probe(BaseHTTPRequestHandler):

@@ -19,16 +19,19 @@ with the methods in ``CHAOS_METHODS``) into a misbehaving dependency:
 Anything else passes through unwrapped. ``SidecarChaos`` runs a few
 in-process sidecars with kill and restart controls. ``LaunchCrash`` and
 ``LaunchCrashCluster`` simulate a replica dying between the launch path's
-writes (cloud create → Node object → bind).
+writes (cloud create → Node object → bind). ``ArrivalPattern`` compiles a
+seeded diurnal + flash-crowd pod-arrival schedule (the forecast storm's
+demand), bit for bit the reference's for the same seed.
 """
 
 from __future__ import annotations
 
+import math
 import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # the calls chaos applies to: the solver sidecar's three, and the cloud
 # control plane's, kept by name so a policy reads as the reference's
@@ -504,3 +507,83 @@ class SidecarChaos:
     def stop_all(self) -> None:
         for address in list(self.servers):
             self.kill(address)
+
+
+class ArrivalPattern:
+    """Seeded diurnal + flash-crowd pod-arrival generator.
+
+    The forecast-storm bench leg and the forecaster tests need a demand
+    shape with both of the signals predictive provisioning exists for: a
+    smooth periodic baseline the seasonal model can learn, and sudden
+    flash crowds that punish purely-reactive provisioning with a full
+    cold launch-to-ready tail. ``schedule(duration_s)`` compiles the
+    whole run up front into ``[(t_offset_s, n_pods), ...]`` ticks —
+    reproducible bit-for-bit from the seed, so a bench regression replays
+    the exact same storm.
+
+    The baseline is a sinusoid (one ``period_s`` = one compressed "day"),
+    Poisson-ish jittered per tick; each flash crowd is a burst of
+    ``flash_pods`` spread over ``flash_len_s`` starting at its offset."""
+
+    def __init__(
+        self,
+        base_pods_per_tick: float = 4.0,
+        amplitude: float = 0.75,
+        period_s: float = 240.0,
+        tick_s: float = 5.0,
+        flash_at: Sequence[float] = (),
+        flash_pods: int = 40,
+        flash_len_s: float = 15.0,
+        seed: int = 0,
+    ):
+        self.base = float(base_pods_per_tick)
+        self.amplitude = min(max(float(amplitude), 0.0), 1.0)
+        self.period_s = float(period_s)
+        self.tick_s = float(tick_s)
+        self.flash_at = tuple(float(t) for t in flash_at)
+        self.flash_pods = int(flash_pods)
+        self.flash_len_s = float(flash_len_s)
+        self.seed = int(seed)
+
+    def in_flash(self, t: float) -> bool:
+        """True when offset ``t`` falls inside a flash-crowd window —
+        how the bench separates the spike tail from the baseline."""
+        return any(
+            start <= t < start + self.flash_len_s for start in self.flash_at
+        )
+
+    def rate_at(self, t: float) -> float:
+        """The noiseless diurnal baseline (pods per tick) at offset ``t``
+        — what a perfect seasonal forecaster would predict."""
+        phase = 2.0 * math.pi * (t / self.period_s)
+        return self.base * (1.0 + self.amplitude * math.sin(phase))
+
+    def schedule(self, duration_s: float) -> List[Tuple[float, int]]:
+        """``[(t_offset_s, n_pods), ...]`` ticks covering ``duration_s``,
+        flash bursts folded in. Zero-pod ticks are kept: silence is
+        signal to the forecaster (rates must decay, not freeze)."""
+        rng = random.Random(self.seed)
+        ticks: List[Tuple[float, int]] = []
+        t = 0.0
+        while t < duration_s:
+            lam = max(self.rate_at(t), 0.0)
+            # cheap Poisson-ish draw: uniform jitter of +-50% keeps the
+            # variance the EWMA band must cover without scipy
+            n = int(round(lam * (0.5 + rng.random())))
+            ticks.append((t, max(n, 0)))
+            t += self.tick_s
+        for start in self.flash_at:
+            if start >= duration_s:
+                continue
+            burst_ticks = max(int(self.flash_len_s / self.tick_s), 1)
+            per_tick = max(self.flash_pods // burst_ticks, 1)
+            for i in range(burst_ticks):
+                at = start + i * self.tick_s
+                if at >= duration_s:
+                    break
+                ticks.append((at, per_tick))
+        ticks.sort(key=lambda p: p[0])
+        return ticks
+
+    def total_pods(self, duration_s: float) -> int:
+        return sum(n for _, n in self.schedule(duration_s))

@@ -9,8 +9,8 @@ kernel when the first raises) and arena solves, and two threads on one
 card scheduler; and the observability plane on the card (a traced round's
 one launch and its stage spans, the session HBM gauges, the sidecar's
 spans, the decision replay blob through the kernel ladder); a notice's
-replacement round and an adopted crash on the card. Every
-comparison is exact.
+replacement round and an adopted crash on the card; the warm-hit steal
+over the simulated cloud before a card round. Every comparison is exact.
 
 Marked ``cuda``; each skips without a CUDA device (decided in a fixture,
 never at import). This file imports neither JAX nor the JAX package, so it
@@ -1370,3 +1370,83 @@ def test_adopted_crash_on_card(cuda, tmp_path):
     assert wreck == (0, 1, 1) and adopted == (1, 0, True)
     assert bound_once and seated and n_tokens == n_unique == 2
     assert launches == [1, 1]
+
+
+def warm_steal_round(device, sizes):
+    """A ``warm_pool=True`` worker on ``device`` over the simulated cloud:
+    one wave (a forecaster on a fake clock, 5 warm nodes of the cheapest
+    type, 3 pods of cpu 0.25 each), then one round of pods asking for
+    ``sizes`` cpu.
+    Returns each pod's node by index (a node the solver launched named by
+    the lowest index of its pods), the hit and miss counts, the open
+    entries, the wave's launches and the round's launches of
+    ``pack_first_fit``."""
+    from karpenter_tpu_torch import metrics, obs
+    from karpenter_tpu_torch.cloudprovider.simulated import SimCloudAPI, SimulatedCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.controllers.warmpool import WARM_POOL_KEY, WarmPoolController
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.launch import MemoryLaunchJournal
+    from karpenter_tpu_torch.obs.trace import Span
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+
+    cluster = Cluster(clock=lambda: 1000.0)
+    provider = SimulatedCloudProvider(SimCloudAPI())
+    journal = MemoryLaunchJournal(clock=lambda: 1000.0)
+    controller = ProvisioningController(cluster, provider, start_workers=False, device=device,
+                                        journal=journal, warm_pool=True)
+    cluster.create("provisioners", make_provisioner(name="wp", solver="tpu"))
+    controller.reconcile("wp")
+    worker = controller.workers["wp"]
+    now = [0.0]
+    eng = obs.configure_forecast(bucket_s=1.0, alpha=1.0, default_horizon_s=5.0,
+                                 clock=lambda: now[0])
+    try:
+        eng(Span(name="provision.round", trace_id="t" * 32, span_id="s" * 16, parent_id=None,
+                 parent=None, attrs={"provisioner": "wp", "batch": 2, "nodes": 1.0}))
+        now[0] = 1.0
+        wave = WarmPoolController(cluster, provider, controller, journal=journal)
+        wave.reconcile(WARM_POOL_KEY)
+        standing = {n.metadata.name for n in cluster.nodes()}
+        hits, misses = (metrics.WARMPOOL_HITS.labels(provisioner="wp"),
+                        metrics.WARMPOOL_MISSES.labels(provisioner="wp"))
+        before = (hits._value.get(), misses._value.get(), pack_kernel.launches)
+        pods = [make_pod(name=f"w-{i}", requests={"cpu": cpu}) for i, cpu in enumerate(sizes)]
+        for p in pods:
+            cluster.create("pods", p)
+            worker.add(p)
+        worker.provision_once()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        names = {}
+        placed = []
+        for i, p in enumerate(pods):
+            name = p.spec.node_name
+            if name and name not in standing:
+                name = names.setdefault(name, f"holds-{i}")
+            placed.append(name)
+        return (placed, hits._value.get() - before[0], misses._value.get() - before[1],
+                sorted(e.node_name for e in journal.unresolved()), wave.speculative_launches,
+                pack_kernel.launches - before[2],
+                worker.scheduler.last_stage_profile().get("packer_backend"))
+    finally:
+        controller.stop()
+        obs.shutdown_forecast(eng)
+
+
+@pytest.mark.parametrize("sizes,stolen", [(("0.25",) * 15, True),
+                                          (("0.25", "0.5", "1", "2") * 10, False)])
+def test_warm_steal_then_remainder_on_card_equals_the_cpu_worker(cuda, sizes, stolen):
+    """The warm-hit steal before the solve on the card: 15 quarter-cpu pods
+    fill the 5 warm nodes and launch no kernel; 40 mixed pods take what
+    fits and send the remainder through one ``pack_first_fit`` launch. The
+    claims, the remainder's plan and the counts equal the cpu worker's."""
+    card, plain = warm_steal_round("cuda", sizes), warm_steal_round("cpu", sizes)
+    assert card[:5] == plain[:5]
+    placed, hits, misses, open_entries, speculative = card[:5]
+    assert speculative == 5 and all(placed)
+    if stolen:
+        assert (hits, misses, open_entries, card[5]) == (15, 0, [], 0)
+    else:
+        assert hits > 0 and misses > 0 and len(open_entries) < 5
+        assert card[5] == 1 and card[6] == "pack_first_fit"

@@ -12,11 +12,17 @@ every node's wire form after the merge patches, the workload pods' wire
 forms (released, then re-bound), the events, the replacement round's plan
 by pod index, and the orchestrator's ``evicted_unready``, notices and
 ``lead_times`` counts. A Manager-wired twin of ``TestFullRuntime`` preempts
-a node under a running Manager in both packages.
+a node under a running Manager in both packages, over ``FakeCloudProvider``
+and again over ``SimulatedCloudProvider`` (the notice on the simulated
+cloud's event bus). ``TestDisruptionSources``' in-process cases drain both
+clouds' buses and the metered provider's pass-through (the reference's
+HTTP routes to the clouds are not ported).
 """
 
 import time
 from types import SimpleNamespace
+
+import pytest
 
 from torch_parity import both_canon, events, fresh_router, on_cpu, stop, wire_all, wire_doc  # noqa: F401
 
@@ -332,9 +338,21 @@ def test_preemption_through_running_manager():
     interruption controller polling every 0.1 s, threaded workers, a
     ``solver: tpu`` provisioner. Compared: the workload's placement before
     and after, the victim's taint and deletion, the counts."""
+    runtime_preemption("fake")
+
+
+def test_preemption_through_running_manager_simulated():
+    """``test_preemption_through_running_manager`` over the simulated
+    cloud: the notice arrives on its event bus, the victim's instance is
+    terminated."""
+    runtime_preemption("sim")
+
+
+def runtime_preemption(kind):
     def run(M):
         cluster = M.Cluster()
-        provider = M.fake.FakeCloudProvider(M.fake.instance_types(10))
+        provider = M.fake.FakeCloudProvider(M.fake.instance_types(10)) if kind == "fake" \
+            else M.sim.SimulatedCloudProvider(M.sim.SimCloudAPI())
         w = wire_all(M, cluster, provider, interruption=True)
         w.interruption.poll_interval = 0.1
         w.manager.start()
@@ -355,7 +373,11 @@ def test_preemption_through_running_manager():
             assert all(p.spec.node_name for p in pods), "initial workload never bound"
             victim = pods[0].spec.node_name
             before = [p.spec.node_name == victim for p in pods]
-            provider.preempt(victim, grace_period_seconds=120.0)
+            if kind == "fake":
+                provider.preempt(victim, grace_period_seconds=120.0)
+            else:
+                provider.api.send_disruption_notice(M.itypes.DisruptionNotice(
+                    kind=M.itypes.PREEMPTION, node_name=victim, grace_period_seconds=120.0))
             deadline = time.time() + 60
             while time.time() < deadline and not (
                     cluster.try_get("nodes", victim, namespace="") is None
@@ -370,10 +392,38 @@ def test_preemption_through_running_manager():
                        if ev.involved_name == victim} >= {"InterruptionNotice"}
             # how the storm batched is timing (the placement may differ);
             # what the notice did is not
+            gone = provider.delete_calls if kind == "fake" else [
+                i.id for i in provider.api.instances.values() if i.state == "terminated"]
             return (noticed, w.interruption.evicted_unready, w.interruption.notices_handled,
-                    len(w.interruption.lead_times) == sum(before),
-                    provider.delete_calls == [victim])
+                    len(w.interruption.lead_times) == sum(before), gone == [victim])
         finally:
             stop(w)
 
     assert both_canon(run) == (True, 0, 1, True, True)
+
+
+# -- TestDisruptionSources, in process -------------------------------------------
+
+
+@pytest.mark.parametrize("source", ["fake", "simulated", "metered"])
+def test_disruption_sources(source):
+    """A notice put on the fake cloud's or the simulated cloud's bus (or
+    the fake's behind the metered provider) drains once through
+    ``poll_disruptions``, with its kind, node and grace."""
+    def run(M):
+        I = M.itypes
+        if source == "simulated":
+            provider = M.sim.SimulatedCloudProvider(M.sim.SimCloudAPI())
+            provider.api.send_disruption_notice(I.DisruptionNotice(
+                kind=I.PREEMPTION, node_name="i-0001", grace_period_seconds=90.0))
+            poller = provider
+        else:
+            provider = M.fake.FakeCloudProvider()
+            provider.preempt("n1", grace_period_seconds=30.0)
+            poller = M.cpm.decorate(provider) if source == "metered" else provider
+        first = [(n.kind, n.node_name, n.grace_period_seconds) for n in poller.poll_disruptions()]
+        return first, poller.poll_disruptions()
+
+    first, again = both_canon(run)
+    assert again == [] and first == ([("preemption", "i-0001", 90.0)] if source == "simulated"
+                                     else [("preemption", "n1", 30.0)])

@@ -2,11 +2,15 @@
 chaos against the JAX package's.
 
 The reference's ``tests/test_launch_journal.py`` classes
-``TestJournalBackends``, ``TestIdempotentCreateFake``, ``TestRecoveryLadder``,
-``TestGarbageCollectionController`` (without its ``ownership`` case: the
-port has no shard manager yet) and ``TestLaunchCrashChaos`` run on both
-packages over ``FakeCloudProvider`` (the port has no simulated cloud), each
-result compared exactly under ``torch_parity.canon``: journal documents,
+``TestJournalBackends``, ``TestIdempotentCreateFake``,
+``TestIdempotentCreateSimulated``, ``TestIdempotentCreateMetered``,
+``TestRecoveryLadder``, ``TestGarbageCollectionController`` (without its
+``ownership`` case: the port has no shard manager yet) and
+``TestLaunchCrashChaos`` run on both packages, the ladder, collector and
+crash cases over ``FakeCloudProvider`` and again over
+``SimulatedCloudProvider`` (the reference's HTTP wire to the simulated
+cloud is not ported), each result compared exactly under
+``torch_parity.canon``: journal documents,
 every ladder outcome (``SPECULATION_EXPIRED`` included;
 ``CONSOLIDATION_REPLAYED`` in ``tests/test_torch_consolidation.py``) with
 what it left in the cluster, the journal and the cloud, the adopted Node's
@@ -159,6 +163,23 @@ def test_build_journal_spec_grammar(tmp_path):
 # -- TestIdempotentCreateFake ------------------------------------------------
 
 
+def cloud(M, kind: str):
+    """``fake``: FakeCloudProvider(instance_types(5)); ``sim``: the
+    simulated cloud over a fresh SimCloudAPI (instance ids from its own
+    counter, so they compare as they are)."""
+    if kind == "fake":
+        return M.fake.FakeCloudProvider(M.fake.instance_types(5))
+    return M.sim.SimulatedCloudProvider(M.sim.SimCloudAPI())
+
+
+def deleted(provider) -> list:
+    """The fake cloud's delete calls, or the simulated cloud's terminated
+    instances."""
+    if hasattr(provider, "delete_calls"):
+        return list(provider.delete_calls)
+    return sorted(i.id for i in provider.api.instances.values() if i.state == "terminated")
+
+
 def launch(M, provider, token=""):
     """One create through ``provider`` with the catalog's constraints."""
     c = M.f.make_provisioner(name="prov-a").spec.constraints
@@ -193,6 +214,66 @@ def test_idempotent_create_fake(case):
         assert first == []
 
 
+@pytest.mark.parametrize("case", ["same token", "tokens listed", "terminate releases token"])
+def test_idempotent_create_simulated(case):
+    """The simulated cloud's client-token ledger: a retried create replays
+    the committed instance, the live inventory carries each token, a
+    terminated instance's token launches fresh."""
+    def run(M):
+        p = cloud(M, "sim")
+        if case == "tokens listed":
+            launch(M, p, "tok-a")
+            launch(M, p, "tok-b")
+            return instances(p), all(i.created_at > 0 for i in p.list_instances())
+        n1 = launch(M, p, "tok-sim")
+        if case == "terminate releases token":
+            p.api.terminate_instances([n1.metadata.name])
+        n2 = launch(M, p, "tok-sim")
+        return (wire_doc(M, "nodes", n1), n1.metadata.name == n2.metadata.name, instances(p),
+                n1.metadata.annotations[M.lbl.LAUNCH_TOKEN_ANNOTATION])
+
+    out = both_canon(run)
+    if case == "tokens listed":
+        assert [i[1] for i in out[0]] == ["tok-a", "tok-b"] and out[1]
+    else:
+        assert out[1] == (case == "same token") and out[3] == "tok-sim"
+        assert len(out[2]) == 1  # a terminated instance leaves the inventory
+
+
+@pytest.mark.parametrize("case", ["retry after committed failure", "stamps token",
+                                  "list passes through"])
+def test_idempotent_create_metered(case):
+    """The metered provider over the simulated cloud: its retry of a
+    create whose answer was lost after the commit replays the token (one
+    instance); a direct caller's request gets a token stamped; the
+    inventory passes through."""
+    def run(M):
+        inner = cloud(M, "sim")
+        metered = M.cpm.decorate(inner)
+        if case == "retry after committed failure":
+            real, armed = inner.create, [True]
+
+            def commit_then_die(request):
+                node = real(request)
+                if armed and armed.pop():
+                    raise ConnectionError("response lost after commit")
+                return node
+
+            inner.create = commit_then_die
+        token = "" if case == "stamps token" else "tok-retry"
+        c = M.f.make_provisioner(name="prov-a").spec.constraints
+        catalog = inner.get_instance_types()
+        c.requirements = c.requirements.merge(M.catreq.catalog_requirements(catalog))
+        node = metered.create(M.ctypes.NodeRequest(template=c, instance_type_options=catalog,
+                                                   launch_token=token))
+        return (bool(node.metadata.annotations.get(M.lbl.LAUNCH_TOKEN_ANNOTATION)),
+                [(i.id, bool(i.launch_token)) for i in metered.list_instances()],
+                [(i.id, i.launch_token) for i in inner.list_instances()] if token else None)
+
+    stamped, listed, tokens = both_canon(run)
+    assert stamped and len(listed) == 1 and listed[0][1]
+
+
 # -- TestRecoveryLadder --------------------------------------------------------
 
 LADDER = {  # case: (speculative, instance, node, now, expected outcome)
@@ -214,12 +295,22 @@ def test_recovery_ladder(case):
     """One entry through both packages' ``replay_entry`` with the same live
     instance: the outcome, the journal left, the cluster's Nodes (wire
     forms, the adopted one included) and the cloud's instances."""
+    ladder_case(case, "fake")
+
+
+@pytest.mark.parametrize("case", list(LADDER))
+def test_recovery_ladder_simulated(case):
+    """``test_recovery_ladder`` over the simulated cloud."""
+    ladder_case(case, "sim")
+
+
+def ladder_case(case, kind):
     speculative, has_instance, node_state, now, want = LADDER[case]
 
     def run(M):
         cluster = M.Cluster(clock=lambda: 1000.0)
         cluster.create("provisioners", M.f.make_provisioner(name="prov-a"))
-        provider = M.fake.FakeCloudProvider(M.fake.instance_types(5))
+        provider = cloud(M, kind)
         journal = M.launch.MemoryLaunchJournal(clock=lambda: 0.0)
         prov = "gone" if case == "orphan_of_deleted_provisioner" else "prov-a"
         journal.record_intent("tok", prov, trace="00-aa-bb-01", speculative=speculative)
@@ -236,9 +327,9 @@ def test_recovery_ladder(case):
         outcome = M.recovery.replay_entry(journal, cluster, provider, journal.get("tok"),
                                           by_token, now=now, replay_after=60.0)
         return (outcome, docs(journal), [wire_doc(M, "nodes", n) for n in cluster.nodes()],
-                instances(provider), list(provider.delete_calls))
+                instances(provider), deleted(provider))
 
-    outcome, left, nodes, live, deleted = both_canon(run)
+    outcome, left, nodes, live, deletes = both_canon(run)
     assert outcome == want
     if outcome == "adopted":
         (node,) = nodes
@@ -247,7 +338,7 @@ def test_recovery_ladder(case):
         assert node["status"]["capacity"]
         assert (left != []) == speculative  # a warm orphan's entry stays open
     if outcome == "speculation_expired":
-        assert live == [] and nodes == [] and left == [] and deleted
+        assert live == [] and nodes == [] and left == [] and deletes
     if outcome == "pending":
         assert len(left) == 1
 
@@ -275,11 +366,11 @@ def test_adopted_node_equals_the_reference_node_for_instance():
 # -- TestGarbageCollectionController -------------------------------------------
 
 
-def gc_env(M, journal=None, grace=60.0, replay_after=0.0):
+def gc_env(M, journal=None, grace=60.0, replay_after=0.0, kind="fake"):
     # the cluster's clock is far past every instance's creation: a fixed
     # clock keeps the wire timestamps equal between the packages
     cluster = M.Cluster(clock=lambda: 1e10)
-    provider = M.fake.FakeCloudProvider(M.fake.instance_types(5))
+    provider = cloud(M, kind)
     termination = M.term.TerminationController(cluster, provider, start_queue=False)
     gc = M.gc.GarbageCollectionController(
         cluster, provider, journal=journal, termination=termination, gc_interval=5.0,
@@ -292,7 +383,7 @@ def gc_view(M, cluster, provider, gc, journal=None):
     return {"adopted": gc.adopted, "leaks": gc.leaks_terminated, "replays": gc.replays,
             "sweeps": gc.sweeps, "journal": docs(journal) if journal is not None else None,
             "nodes": [wire_doc(M, "nodes", n) for n in cluster.nodes()],
-            "instances": instances(provider), "deletes": list(provider.delete_calls),
+            "instances": instances(provider), "deletes": deleted(provider),
             "events": sorted(e.reason for e in cluster.list("events"))}
 
 
@@ -306,6 +397,16 @@ def test_garbage_collection_sweep(case):
     """One or two sweeps of both packages' collector: what it adopted,
     reaped, replayed and left (counters, journal, Nodes, instances, cloud
     deletes, events), and the outcome counter's deltas."""
+    gc_case(case, "fake")
+
+
+@pytest.mark.parametrize("case", GC_CASES)
+def test_garbage_collection_sweep_simulated(case):
+    """``test_garbage_collection_sweep`` over the simulated cloud."""
+    gc_case(case, "sim")
+
+
+def gc_case(case, kind):
     def run(M):
         # a journal clock far ahead of the cluster's keeps an entry young
         young = case == "journaled not reaped while pending"
@@ -313,7 +414,8 @@ def test_garbage_collection_sweep(case):
         grace = 0.0 if case in ("reaps leak past grace", "tracked untouched",
                                 "journaled not reaped while pending") else 60.0
         replay_after = 3600.0 if young else 0.0
-        cluster, provider, gc = gc_env(M, journal=journal, grace=grace, replay_after=replay_after)
+        cluster, provider, gc = gc_env(M, journal=journal, grace=grace, replay_after=replay_after,
+                                       kind=kind)
         gc.warm_pool_ttl = 0.0
         key = M.gc.GC_POLL_KEY
         if case == "adopts journaled orphan":
@@ -430,9 +532,20 @@ def test_launch_crash_recovered_by_a_successor(point):
     adopts the orphan (before the Node write) or resolves the entry (after
     it) within its sweep cadence, with no token launched twice; after the
     orphan's adoption the pod still gets capacity."""
+    crash_case(point, "fake")
+
+
+@pytest.mark.parametrize("point", ["before_node_write", "after_node_write"])
+def test_launch_crash_recovered_by_a_successor_simulated(point):
+    """``test_launch_crash_recovered_by_a_successor`` over the simulated
+    cloud, as the reference's crash chaos runs it."""
+    crash_case(point, "sim")
+
+
+def crash_case(point, kind):
     def run(M):
         cluster = M.Cluster()
-        provider = M.fake.FakeCloudProvider(M.fake.instance_types(5))
+        provider = cloud(M, kind)
         path = tempfile.mktemp(prefix="karpenter-journal-")
         proxy = M.chaos.LaunchCrashCluster(cluster)
         rt1 = crash_runtime(M, proxy, provider, path, replay_after=3600.0)

@@ -123,7 +123,8 @@ def test_importing_the_port_loads_no_jax():
         "    'controllers.metrics_node', 'controllers.metrics_pod', 'solver.repack',\n"
         "    'resilience.liveness', 'utils.gcpolicy', 'utils.node', 'interruption.orchestrator',\n"
         "    'controllers.interruption', 'controllers.garbage_collection', 'launch.journal',\n"
-        "    'launch.recovery', 'utils.lease', 'fleet'))\n"
+        "    'launch.recovery', 'utils.lease', 'fleet', 'forecast.model',\n"
+        "    'cloudprovider.simulated', 'controllers.warmpool'))\n"
         "bad += ['grpc'] if 'grpc' in sys.modules else []\n"
         "print(n, new, bad)\n"
     )

@@ -338,6 +338,7 @@ def deprov(pkg: str) -> SimpleNamespace:
         itypes=m("interruption.types"), gc=m("controllers.garbage_collection"),
         launch=m("launch"), recovery=m("launch.recovery"), chaos=m("testing.chaos"),
         serde=m("kube.serde"), ctypes=m("cloudprovider.types"), utilpod=m("utils.pod"),
+        sim=m("cloudprovider.simulated"), cpm=m("cloudprovider.metrics"),
     )
 
 
@@ -493,6 +494,19 @@ def stop(wired) -> None:
     wired.manager.stop()
     wired.provisioning.stop()
     wired.termination.stop()
+
+
+# -- predictive provisioning ---------------------------------------------------
+
+
+class FakeClock:
+    """A settable clock for the forecaster's and the controllers' ``clock=``."""
+
+    def __init__(self, t=0.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
 
 
 # -- interruption and the launch journal --------------------------------------
