@@ -352,6 +352,43 @@ Phases (any failure exits non-zero; nothing is swallowed):
              device="cpu" controller by pod index (warm claims by rank, the
              remainder's plan, unplaced pods, the warm_claim and
              warm_pool_wave records, hits and misses by batch);
+19. telemetry — (after phase 18) the telemetry plane around the card
+             sidecar; each part reads both kernels' launch counters around
+             itself and fails where they differ from its rounds'
+             dispatches (and from what the sidecars served), the warm-ups
+             included. (a) the stitched leg (bench.py:679-753): a
+             device="cpu" controller under KARPENTER_PACKER=fused through a
+             live in-process card sidecar, instance_types(400) x
+             diverse_pods(10000, Random(7)) (pack_first_fit) and the team
+             mix (pack_first_fit_v2): a warm-up and 5 measured solves each;
+             every solver.solve must stitch (obs.stitch) a sidecar.pack
+             carrying admission_wait_s inside its solver.wire, with real
+             sidecar.solve and sidecar.fetch children; fleet_critical_path_ms,
+             wire_share_pct, the joins and p99_s printed. (b) two processes:
+             python -m karpenter_tpu_torch.solver.service --telemetry-dir D
+             --telemetry-flush-interval 1 --profile-hz 7 on the card, ready
+             after its kernel's warm-up; one headline solve through it, then
+             a TelemetryCollector over the file backend until the child's
+             sidecar.pack stitches under this process's solver.wire (30 s at
+             most); the child's /debug/profile must hold samples, and its
+             /debug/incidents and /debug/fleet answer. (c) 4 headline rounds
+             of a card Scheduler without the profiler, then 32 with it at 19
+             Hz: the self-accounted overhead (gate < 1 %), the samples, the
+             top frames and folds, both throughputs, and each open span's
+             share of the samples. (d) 4 rounds without, then 16 with
+             configure_sentinel(min_events=8): gate < 1 %. (e) the regression storm
+             (bench.py:2794-2968, its parameters): 160 pods in waves of 4
+             (cpu 0.25) through a Manager wired by hand (wire_controllers
+             over a SimulatedCloudProvider, the solves sent to a SidecarChaos
+             pool of 2 card sidecars), a flight recorder (budget 10 s), the
+             profiler at 19 Hz, 3 warm waves, freeze_after_warmup, then
+             configure_sentinel(min_events=6, window=4, sustain=2,
+             abs_floor_s=0.005, cooldown_s=300); at least 12 steady waves
+             with no incident, then a 0.05 s latency floor on every proxy
+             for up to 15 waves: exactly one incident, on a wire or device
+             stage, with a pinned flight record, a decision id and a profile
+             fold; sentinel overhead < 1 %; every pod bound once; every
+             round a pack_first_fit launch in the sidecars;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -368,7 +405,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
              ``interruption``: phase 17's launches by part, (a)'s lead
              times and rounds, (b)'s replacement rounds, (c)'s sweeps, and
              ``warmpool``: phase 18's launches by part, both passes of (a)
-             and (b)'s claims and rounds.
+             and (b)'s claims and rounds, and ``telemetry``: phase 19's
+             launches by part and what (a)-(e) measured.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -3224,10 +3262,11 @@ CONTROLLER_BATCH = 2000  # the batcher's default max_items
 
 
 def wire_controllers(cluster, provider, device: str, start_workers: bool, journal=None,
-                     warm_pool: bool = False):
+                     warm_pool: bool = False, solver_service_address=None):
     """The five ported controllers wired as the reference's main.py wires
     them: a Manager with provisioning (concurrency 10, its launch
-    ``journal``, the warm-hit steal with ``warm_pool``), selection (32,
+    ``journal``, the warm-hit steal with ``warm_pool``, its solves sent to
+    ``solver_service_address`` when one is given), selection (32,
     wait=False), counter and pvc (2 each), the provisioners and pods
     watches, counter's and pvc's own watches, and the cloud provider behind
     cpmetrics.decorate. Returns (manager, provisioning, counter)."""
@@ -3241,7 +3280,7 @@ def wire_controllers(cluster, provider, device: str, start_workers: bool, journa
     manager = Manager(cluster)
     provisioning = ProvisioningController(
         cluster, cpmetrics.decorate(provider), start_workers=start_workers, device=device,
-        journal=journal, warm_pool=warm_pool)
+        journal=journal, warm_pool=warm_pool, solver_service_address=solver_service_address)
     selection = SelectionController(cluster, provisioning, wait=False)
     counter = CounterController(cluster)
     pvc = PVCController(cluster)
@@ -4773,6 +4812,12 @@ FORECAST_LAUNCH_S = 0.5  # the simulated cloud's create_fleet latency
 FORECAST_WAVE_S = 0.5
 
 
+def nearest_rank_p99(values) -> float:
+    """bench.py's ``_p99``: the exact nearest-rank p99."""
+    vs = sorted(values)
+    return vs[min(len(vs) - 1, max(math.ceil(0.99 * len(vs)) - 1, 0))]
+
+
 def forecast_pass(card: str, label: str, schedule, in_flash, warm_pool: bool,
                   device: str) -> dict:
     """One pass of the forecast storm (the reference's ``_forecast_phase``,
@@ -4969,12 +5014,10 @@ def forecast_pass(card: str, label: str, schedule, in_flash, warm_pool: bool,
     if warm_pool and hits <= 0:
         raise AssertionError(f"warmpool (a) {label}: no warm hit")
 
-    def p99(xs):  # bench.py's _p99
-        return xs[min(len(xs) - 1, max(math.ceil(0.99 * len(xs)) - 1, 0))]
-
     out = {
         "phase": label, "pods": n_created, "bound": len(bound_at),
-        "p50_s": lat[len(lat) // 2], "p99_s": p99(lat), "spike_p99_s": p99(spike),
+        "p50_s": lat[len(lat) // 2], "p99_s": nearest_rank_p99(lat),
+        "spike_p99_s": nearest_rank_p99(spike),
         "warm_hits": int(hits), "warm_misses": int(misses),
         "hit_rate": hits / (hits + misses) if hits + misses else 0.0,
         "speculative": int(moved["karpenter_warmpool_speculative_launches_total"]),
@@ -5185,6 +5228,540 @@ def warmpool_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
     log(f"[warmpool] walls by part {({k: round(v, 3) for k, v in part_s.items()})} s, "
         f"phase 18 {sum(part_s.values()):.3f} s; card {card}")
     return out
+
+
+TELEMETRY_SEED = 20260807  # bench_regression_storm's seed (bench.py:2794-2968)
+STITCH_ROUNDS = 5
+OVERHEAD_BASE_ROUNDS = 4
+PROFILE_ROUNDS = 32
+SENTINEL_ROUNDS = 16
+STITCHED_STAGES = ("solver.wire", "solver.solve", "sidecar.pack", "solve.pack_fetch")
+
+
+def served_delta(services, before) -> dict:
+    """What the sidecars' ``served`` counts moved by since ``before``
+    (one dict per service), summed by what served."""
+    got = {}
+    for svc, was in zip(services, before):
+        for k, n in svc.served.items():
+            if n - was.get(k, 0):
+                got[k] = got.get(k, 0) + n - was.get(k, 0)
+    return got
+
+
+def stitched_pack(solve: dict, what: str) -> dict:
+    """The sidecar's real sidecar.pack stitched under the solver.wire it
+    rode: inside the wire's bounds, with admission_wait_s and real
+    sidecar.solve / sidecar.fetch children. Returns the pack."""
+    from karpenter_tpu_torch.obs import collector as tc
+
+    wires = [s for s in tc._walk(solve) if s["name"] == "solver.wire"]
+    packs = [(w, c) for w in wires for c in w["children"] if c["name"] == "sidecar.pack"]
+    if len(packs) != 1:
+        raise AssertionError(f"{what}: {len(packs)} sidecar.pack spans stitched under "
+                             f"{len(wires)} solver.wire spans")
+    wire, pack = packs[0]
+    if not (pack.get("stitched") and pack["trace_id"] == solve["trace_id"]):
+        raise AssertionError(f"{what}: sidecar.pack not stitched into its trace")
+    if not wire["t0"] <= pack["t0"] <= pack["t1"] <= wire["t1"]:
+        raise AssertionError(f"{what}: the stitched pack lies outside its wire")
+    if "admission_wait_s" not in pack["attrs"]:
+        raise AssertionError(f"{what}: sidecar.pack carries no admission_wait_s")
+    kids = {c["name"] for c in pack["children"]}
+    if not {"sidecar.solve", "sidecar.fetch"} <= kids:
+        raise AssertionError(f"{what}: sidecar.pack children {sorted(kids)}")
+    return pack
+
+
+def telemetry_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
+                    n_types: int = 400, storm_pods: int = 160) -> dict:
+    """Phase 19: the telemetry plane around the card sidecar. Returns the
+    kernels line's ``telemetry`` entries."""
+    import torch
+
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.solver import service as S
+    from karpenter_tpu_torch.testing import diverse_pods, make_provisioner
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    out = {V1: {}, V2: {}, "summary": {}}
+    part_s, t_part = {}, time.perf_counter()
+    prov = make_provisioner(solver="tpu")
+
+    def counts() -> dict:
+        return {name: m.launches for name, m in modules.items()}
+
+    def delta(start: dict) -> dict:
+        return {name: n - start[name] for name, n in counts().items()}
+
+    def note(label: str, launches: dict) -> None:
+        for name, n in launches.items():
+            if n:
+                out[name][f"launches_{label}"] = n
+
+    # the controllers here have no card: their solves go to a sidecar, and
+    # fused (the reference's "device") keeps the cpu scheduler's router from
+    # sending a round to native, which never reaches the sidecar
+    os.environ["KARPENTER_PACKER"] = "fused"
+    obs.reset_for_tests()
+    try:
+        # -- (a) the stitched leg through a live in-process card sidecar ----
+        address = free_address()
+        server = S.serve(address, max_workers=8, service=S.SolverService(device=device))
+        svc = server.solver_service
+        legs = (("headline", V1, instance_types(n_types),
+                 diverse_pods(n_pods, random.Random(7))),
+                ("team mix", V2, instance_types_tradeoff(n_types), team_pods(n_pods, 9)))
+        out["summary"]["a"] = {}
+        try:
+            for label, kernel, catalog, pods in legs:
+                sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                                  solver_service_address=address)
+                start, was = counts(), dict(svc.served)
+                try:
+                    sched.solve(prov, catalog, pods)  # warm-up: the session opens
+                    dispatches = served(sched, "sidecar", f"telemetry (a) {label} warm-up")[
+                        "pack_dispatches"]
+                    obs.exporter().clear()
+                    times = []
+                    for r in range(STITCH_ROUNDS):
+                        t0 = time.perf_counter()
+                        sched.solve(prov, catalog, pods)
+                        times.append(time.perf_counter() - t0)
+                        dispatches += served(sched, "sidecar", f"telemetry (a) {label} {r}")[
+                            "pack_dispatches"]
+                finally:
+                    if sched.torch._remote is not None:
+                        sched.torch._remote.close()
+                launches = delta(start)
+                got = served_delta([svc], [was])
+                if set(got) != {kernel} or got[kernel] != dispatches:
+                    raise AssertionError(f"telemetry (a) {label}: the sidecar served {got}, "
+                                         f"the rounds dispatched {dispatches}")
+                expect_launches(f"telemetry a, {label}", launches, {kernel: dispatches})
+                roots, joins = obs.stitch(obs.exporter().trees())
+                solves = [t for t in roots if t["name"] == "solver.solve"]
+                if len(solves) != STITCH_ROUNDS:
+                    raise AssertionError(f"telemetry (a) {label}: {len(solves)} solver.solve "
+                                         f"trees after {STITCH_ROUNDS} rounds")
+                waits = [stitched_pack(t, f"telemetry (a) {label}")["attrs"]["admission_wait_s"]
+                         for t in solves]
+                worst = max(solves, key=lambda t: t["duration_ms"])
+                path = obs.critical_path(worst)
+                attr = obs.wire_attribution(worst)
+                row = {
+                    "rounds": STITCH_ROUNDS, "p99_s": nearest_rank_p99(times),
+                    "solve_s": times, "stitched_joins": joins,
+                    "fleet_critical_path_ms": sum(leg["self_ms"] for leg in path),
+                    "fleet_critical_path": [(leg["name"], leg["self_ms"]) for leg in path],
+                    "wire_share_pct": attr["wire_share_pct"], "wire_attribution": attr,
+                    "admission_wait_s": waits,
+                }
+                out["summary"]["a"][label] = row
+                note(f"a_{label.replace(' ', '_')}", launches)
+                log(f"[telemetry] (a) {label} ({len(pods)} pods x {n_types} types, "
+                    f"{kernel} in the sidecar): {STITCH_ROUNDS} rounds, p99 "
+                    f"{row['p99_s'] * 1e3:.3f} ms, joins {joins} (every solver.solve stitched "
+                    f"its sidecar.pack inside its solver.wire), fleet_critical_path_ms "
+                    f"{row['fleet_critical_path_ms']:.3f}, wire_share_pct "
+                    f"{attr['wire_share_pct']}, wire {attr['wire_ms']:.3f} ms, sidecar queue "
+                    f"{attr['sidecar_queue_ms']:.3f} ms, device {attr['device_ms']:.3f} ms of "
+                    f"{attr['total_ms']:.3f} ms; critical path "
+                    + ", ".join(f"{n} {ms:.3f}" for n, ms in row["fleet_critical_path"])
+                    + f" ms; launches {launches}; card {card}")
+        finally:
+            server.stop(grace=None)
+        part_s["a"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # -- (b) two processes: the port's sidecar entry point ---------------
+        out["summary"]["b"] = telemetry_two_process(card, device, n_pods, n_types, delta, counts)
+        part_s["b"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # -- (c) and (d): profiler and sentinel overhead on card rounds -----
+        catalog, pods = instance_types(n_types), diverse_pods(n_pods, random.Random(42))
+        sched = Scheduler(Cluster(), rng=random.Random(1), device=device)
+        start = counts()
+        sched.solve(prov, catalog, pods)
+        dispatches = served(sched, V1, "telemetry (c) warm-up")["pack_dispatches"]
+
+        def run_rounds(n: int, what: str) -> dict:
+            nonlocal dispatches
+            walls = []
+            for r in range(n):
+                t0 = time.perf_counter()
+                sched.solve(prov, catalog, pods)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                dispatches += served(sched, V1, f"telemetry {what} round {r}")[
+                    "pack_dispatches"]
+            return {"rounds": n, "wall_s": walls, "pods_per_s": n * len(pods) / sum(walls)}
+
+        base = run_rounds(OVERHEAD_BASE_ROUNDS, "(c) off")
+        prof = obs.configure_profiler(hz=19.0)
+        try:
+            withp = run_rounds(PROFILE_ROUNDS, "(c) on")
+            snap = prof.snapshot(top_n=5)
+            panel = prof.flight_panel()
+        finally:
+            obs.shutdown_profiler(prof)
+        overhead = prof.overhead_ratio() * 100
+        spans = snap["span_samples"]
+        in_span = sum(spans.values())
+        shares = {name: {"samples": n, "pct_of_span_samples": n / in_span * 100,
+                         "pct_of_ticks": n / snap["ticks"] * 100}
+                  for name, n in sorted(spans.items(), key=lambda kv: -kv[1])}
+        out["summary"]["c"] = {
+            "hz": 19.0, "overhead_pct": overhead, "profile_samples": snap["samples"],
+            "ticks": snap["ticks"], "top": snap["top"],
+            "top_folds": [(f["stack"].split(";")[-3:], f["samples"])
+                          for f in panel["top_folds"][:5]],
+            "span_shares": shares, "off": base, "on": withp,
+        }
+        log(f"[telemetry] (c) profiler at 19 Hz over {PROFILE_ROUNDS} headline rounds: "
+            f"overhead {overhead:.4f} % (self-accounted busy/wall, gate < 1 %), "
+            f"{snap['samples']} samples in {snap['ticks']} ticks; pods/s off "
+            f"{base['pods_per_s']:.1f} ({OVERHEAD_BASE_ROUNDS} rounds), on "
+            f"{withp['pods_per_s']:.1f}; card {card}")
+        log("[telemetry] (c) top frames by self samples: " + "; ".join(
+            f"{t['frame']} {t['self_samples']} ({t['self_pct']} %)" for t in snap["top"]))
+        log("[telemetry] (c) top folds (last 3 frames): " + "; ".join(
+            f"{' < '.join(reversed(stack))} {n}" for stack, n in out["summary"]["c"]["top_folds"]))
+        log("[telemetry] (c) samples by open span (share of span samples / of ticks, the "
+            "solving thread's wall): " + ", ".join(
+                f"{name} {v['samples']} ({v['pct_of_span_samples']:.1f} % / "
+                f"{v['pct_of_ticks']:.1f} %)" for name, v in shares.items()))
+        if overhead >= 1.0:
+            raise AssertionError(f"telemetry (c): profiler overhead {overhead:.4f} % >= 1 %")
+        if not snap["samples"]:
+            raise AssertionError("telemetry (c): the profiler took no samples")
+
+        base = run_rounds(OVERHEAD_BASE_ROUNDS, "(d) off")
+        eng = obs.configure_sentinel(min_events=8)
+        try:
+            withs = run_rounds(SENTINEL_ROUNDS, "(d) on")
+        finally:
+            obs.shutdown_sentinel(eng)
+        overhead = eng.overhead_ratio() * 100
+        out["summary"]["d"] = {"overhead_pct": overhead, "baselines": eng.baseline_count(),
+                               "incidents": eng.incidents.count(), "off": base, "on": withs}
+        log(f"[telemetry] (d) sentinel (min_events 8) over {SENTINEL_ROUNDS} headline rounds: "
+            f"overhead {overhead:.4f} % (gate < 1 %), {eng.baseline_count()} baselines, "
+            f"{eng.incidents.count()} incidents; pods/s off {base['pods_per_s']:.1f}, on "
+            f"{withs['pods_per_s']:.1f}; card {card}")
+        if overhead >= 1.0:
+            raise AssertionError(f"telemetry (d): sentinel overhead {overhead:.4f} % >= 1 %")
+        launches = delta(start)
+        expect_launches("telemetry c+d", launches, {V1: dispatches})
+        note("c_d", launches)
+        part_s["c_d"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # -- (e) the regression storm ----------------------------------------
+        out["summary"]["e"] = regression_storm(card, device, storm_pods, delta, counts)
+        note("e", out["summary"]["e"].pop("launches"))
+        part_s["e"] = time.perf_counter() - t_part
+    finally:
+        os.environ.pop("KARPENTER_PACKER", None)
+        obs.reset_for_tests()
+    out["summary"]["part_s"] = part_s
+    log(f"[telemetry] walls by part {({k: round(v, 3) for k, v in part_s.items()})} s, "
+        f"phase 19 {sum(part_s.values()):.3f} s; card {card}")
+    return out
+
+
+def telemetry_two_process(card: str, device: str, n_pods: int, n_types: int, delta,
+                          counts) -> dict:
+    """Phase 19 (b): ``python -m karpenter_tpu_torch.solver.service
+    --telemetry-dir D --telemetry-flush-interval 1 --profile-hz 7`` in a
+    second process; one headline solve through it from a device="cpu"
+    controller, then a TelemetryCollector over the file backend until the
+    child's flushed sidecar.pack stitches under this process's solver.wire
+    (30 s at most), then the child's /debug/profile, /debug/incidents and
+    /debug/fleet. The child builds nothing: phase 1 built the kernels into
+    the build directory, whose file lock makes a second build wait."""
+    import urllib.request
+
+    import grpc
+
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.obs import collector as tc
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.testing import diverse_pods, make_provisioner
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tdir = tempfile.mkdtemp(prefix="karpenter-telemetry-")
+    address = free_address()
+    health = int(free_address().rsplit(":", 1)[1])
+    child_log = open(os.path.join(tdir, "sidecar.log"), "w")
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch.solver.service", "--address", address,
+         "--health-port", str(health), "--telemetry-dir", tdir,
+         "--telemetry-flush-interval", "1", "--profile-hz", "7", "--device", device],
+        cwd=root, env=env, stdout=child_log, stderr=subprocess.STDOUT)
+
+    def get(path: str):
+        with urllib.request.urlopen(f"http://127.0.0.1:{health}{path}", timeout=30) as r:
+            return r.headers.get("Content-Type"), r.read()
+
+    sched = None
+    start = counts()
+    try:
+        t0 = time.perf_counter()
+        grpc.channel_ready_future(grpc.insecure_channel(address)).result(timeout=300)
+        deadline = time.monotonic() + 300
+        while get("/readyz")[1] != b"ok":
+            if time.monotonic() > deadline or proc.poll() is not None:
+                raise AssertionError("telemetry (b): the child sidecar never turned ready")
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        obs.exporter().clear()
+        sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu",
+                          solver_service_address=address)
+        t0 = time.perf_counter()
+        sched.solve(make_provisioner(solver="tpu"), instance_types(n_types),
+                    diverse_pods(n_pods, random.Random(7)))
+        solve_s = time.perf_counter() - t0
+        served(sched, "sidecar", "telemetry (b)")
+        coll = tc.TelemetryCollector(
+            [tc.FileTelemetryBackend(tdir, identity="controller")], flush_interval=1.0,
+            extra_trees=lambda: obs.exporter().snapshot(limit=None, newest_first=False))
+        solve, t0 = None, time.perf_counter()
+        while solve is None and time.perf_counter() - t0 < 30.0:
+            coll.refresh()
+            roots, _ = coll.stitched()
+            solve = next((t for t in roots if t["name"] == "solver.solve" and any(
+                s.get("stitched") for s in tc._walk(t))), None)
+            if solve is None:
+                time.sleep(0.25)
+        stitch_s = time.perf_counter() - t0
+        if solve is None:
+            raise AssertionError("telemetry (b): the child's flush never stitched in 30 s")
+        pack = stitched_pack(solve, "telemetry (b)")
+        ctype, body = get("/debug/profile")
+        profile = json.loads(body)["profile"]
+        if ctype != "application/json" or not profile.get("samples"):
+            raise AssertionError(f"telemetry (b): the child's profile holds no samples {profile}")
+        incidents = json.loads(get("/debug/incidents")[1])
+        fleet = json.loads(get("/debug/fleet")[1])["fleet"]
+        members = [(m["identity"], m["role"]) for m in fleet.get("members", [])]
+        if (f"sidecar-{address}", "sidecar") not in members:
+            raise AssertionError(f"telemetry (b): /debug/fleet members {members}")
+        if get("/debug/profile?format=collapsed")[0] != "text/plain":
+            raise AssertionError("telemetry (b): the collapsed profile is not text/plain")
+        launches = delta(start)
+        if any(launches.values()):
+            raise AssertionError(f"telemetry (b): this process launched {launches}; the child "
+                                 f"sidecar serves the solve")
+        attr = tc.wire_attribution(solve)
+        row = {"ready_s": ready_s, "solve_s": solve_s, "stitch_s": stitch_s,
+               "pack_ms": pack["duration_ms"], "wire_attribution": attr,
+               "child_profile_samples": profile["samples"],
+               "child_profile_overhead_ratio": profile["overhead_ratio"],
+               "child_span_samples": profile["span_samples"],
+               "child_sentinel_watch": incidents["sentinel"].get("watch"),
+               "child_incidents": len(incidents["incidents"]), "fleet_members": members}
+        log(f"[telemetry] (b) child sidecar ({device}) ready in {ready_s:.3f} s; one headline "
+            f"solve {solve_s * 1e3:.3f} ms; its sidecar.pack ({pack['duration_ms']:.3f} ms, "
+            f"a foreign perf_counter base) stitched under solver.wire {stitch_s:.3f} s after, "
+            f"wire {attr['wire_ms']:.3f} / queue {attr['sidecar_queue_ms']:.3f} / device "
+            f"{attr['device_ms']:.3f} ms; child /debug/profile {profile['samples']} samples, "
+            f"overhead {profile['overhead_ratio']}, spans {profile['span_samples']}; "
+            f"/debug/incidents watch {row['child_sentinel_watch']}, "
+            f"{row['child_incidents']} incidents; /debug/fleet members {members}; the "
+            f"kernel launched in the child (its /readyz needs a kernel's warm-up), this "
+            f"process launched {launches}; card {card}")
+        return row
+    finally:
+        if sched is not None and sched.torch._remote is not None:
+            sched.torch._remote.close()
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        child_log.close()
+        if proc.returncode not in (0, -15):
+            with open(os.path.join(tdir, "sidecar.log")) as f:
+                log("[telemetry] (b) child log tail: " + f.read()[-2000:])
+        shutil.rmtree(tdir, ignore_errors=True)
+
+
+def regression_storm(card: str, device: str, n_pods: int, delta, counts,
+                     pool_size: int = 2, latency_step_s: float = 0.05) -> dict:
+    """Phase 19 (e): the reference's regression storm with its parameters.
+    A Manager wired by hand (wire_controllers over a SimulatedCloudProvider,
+    the provisioning controller's solves sent to a SidecarChaos pool of
+    ``pool_size`` card sidecars, ChaosPolicy(seed=TELEMETRY_SEED + i)), a
+    flight recorder (budget 10 s), the profiler at 19 Hz; 3 warm waves of 4
+    pods (cpu 0.25), freeze_after_warmup, then configure_sentinel(
+    min_events=6, window=4, sustain=2, abs_floor_s=0.005, cooldown_s=300);
+    at least 12 steady waves, which must open no incident; then a
+    ``latency_step_s`` floor on every proxy for up to 15 step waves, which
+    must open exactly one incident naming a wire/device stage with a
+    pinned flight record, a decision id and a profile fold. Every pod is
+    bound once; every round is one launch of the kernel the sidecars'
+    ladder picks for its shape."""
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.cloudprovider.simulated import SimCloudAPI, SimulatedCloudProvider
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+    from karpenter_tpu_torch.testing.chaos import ChaosPolicy, SidecarChaos
+    from karpenter_tpu_torch.utils import gcpolicy
+
+    t_start = time.perf_counter()
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    sidecars = SidecarChaos(n=pool_size, device=device, policies={
+        i: ChaosPolicy(seed=TELEMETRY_SEED + i) for i in range(pool_size)})
+    flight_dir = tempfile.mkdtemp(prefix="karpenter-sentinel-flight-")
+    obs.configure_flight(flight_dir, budget_s=10.0)
+    prof = obs.configure_profiler(hz=19.0)
+    eng = None
+    cluster = Cluster()
+    binds, lock = {}, threading.Lock()
+    bind = cluster.bind
+
+    def counting_bind(pod, node_name):
+        with lock:
+            binds[pod.key] = binds.get(pod.key, 0) + 1
+        bind(pod, node_name)
+
+    cluster.bind = counting_bind
+    manager, provisioning, _ = wire_controllers(
+        cluster, SimulatedCloudProvider(api=SimCloudAPI()), "cpu", start_workers=True,
+        solver_service_address=sidecars.address_spec)
+    services = [srv.solver_service for srv in sidecars.servers.values()]
+    before_served = [dict(svc.served) for svc in services]
+    start = counts()
+    created = []
+    froze = False
+
+    def wave(prefix: str, n: int = 4, timeout: float = 120.0) -> None:
+        names = [f"{prefix}-{i}" for i in range(n)]
+        for name in names:
+            cluster.create("pods", make_pod(name=name, requests={"cpu": "0.25"}))
+        created.extend(names)
+        want = set(names)
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            live = {p.metadata.name: p for p in cluster.pods() if p.metadata.name in want}
+            if len(live) == len(want) and all(p.spec.node_name for p in live.values()):
+                return
+            time.sleep(0.02)
+        raise AssertionError(f"telemetry (e): wave {prefix} not bound in {timeout} s")
+
+    manager.start()
+    try:
+        cluster.create("provisioners", make_provisioner(solver="tpu"))
+        deadline = time.time() + 60
+        while time.time() < deadline and not provisioning.workers:
+            time.sleep(0.02)
+        worker = provisioning.workers["default"]
+        worker.batcher.idle_duration = 0.1
+        if not worker.warmed.wait(timeout=300):
+            raise AssertionError("telemetry (e): the worker's warm-up never finished")
+        warm = worker.scheduler.torch.completed_profile()
+        if warm.get("packer_backend") != "sidecar":
+            raise AssertionError(f"telemetry (e): warm-up served by {warm.get('packer_backend')!r}")
+        rounds = []
+        record_rounds(worker, rounds)
+        for w in range(3):
+            wave(f"warm-{w}")
+        gcpolicy.freeze_after_warmup()
+        froze = True
+        eng = obs.configure_sentinel(min_events=6, window=4, sustain=2, abs_floor_s=0.005,
+                                     cooldown_s=300.0)
+        steady_waves = max((n_pods // 2) // 4, 12)
+        for w in range(steady_waves):
+            wave(f"steady-{w}")
+        steady_fp = eng.incidents.count()
+        baselines = eng.baseline_count()
+        for proxy in sidecars.proxies.values():
+            proxy.policy = ChaosPolicy(latency_floor=latency_step_s, seed=TELEMETRY_SEED)
+        step_waves = 0
+        for w in range(max((n_pods // 2) // 4, 15)):
+            wave(f"step-{w}", timeout=180.0)
+            step_waves += 1
+            # a few waves past the first detection let the other deviating
+            # stages attach to the same incident
+            if eng.incidents.count() > 0 and step_waves >= 6:
+                break
+        overhead = eng.overhead_ratio() * 100
+        incidents = eng.incidents.recent()
+    finally:
+        manager.stop()
+        provisioning.stop()
+        sidecars.stop_all()
+        if eng is not None:
+            obs.shutdown_sentinel(eng)
+        obs.shutdown_profiler(prof)
+        if froze:
+            gcpolicy.restore()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    launches = delta(start)
+    with lock:
+        twice = {k: n for k, n in binds.items() if n != 1}
+    bound = {p.metadata.name for p in cluster.pods() if p.spec.node_name}
+    served_by = served_delta(services, before_served)
+    for i, r in enumerate(rounds):
+        if "error" in r or r["backend"] != "sidecar":
+            raise AssertionError(f"telemetry (e) round {i}: {r}")
+    dispatches = sum(r["dispatches"] for r in rounds) + warm.get("pack_dispatches", 0)
+    stages, flights, decisions, folds = [], 0, 0, 0
+    if incidents:
+        rec = incidents[0]
+        stages = sorted({s["stage"] for s in rec["stages"]})
+        flights, decisions, folds = (len(rec["flights"]), len(rec["decisions"]),
+                                     len(rec["profile_top"]))
+    row = {
+        "pods": len(created), "pool_size": pool_size, "latency_step_s": latency_step_s,
+        "seed": TELEMETRY_SEED, "steady_waves": steady_waves, "step_waves": step_waves,
+        "baselines_learned": baselines, "steady_false_positives": steady_fp,
+        "incidents_opened": len(incidents), "incident_stages": stages,
+        "incident_flight_records": flights, "incident_decision_ids": decisions,
+        "incident_profile_folds": folds, "sentinel_overhead_pct": overhead,
+        "gc_frozen_after_warmup": froze, "rounds": len(rounds), "served": served_by,
+        "wall_s": time.perf_counter() - t_start, "launches": launches,
+    }
+    log(f"[telemetry] (e) regression storm: {len(created)} pods in waves of 4 over "
+        f"{pool_size} sidecars (seed {TELEMETRY_SEED}), gc frozen after the 3 warm waves: "
+        f"{froze}; steady {steady_waves} waves, {steady_fp} false positives, {baselines} "
+        f"baselines; step {latency_step_s * 1e3:g} ms on every proxy, {step_waves} waves, "
+        f"{len(incidents)} incident(s) on {stages}, evidence: {flights} pinned flight "
+        f"records, {decisions} decision ids, {folds} profile folds; sentinel overhead "
+        f"{overhead:.4f} %; {len(rounds)} rounds served {served_by}, launches {launches}; "
+        f"{row['wall_s']:.3f} s; card {card}")
+    if steady_fp:
+        raise AssertionError(f"telemetry (e): {steady_fp} incidents in the steady phase")
+    if len(incidents) != 1:
+        raise AssertionError(f"telemetry (e): {len(incidents)} incidents in the step phase")
+    if not set(stages) & set(STITCHED_STAGES):
+        raise AssertionError(f"telemetry (e): the incident names {stages}")
+    if not (flights >= 1 and decisions >= 1 and folds >= 1):
+        raise AssertionError(f"telemetry (e): incomplete evidence {flights}, {decisions}, "
+                             f"{folds}")
+    if overhead >= 1.0:
+        raise AssertionError(f"telemetry (e): sentinel overhead {overhead:.4f} % >= 1 %")
+    if twice or bound != set(created):
+        raise AssertionError(f"telemetry (e): {len(set(created) - bound)} pods unbound, "
+                             f"{len(twice)} bound other than once")
+    # the sidecars' kernel ladder picks the kernel by shape: a 4-pod wave's
+    # table is no multiple of 128 rows, so pack_first_fit_v2 serves it
+    if not set(served_by) <= {V1, V2} or sum(served_by.values()) != dispatches:
+        raise AssertionError(f"telemetry (e): the sidecars served {served_by}, the rounds "
+                             f"and the warm-up dispatched {dispatches}")
+    expect_launches("telemetry e", launches, served_by)
+    return row
 
 
 def main() -> int:
@@ -5410,6 +5987,9 @@ def main() -> int:
     # -- 18. warmpool -----------------------------------------------------
     warmpool = warmpool_phase(card)
 
+    # -- 19. telemetry ----------------------------------------------------
+    telemetry = telemetry_phase(card)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -5434,6 +6014,7 @@ def main() -> int:
         "deprovision": {**deprovision["pack_first_fit"], **deprovision["summary"]},
         "interruption": {**interruption["pack_first_fit"], **interruption["summary"]},
         "warmpool": {**warmpool["pack_first_fit"], **warmpool["summary"]},
+        "telemetry": {**telemetry["pack_first_fit"], **telemetry["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -5461,6 +6042,7 @@ def main() -> int:
         "deprovision": {**deprovision["pack_first_fit_v2"], **deprovision["summary"]},
         "interruption": {**interruption["pack_first_fit_v2"], **interruption["summary"]},
         "warmpool": {**warmpool["pack_first_fit_v2"], **warmpool["summary"]},
+        "telemetry": {**telemetry["pack_first_fit_v2"], **telemetry["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

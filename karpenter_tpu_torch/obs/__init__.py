@@ -20,11 +20,17 @@ has. Public surface:
   controller reads.
 - ``to_traceparent`` / ``from_traceparent`` — the cross-process id form
   (the v3 wire's trailer carries the same ids).
+- ``configure_profiler(hz)`` / ``profiler()`` / ``shutdown_profiler()`` —
+  the always-on sampling profiler (obs/profiler.py).
+- ``configure_sentinel(...)`` / ``sentinel()`` / ``shutdown_sentinel()``
+  — the regression sentinel (obs/sentinel.py): online latency baselines
+  and change-point detection escalating into the correlated incident
+  plane (obs/incidents.py).
+- ``configure_telemetry(...)`` / ``telemetry()`` / ``shutdown_telemetry()``
+  — the fleet telemetry plane (obs/collector.py): periodic flush plus
+  cross-process collection and stitching.
 - ``debug_*_payload`` helpers — the ONE body function per ``/debug/*``
   endpoint of the sidecar's health server.
-
-The JAX package's collector, profiler, sentinel and incidents halves of
-this facade are not ported yet.
 
 Spans are host-side machinery: nothing here may run between a kernel's
 launch and its fetch in a way that waits on the card.
@@ -35,6 +41,11 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from karpenter_tpu_torch.obs.collector import (  # noqa: F401
+    TelemetryPlane,
+    stitch,
+    wire_attribution,
+)
 from karpenter_tpu_torch.obs.decisions import DecisionLog  # noqa: F401
 from karpenter_tpu_torch.obs.export import (  # noqa: F401
     RingExporter,
@@ -48,6 +59,9 @@ from karpenter_tpu_torch.obs.flight import (  # noqa: F401
     state_snapshot,
     unregister_state,
 )
+from karpenter_tpu_torch.obs.incidents import IncidentLog  # noqa: F401
+from karpenter_tpu_torch.obs.profiler import SamplingProfiler  # noqa: F401
+from karpenter_tpu_torch.obs.sentinel import SentinelEngine  # noqa: F401
 from karpenter_tpu_torch.obs.slo import (  # noqa: F401
     DEFAULT_OBJECTIVES,
     SIDECAR_OBJECTIVES,
@@ -168,6 +182,47 @@ def slo_snapshot() -> dict:
     return eng.snapshot() if eng is not None else {}
 
 
+# -- the sampling profiler (obs/profiler.py) ---------------------------------
+
+_profiler: Optional[SamplingProfiler] = None  # guarded-by: _lock
+
+
+def configure_profiler(hz: Optional[float] = None) -> SamplingProfiler:
+    """Install (and start) the process-wide sampling profiler; replaces a
+    previous one. Also registers the ``profile`` flight-recorder panel so
+    every over-budget record names the in-window hot frames."""
+    global _profiler
+    kwargs = {}
+    if hz is not None:
+        kwargs["hz"] = hz
+    prof = SamplingProfiler(tracer=_tracer, **kwargs)
+    with _lock:
+        old, _profiler = _profiler, prof
+    if old is not None:
+        old.stop()
+    prof.start()
+    register_state("profile", prof.flight_panel)
+    return prof
+
+
+def profiler() -> Optional[SamplingProfiler]:
+    with _lock:
+        return _profiler
+
+
+def shutdown_profiler(prof: Optional[SamplingProfiler] = None) -> None:
+    """Stop and detach (ownership-checked like ``shutdown_slo``; ``None``
+    detaches unconditionally — reset_for_tests)."""
+    global _profiler
+    with _lock:
+        if prof is not None and _profiler is not prof:
+            return
+        old, _profiler = _profiler, None
+    if old is not None:
+        old.stop()
+    unregister_state("profile")
+
+
 # -- the arrival-rate forecaster (forecast/model.py) -------------------------
 
 _forecaster = None  # guarded-by: _lock
@@ -235,6 +290,63 @@ def shutdown_forecast(engine=None) -> None:
     unregister_state("forecast")
 
 
+# -- the regression sentinel (obs/sentinel.py + obs/incidents.py) ------------
+
+_sentinel: Optional[SentinelEngine] = None  # guarded-by: _lock
+
+
+def configure_sentinel(
+    directory: str = "",
+    recorder=None,
+    incident_cap: Optional[int] = None,
+    **tuning,
+) -> SentinelEngine:
+    """Install (or replace) the regression sentinel on the default tracer:
+    a span finish-hook learning per-(stage, route, shape) latency
+    baselines (persisted under ``directory`` when set), a change-point
+    detector, and the correlated incident plane behind
+    ``GET /debug/incidents``. ``recorder`` (an EventRecorder) makes every
+    minted incident land as an ``IncidentDetected`` Warning event.
+    ``tuning`` passes through SentinelEngine knobs (window, min_events,
+    sustain, ...)."""
+    inc_kwargs = {"recorder": recorder}
+    if incident_cap is not None:
+        inc_kwargs["cap"] = incident_cap
+    eng = SentinelEngine(
+        incidents=IncidentLog(**inc_kwargs), directory=directory, **tuning
+    )
+    global _sentinel
+    with _lock:
+        if _sentinel is not None:
+            _tracer.remove_hook(_sentinel)
+        _sentinel = eng
+    _tracer.add_hook(eng)
+    register_state("sentinel", eng.panel)
+    return eng
+
+
+def sentinel() -> Optional[SentinelEngine]:
+    with _lock:
+        return _sentinel
+
+
+def shutdown_sentinel(engine: Optional[SentinelEngine] = None) -> None:
+    """Detach (hook + state panel) and final-persist the baselines.
+    Ownership-checked like ``shutdown_slo``: pass the engine you installed
+    so a stopped owner cannot tear down a LATER configure's engine;
+    ``None`` detaches unconditionally (reset_for_tests)."""
+    global _sentinel
+    with _lock:
+        if engine is not None and _sentinel is not engine:
+            return  # someone else's engine is current — not ours to kill
+        if _sentinel is not None:
+            _tracer.remove_hook(_sentinel)
+        old, _sentinel = _sentinel, None
+    if old is not None:
+        old.close()
+    unregister_state("sentinel")
+
+
 # -- the decision audit log (obs/decisions.py) -------------------------------
 
 # memory-only default: /debug/decisions and /debug/explain answer from the
@@ -267,6 +379,60 @@ def configure_decisions(
     # stop the replaced log's writer thread (it drains, then exits)
     old.close()
     return log
+
+
+# -- the fleet telemetry plane (obs/collector.py) ----------------------------
+
+_telemetry: Optional[TelemetryPlane] = None  # guarded-by: _lock
+
+
+def configure_telemetry(
+    identity: Optional[str] = None,
+    role: str = "controller",
+    directory: str = "",
+    peers=(),
+    flush_interval: Optional[float] = None,
+) -> TelemetryPlane:
+    """Install (and start) this process's telemetry plane: periodic member
+    flushes to the shared ``directory`` (when set) plus a collector over
+    the directory and/or HTTP ``peers`` — ``GET /debug/fleet`` serves its
+    aggregate. Replaces a previous plane."""
+    import os as _os
+
+    global _telemetry
+    kwargs = {}
+    if flush_interval is not None:
+        kwargs["flush_interval"] = flush_interval
+    plane = TelemetryPlane(
+        identity=identity or f"{_os.uname().nodename}-{_os.getpid()}",
+        role=role,
+        directory=directory,
+        peers=peers,
+        **kwargs,
+    )
+    with _lock:
+        old, _telemetry = _telemetry, plane
+    if old is not None:
+        old.stop()
+    plane.start()
+    return plane
+
+
+def telemetry() -> Optional[TelemetryPlane]:
+    with _lock:
+        return _telemetry
+
+
+def shutdown_telemetry(plane: Optional[TelemetryPlane] = None) -> None:
+    """Stop and detach (ownership-checked; ``None`` detaches
+    unconditionally — reset_for_tests)."""
+    global _telemetry
+    with _lock:
+        if plane is not None and _telemetry is not plane:
+            return
+        old, _telemetry = _telemetry, None
+    if old is not None:
+        old.stop()
 
 
 # -- shared /debug payloads ---------------------------------------------------
@@ -314,6 +480,13 @@ def debug_flight_payload(query: str = "") -> dict:
     return {"records": rec.recent() if rec is not None else []}
 
 
+def debug_fleet_payload(query: str = "") -> dict:
+    """``GET /debug/fleet``: member inventory with staleness, fleet-merged
+    SLO verdicts, stitched-trace index ({} until telemetry is configured)."""
+    plane = telemetry()
+    return {"fleet": plane.fleet_payload() if plane is not None else {}}
+
+
 def debug_decisions_payload(query: str = "") -> dict:
     """``GET /debug/decisions``: the newest decision records. ``?limit=``
     bounds the count (default 20), ``?provisioner=`` filters to one
@@ -345,9 +518,51 @@ def debug_forecast_payload(query: str = "") -> dict:
     return {"forecast": eng.snapshot() if eng is not None else {}}
 
 
+def debug_incidents_payload(query: str = "") -> dict:
+    """``GET /debug/incidents``: the sentinel's correlated incident
+    records plus its baseline disposition. ``?id=`` returns one FULL
+    record (span tree, pinned flight records, decision ids, profiler
+    folds, state panels); the default listing serves bounded summaries
+    (``?limit=`` bounds the count, default 20). (Empty halves while no
+    sentinel is configured.)"""
+    q = _query(query)
+    eng = sentinel()
+    if eng is None:
+        return {"incidents": [], "sentinel": {}}
+    incident_id = (q.get("id") or [None])[0] or None
+    if incident_id:
+        return {
+            "incident": eng.incidents.get(incident_id),
+            "sentinel": eng.snapshot(),
+        }
+    return {
+        "incidents": eng.incidents.summaries(limit=_limit(q, 20)),
+        "sentinel": eng.snapshot(),
+    }
+
+
+def debug_profile_payload(query: str = ""):
+    """``GET /debug/profile`` → ``(content_type, body_bytes)``. Default is
+    the top-N self-time JSON; ``?format=collapsed`` returns the raw
+    collapsed-flamegraph corpus as text (pipe it into any renderer)."""
+    import json as _json
+
+    prof = profiler()
+    if (_query(query).get("format") or [""])[0] == "collapsed":
+        body = prof.collapsed() if prof is not None else ""
+        return "text/plain", body.encode()
+    payload = {
+        "profile": ({"enabled": False} if prof is None
+                    else {"enabled": True, **prof.snapshot()})
+    }
+    return "application/json", _json.dumps(payload).encode()
+
+
 def reset_for_tests() -> None:
     """Drop collected traces and detach any flight recorder / SLO engine /
-    forecaster / decision log."""
+    forecaster / sentinel / profiler / telemetry plane / decision log. A
+    sampler or flush thread left running would cost every later test in
+    the process CPU time."""
     global _flight, _decisions
     with _lock:
         if _flight is not None:
@@ -357,6 +572,9 @@ def reset_for_tests() -> None:
     old_decisions.close()
     shutdown_forecast()
     shutdown_slo()
+    shutdown_sentinel()
+    shutdown_profiler()
+    shutdown_telemetry()
     from karpenter_tpu_torch.obs import decisions as _dec
 
     _dec.set_enabled(None)

@@ -17,8 +17,6 @@ provider that raises contributes its error string instead of aborting the
 record (a flight record with one missing panel beats no record).
 
 ``GET /debug/flight`` on the sidecar's health server lists :meth:`recent`.
-The JAX package's wire-dominance watch rule and incident pins are not
-ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +35,51 @@ logger = logging.getLogger("karpenter.obs")
 DEFAULT_BUDGET_S = 0.100  # the BASELINE <100ms p99 target
 DEFAULT_CAP = 64
 DEFAULT_WATCH = ("solver.solve",)
+
+# wire-dominance watch rule: a solve whose TRANSPORT
+# self-time exceeds its device/solve share is a transport regression the
+# latency budget alone can hide (a fast solve over a slow wire can still
+# land under 100ms) — it self-reports as a flight record tagged
+# ``wire_dominated=true`` even when under budget. The floor keeps
+# microsecond-scale loopback noise from spamming the ring, and the
+# cooldown keeps a STEADY wire-dominated regime (every solve matching)
+# from turning the hot solve path into per-solve disk writes — one
+# record per window names the regression; the rest add nothing.
+MIN_WIRE_DOMINANCE_S = 0.005
+WIRE_DOMINANCE_COOLDOWN_S = 30.0
+# the transport leg and the sidecar stages it grafts/stitches beneath it
+WIRE_SPAN = "solver.wire"
+SOLVE_SHARE_SPANS = frozenset({"sidecar.solve", "sidecar.fetch"})
+
+
+def _walk(span: Span):
+    yield span
+    for child in span.children:
+        yield from _walk(child)
+
+
+def wire_dominance(span: Span) -> Optional[Dict[str, float]]:
+    """For a ``solver.solve`` tree: the wire's SELF time (the
+    ``solver.wire`` spans minus their grafted/stitched sidecar children)
+    vs the device/solve share (``sidecar.solve`` + ``sidecar.fetch``).
+    None when the solve never crossed a wire (in-process backends)."""
+    wire_self = 0.0
+    solve_share = 0.0
+    crossed = False
+    for s in _walk(span):
+        if s.name == WIRE_SPAN:
+            crossed = True
+            wire_self += max(
+                s.duration_s - sum(c.duration_s for c in s.children), 0.0
+            )
+        elif s.name in SOLVE_SHARE_SPANS:
+            solve_share += s.duration_s
+    if not crossed:
+        return None
+    return {
+        "wire_self_s": round(wire_self, 6),
+        "solve_share_s": round(solve_share, 6),
+    }
 
 # name -> zero-arg callable returning a JSON-serializable snapshot
 _state_lock = threading.Lock()
@@ -100,16 +143,42 @@ class FlightRecorder:
         self.watch = frozenset(watch)
         self.records_written = 0
         self._lock = threading.Lock()
+        self._last_rule_record = 0.0  # guarded-by: self._lock
+        # filename -> incident id: records pinned against pruning because
+        # an incident record references them (obs/incidents.py); bounded —
+        # the oldest pins release once PIN_CAP incidents have come and gone
+        self._pinned: Dict[str, str] = {}  # guarded-by: self._lock
         os.makedirs(directory, exist_ok=True)
+
+    def _rule_cooled_down(self) -> bool:
+        now = time.monotonic()
+        with self._lock:
+            if now - self._last_rule_record < WIRE_DOMINANCE_COOLDOWN_S:
+                return False
+            self._last_rule_record = now
+            return True
 
     # -- the hook -----------------------------------------------------------
     def __call__(self, span: Span) -> None:
-        if span.name in self.watch and span.duration_s > self.budget_s:
-            self.record(span)
+        if span.name not in self.watch:
+            return
+        extra = None
+        if span.name == "solver.solve":
+            shares = wire_dominance(span)
+            if shares is not None and shares["wire_self_s"] > max(
+                shares["solve_share_s"], MIN_WIRE_DOMINANCE_S
+            ):
+                extra = {"wire_dominated": True, **shares}
+        over_budget = span.duration_s > self.budget_s
+        if not over_budget and extra is not None and not self._rule_cooled_down():
+            return  # steady wire-dominance: one record per cooldown window
+        if over_budget or extra is not None:
+            self.record(span, extra=extra)
 
-    def record(self, span: Span) -> Optional[str]:
+    def record(self, span: Span, extra: Optional[Dict[str, Any]] = None) -> Optional[str]:
         """Write one incident; returns the file path (None on failure —
-        recording must never fail the traced action)."""
+        recording must never fail the traced action). ``extra`` merges
+        watch-rule verdicts (e.g. ``wire_dominated``) into the payload."""
         try:
             payload = {
                 "name": span.name,
@@ -120,6 +189,8 @@ class FlightRecorder:
                 "trace": span.to_dict(),
                 "state": state_snapshot(),
             }
+            if extra:
+                payload.update(extra)
             with self._lock:
                 # millisecond wall stamp + write sequence in the name:
                 # lexicographic order IS recency order (prune and recent()
@@ -157,11 +228,66 @@ class FlightRecorder:
             if n.startswith("flight-") and n.endswith(".json")
         )
         excess = max(len(names) - self.cap, 0)
-        for victim in names[:excess]:
+        removed = 0
+        for victim in names:
+            if removed >= excess:
+                break
+            if victim in self._pinned:
+                continue  # incident evidence outlives the ring's age-out
             try:
                 os.remove(os.path.join(self.directory, victim))
             except OSError:
                 pass
+            removed += 1
+
+    # -- the incident plane's evidence hook ----------------------------------
+    PIN_CAP = 16
+
+    def pin_for_incident(
+        self, incident_id: str, limit: int = 3
+    ) -> List[Dict[str, Any]]:
+        """Pin the newest ``limit`` records against pruning and return
+        their payloads tagged with ``incident_id`` — the incident record
+        (obs/incidents.py) references these files, and an unreferenced
+        prune would sever the evidence an operator follows from
+        ``/debug/incidents`` into ``/debug/flight``. Pins are bounded:
+        past ``PIN_CAP`` the oldest-pinned files release back to the
+        normal ring age-out."""
+        try:
+            names = sorted(
+                (
+                    n for n in os.listdir(self.directory)
+                    if n.startswith("flight-") and n.endswith(".json")
+                ),
+                reverse=True,
+            )[:limit]
+        except OSError:
+            return []
+        out: List[Dict[str, Any]] = []
+        with self._lock:
+            for n in names:
+                self._pinned[n] = incident_id
+            while len(self._pinned) > self.PIN_CAP:
+                self._pinned.pop(next(iter(self._pinned)))
+        for n in names:
+            try:
+                with open(os.path.join(self.directory, n), encoding="utf-8") as f:
+                    payload = json.load(f)
+            except Exception:
+                continue  # half-written or pruned-under-us
+            out.append({
+                "file": n,
+                "incident_id": incident_id,
+                "name": payload.get("name"),
+                "trace_id": payload.get("trace_id"),
+                "duration_s": payload.get("duration_s"),
+                "recorded_at": payload.get("recorded_at"),
+            })
+        return out
+
+    def pinned(self) -> Dict[str, str]:
+        with self._lock:
+            return dict(self._pinned)
 
     # -- the /debug/flight surface ------------------------------------------
     def recent(self, limit: int = 20) -> List[Dict[str, Any]]:

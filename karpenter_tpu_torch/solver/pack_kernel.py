@@ -38,7 +38,9 @@ or the unfused v2 caller by shape, the other kernel when a launch raises
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import logging
 import os
@@ -162,32 +164,17 @@ def build_dir(csrc: Path = CSRC) -> Path:
 
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile (once per content of the sources) and load every kernel
-    library; returns them by kernel name. A failed build raises."""
+    library; returns them by kernel name. A failed build raises. A file
+    lock in the build directory serializes processes: a second process (a
+    sidecar started beside its controller) waits for the first one's
+    build and loads its libraries."""
     with _build_lock:
         if _libs:
             return _libs
         out_dir = build_dir()
-        missing = [n for n in SOURCES if not (out_dir / f"lib{n}.so").exists()]
-        if missing:
-            out_dir.mkdir(parents=True, exist_ok=True)
-            nvcc = _nvcc()
-            procs = {}
-            for name in missing:
-                tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-                procs[name] = (tmp, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                ))
-            failures = []
-            for name, (tmp, proc) in procs.items():
-                out, err = proc.communicate()
-                if proc.returncode != 0:
-                    failures.append(f"nvcc failed for {SOURCES[name].name}:\n{out}{err}")
-                    continue
-                (out_dir / f"{name}.build.log").write_text(out + err)
-                os.replace(tmp, out_dir / f"lib{name}.so")
-            if failures:
-                raise RuntimeError("\n".join(failures))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with _dir_lock(out_dir):
+            _build_missing(out_dir)
         for name in SOURCES:
             lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
             launch = getattr(lib, f"{name}_launch")
@@ -197,6 +184,42 @@ def build() -> Dict[str, ctypes.CDLL]:
             _build_logs[name] = log.read_text() if log.exists() else ""
             _libs[name] = lib
         return _libs
+
+
+@contextlib.contextmanager
+def _dir_lock(out_dir: Path):
+    fd = os.open(out_dir / ".build.lock", os.O_CREAT | os.O_RDWR)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # closing the descriptor releases the lock
+
+
+def _build_missing(out_dir: Path) -> None:
+    """One ``nvcc`` per kernel source whose library is not in ``out_dir``
+    yet, all started together; each library lands by atomic rename."""
+    missing = [n for n in SOURCES if not (out_dir / f"lib{n}.so").exists()]
+    if not missing:
+        return
+    nvcc = _nvcc()
+    procs = {}
+    for name in missing:
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {SOURCES[name].name}:\n{out}{err}")
+            continue
+        (out_dir / f"{name}.build.log").write_text(out + err)
+        os.replace(tmp, out_dir / f"lib{name}.so")
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
 def build_log(name: str) -> str:

@@ -1567,9 +1567,12 @@ def _serve_health(service: SolverService, port: int):
     """Plain-HTTP probe endpoints for kubelet — ``/healthz`` (200 once the
     process is up) and ``/readyz`` (503 until the warm-up solve) — plus
     ``/metrics`` (the port's registry) and ``/debug/{traces,slo,flight,
-    decisions,explain,forecast}``: the session store and the sidecar's span ring
-    live in THIS process, so its residency gauges and its half of every
-    traced solve are observable only on its own port."""
+    decisions,explain,forecast,fleet,incidents,profile}``: the session
+    store and the sidecar's span ring live in THIS process, so its
+    residency gauges and its half of every traced solve are observable
+    only on its own port. ``/debug/profile`` is dual-typed: JSON, or the
+    collapsed corpus as text with ``?format=collapsed``; the header follows
+    what the payload function returns."""
     import json as _json
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
     from urllib.parse import urlsplit
@@ -1581,6 +1584,8 @@ def _serve_health(service: SolverService, port: int):
         "/debug/decisions": obs.debug_decisions_payload,
         "/debug/explain": obs.debug_explain_payload,
         "/debug/forecast": obs.debug_forecast_payload,
+        "/debug/fleet": obs.debug_fleet_payload,
+        "/debug/incidents": obs.debug_incidents_payload,
     }
 
     class Probe(BaseHTTPRequestHandler):
@@ -1601,6 +1606,9 @@ def _serve_health(service: SolverService, port: int):
             elif url.path in debug:
                 code, ctype = 200, "application/json"
                 body = _json.dumps(debug[url.path](url.query)).encode()
+            elif url.path == "/debug/profile":
+                code = 200
+                ctype, body = obs.debug_profile_payload(url.query)
             else:
                 code, body = 404, b"not found"
             self.send_response(code)
@@ -1609,7 +1617,7 @@ def _serve_health(service: SolverService, port: int):
             self.end_headers()
             self.wfile.write(body)
 
-    def log_message(self, *a):  # quiet
+        def log_message(self, *a):  # quiet
             pass
 
     httpd = ThreadingHTTPServer(("0.0.0.0", port), Probe)
@@ -2287,7 +2295,8 @@ class RemoteSolver:
 
 def main(argv: Optional[List[str]] = None) -> None:
     """Sidecar entry point: ``python -m karpenter_tpu_torch.solver.service``.
-    It serves on the card; any flag not listed here is an argparse error."""
+    It serves on the card unless ``--device cpu`` asks for the CPU; any flag
+    not listed here is an argparse error."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="karpenter-solver-service")
@@ -2333,6 +2342,28 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--slo-config", default="",
                     help="objectives file ('' = the sidecar defaults: "
                          "sidecar.pack.p99 + session.catalog_hit_rate)")
+    ap.add_argument("--profile-hz", type=float, default=19.0,
+                    help="sampling-profiler stack-sample rate in Hz "
+                         "(0 disables; GET /debug/profile serves the folds)")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="shared fleet-telemetry directory this sidecar "
+                         "flushes its span trees / SLO histograms / profile "
+                         "folds into ('' disables)")
+    ap.add_argument("--telemetry-flush-interval", type=float, default=10.0,
+                    help="seconds between telemetry flushes")
+    ap.add_argument("--sentinel", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="regression sentinel over the sidecar's own span "
+                         "stream (sidecar.pack and the solve stages): "
+                         "online latency baselines + change-point "
+                         "detection; GET /debug/incidents serves the "
+                         "incident records")
+    ap.add_argument("--sentinel-dir", default="",
+                    help="directory the sentinel persists learned baselines "
+                         "into across restarts ('' = memory-only)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the sidecar solves: the card (default) or "
+                         "'cpu', whose plain versions serve")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     if args.flight_dir:
@@ -2351,9 +2382,32 @@ def main(argv: Optional[List[str]] = None) -> None:
         ),
         window_s=args.slo_window,
     )
+    if args.profile_hz > 0:
+        # always-on sampling profiler: the sidecar's solve and serialize
+        # loops are the frames a fleet-wide slow solve needs named
+        obs.configure_profiler(hz=args.profile_hz)
+    if args.sentinel:
+        # the sidecar learns baselines for its OWN stages (the pack span
+        # plus the solve/fetch legs) — the controller's sentinel only sees
+        # wire totals, so device-side regressions attribute here
+        obs.configure_sentinel(
+            directory=args.sentinel_dir,
+            watch=("sidecar.pack", "sidecar.solve", "sidecar.fetch"),
+        )
+    if args.telemetry_dir:
+        # flush-only member of the fleet telemetry plane: the controller's
+        # collector stitches this ring's sidecar.pack trees into its own
+        # solver.wire parents
+        obs.configure_telemetry(
+            identity=f"sidecar-{args.address}",
+            role="sidecar",
+            directory=args.telemetry_dir,
+            flush_interval=args.telemetry_flush_interval,
+        )
     server = serve(
         args.address, args.max_workers, health_port=args.health_port, warmup=True,
         service=SolverService(
+            device=args.device,
             session_max=args.session_max, session_ttl=args.session_ttl,
             max_inflight=args.solver_max_inflight,
             queue_depth=args.solver_queue_depth,

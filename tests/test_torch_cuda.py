@@ -10,7 +10,9 @@ card scheduler; and the observability plane on the card (a traced round's
 one launch and its stage spans, the session HBM gauges, the sidecar's
 spans, the decision replay blob through the kernel ladder); a notice's
 replacement round and an adopted crash on the card; the warm-hit steal
-over the simulated cloud before a card round. Every comparison is exact.
+over the simulated cloud before a card round; the profiler's samples of a
+card round's fetch under ``solve.pack_fetch``, and the sidecar's entry
+point with its telemetry flags on the card. Every comparison is exact.
 
 Marked ``cuda``; each skips without a CUDA device (decided in a fixture,
 never at import). This file imports neither JAX nor the JAX package, so it
@@ -1450,3 +1452,86 @@ def test_warm_steal_then_remainder_on_card_equals_the_cpu_worker(cuda, sizes, st
     else:
         assert hits > 0 and misses > 0 and len(open_entries) < 5
         assert card[5] == 1 and card[6] == "pack_first_fit"
+
+
+# -- the telemetry plane on the card -------------------------------------------
+
+
+def test_profiler_folds_card_fetch_samples_under_pack_fetch(cuda, fresh_obs):
+    """While a card round waits for its kernel (the fetch's synchronize
+    releases the GIL), the sampler runs and charges the solving thread's
+    samples to its innermost open span, solve.pack_fetch."""
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+
+    prov, catalog, pods = scenario("karpenter_tpu_torch", "diverse", 10000, 42, 400)
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    sched.solve(prov, catalog, pods)  # warm-up: the build and first launch
+    prof = fresh_obs.configure_profiler(hz=997.0)
+    for _ in range(5):
+        sched.solve(prov, catalog, pods)
+        assert sched.last_stage_profile()["packer_backend"] == "pack_first_fit"
+    fresh_obs.shutdown_profiler(prof)
+    spans = prof.snapshot()["span_samples"]
+    assert spans.get("solve.pack_fetch", 0) >= 1, spans
+    assert sum(spans.values()) <= prof.samples
+
+
+def test_sidecar_main_serves_the_telemetry_endpoints_on_card(cuda, tmp_path):
+    """The sidecar's entry point with the telemetry flags, on the card:
+    /readyz after a kernel served the warm-up, then /debug/profile with
+    samples, /debug/incidents with the sidecar stages watched, and
+    /debug/fleet listing this sidecar as a member of its own directory."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    pytest.importorskip("grpc")
+    ports = []
+    for _ in range(2):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    address = f"127.0.0.1:{ports[0]}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch.solver.service", "--address", address,
+         "--health-port", str(ports[1]), "--telemetry-dir", str(tmp_path),
+         "--telemetry-flush-interval", "1", "--profile-hz", "19"],
+        env={**os.environ}, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{ports[1]}{path}", timeout=10) as r:
+            return r.headers.get("Content-Type"), r.read()
+
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            try:
+                if get("/readyz")[1] == b"ok":
+                    break
+            except OSError:
+                pass
+            assert proc.poll() is None, "the sidecar exited"
+            time.sleep(0.5)
+        else:
+            raise AssertionError("the sidecar never turned ready")
+        time.sleep(2.5)  # two flush intervals
+        ctype, body = get("/debug/profile")
+        profile = json.loads(body)["profile"]
+        assert ctype == "application/json" and profile["enabled"] and profile["samples"] > 0
+        assert get("/debug/profile?format=collapsed")[0] == "text/plain"
+        incidents = json.loads(get("/debug/incidents")[1])
+        assert incidents["incidents"] == []
+        assert incidents["sentinel"]["watch"] == ["sidecar.fetch", "sidecar.pack",
+                                                  "sidecar.solve"]
+        fleet = json.loads(get("/debug/fleet")[1])["fleet"]
+        assert [(m["identity"], m["role"]) for m in fleet["members"]] == [
+            (f"sidecar-{address}", "sidecar")]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)

@@ -6,9 +6,13 @@ registries) and holds the port's result to the reference's: the span core
 and its wire form, the trace ring and its analysis helpers, the flight
 recorder, the SLO grammar and engine, the solve's span tree, the traced
 v3 frames across the packages' clients and sidecars, the sidecar's debug
-surface, and the metric families the same events move. Both packages'
-obs state is reset around every test (``obs.reset_for_tests()`` on each
-side), and each package's events are read from its own registry only.
+surface, the metric families the same events move, the flight
+recorder's wire-dominance rule, and trace-stamped logging
+(``logging_config``). Both packages' obs state is reset around every test
+(``obs.reset_for_tests()`` on each side), and each package's events are
+read from its own registry only. Counters and state panels are
+process-global (other test modules count into them and register panels),
+so a test reads counters as deltas and compares only its own panels.
 """
 
 from __future__ import annotations
@@ -306,9 +310,12 @@ def test_flight_records_only_over_budget_and_caps_the_ring(tmp_path):
             o.unregister_state("router_ema")
             o.unregister_state("broken")
         recent = rec.recent()
+        # only this test's panels: the process may hold panels that other
+        # modules registered before it (and never unregister)
+        mine = ("broken", "router_ema")
         payloads = [
-            (r["name"], r["budget_s"], sorted(r["state"]), r["state"]["broken"],
-             r["state"]["router_ema"], sorted(r))
+            (r["name"], r["budget_s"], sorted(k for k in r["state"] if k in mine),
+             r["state"]["broken"], r["state"]["router_ema"], sorted(r))
             for r in recent
         ]
         return rec.records_written, len(list((tmp_path / pkg).iterdir())), payloads
@@ -484,17 +491,26 @@ def test_slo_gauges_and_counters_published():
     events = _event_stream(seed=8, n=200)
 
     def run(pkg):
-        _drive_engine(pkg, events)
         m = METRICS[pkg]
         names = ("solve_p99", "provision_success_rate", "session_catalog_hit_rate")
+
+        def counts():
+            # the counters are process-global: earlier tests of either
+            # package may have counted into them, so compare deltas
+            return {n: tuple(m.SLO_EVENTS.labels(objective=n, verdict=v)._value.get()
+                             for v in ("good", "bad")) for n in names}
+
+        before = counts()
+        _drive_engine(pkg, events)
+        after = counts()
         return {
             n: (
                 m.SLO_BURNING.labels(objective=n)._value.get(),
                 m.SLO_BURN_RATE.labels(objective=n, window="fast")._value.get(),
                 m.SLO_BURN_RATE.labels(objective=n, window="slow")._value.get(),
                 m.SLO_OBJECTIVE_OK.labels(objective=n)._value.get(),
-                m.SLO_EVENTS.labels(objective=n, verdict="good")._value.get(),
-                m.SLO_EVENTS.labels(objective=n, verdict="bad")._value.get(),
+                after[n][0] - before[n][0],
+                after[n][1] - before[n][1],
             )
             for n in names
         }
@@ -949,8 +965,13 @@ def test_sidecar_health_serves_metrics_and_debug(tmp_path):
         assert [r["name"] for r in flight] == ["sidecar.pack"]
         assert json.loads(get("/debug/decisions")[2]) == {"decisions": []}
         assert json.loads(get("/debug/explain?pod=x")[2]) == {"pod": "x", "explain": None}
+        # the telemetry endpoints: no profiler, plane or sentinel here
+        _, ctype, body = get("/debug/profile")
+        assert (ctype, json.loads(body)) == ("application/json", {"profile": {"enabled": False}})
+        assert json.loads(get("/debug/fleet")[2]) == {"fleet": {}}
+        assert json.loads(get("/debug/incidents")[2]) == {"incidents": [], "sentinel": {}}
         with pytest.raises(urllib.error.HTTPError):
-            get("/debug/profile")
+            get("/debug/nothing")
     finally:
         server.health_server.shutdown()
         server.stop(grace=None)
@@ -1126,6 +1147,9 @@ def test_pool_failover_span_and_metrics_match_the_reference():
                 pool.pack(*args, n_max=8)
                 primary = pool.ring.route(pool._catalog_key(args[s.N_POD_ARRAYS:]))
                 survivor = next(a for a in addrs if a != primary)
+                # a process-global counter: read as a delta
+                failovers = METRICS[pkg].SOLVER_POOL_FAILOVERS.labels(
+                    address=primary)._value.get()
                 servers[primary].stop(grace=0)
                 with OBS[pkg].tracer().span("test.root"):
                     pool.pack(*args, n_max=8)
@@ -1136,7 +1160,7 @@ def test_pool_failover_span_and_metrics_match_the_reference():
             m = METRICS[pkg]
             return (
                 attrs,
-                m.SOLVER_POOL_FAILOVERS.labels(address=primary)._value.get(),
+                m.SOLVER_POOL_FAILOVERS.labels(address=primary)._value.get() - failovers,
                 m.SOLVER_BREAKER_OPEN.labels(address=primary)._value.get(),
                 m.SOLVER_BREAKER_OPEN.labels(address=survivor)._value.get(),
                 m.SOLVER_POOL_MEMBERS._value.get(),
@@ -1148,3 +1172,151 @@ def test_pool_failover_span_and_metrics_match_the_reference():
                 srv.stop(grace=0)
 
     assert same(run) == ([(True, True)], 1.0, 1.0, 0.0, 1.0, 1)
+
+
+# ---------------------------------------------------------------------------
+# the flight recorder's wire-dominance rule
+# ---------------------------------------------------------------------------
+
+
+def _wire_tree(o, wire_s, sidecar_s):
+    """A finished solver.solve tree over a solver.wire of ``wire_s``
+    (backdated, no sleep) holding the sidecar's grafted stage records;
+    ``wire_s`` None: an in-process solve with no wire."""
+    with o.tracer().span("solver.solve") as root:
+        if wire_s is None:
+            with o.tracer().span("solve.pack_fetch") as sp:
+                sp.start -= 0.01
+        else:
+            with o.tracer().span("solver.wire") as w:
+                w.start -= wire_s
+                w.add_child_record("sidecar.solve", sidecar_s)
+                w.add_child_record("sidecar.fetch", sidecar_s / 2)
+    return root
+
+
+# (wire seconds, sidecar seconds) per solve, and the records expected
+WIRE_CASES = {
+    "wire-dominated": ([(0.03, 0.001)], 1),
+    "solve-dominated": ([(0.006, 0.2)], 0),
+    "in-process": ([(None, 0.0)], 0),
+    "steady wire-dominance cools down": ([(0.03, 0.001)] * 3, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(WIRE_CASES))
+def test_wire_dominance_rule_matches_the_reference(tmp_path, case):
+    solves, expected = WIRE_CASES[case]
+
+    def run(pkg):
+        o = OBS[pkg]
+        flight = mod(pkg, "obs.flight")
+        rec = flight.FlightRecorder(str(tmp_path / pkg), budget_s=10.0)  # never on budget
+        shares = []
+        for wire_s, sidecar_s in solves:
+            root = _wire_tree(o, wire_s, sidecar_s)
+            shares.append(flight.wire_dominance(root) is not None)
+            rec(root)
+        records = rec.recent()
+        for r in records:
+            assert r["wire_dominated"] is True and r["wire_self_s"] > r["solve_share_s"]
+            assert r["wire_self_s"] >= flight.MIN_WIRE_DOMINANCE_S
+        return shares, [sorted(r) for r in records], len(records)
+
+    assert same(run)[2] == expected
+
+
+# ---------------------------------------------------------------------------
+# logging_config: trace-stamped records and the live level
+# ---------------------------------------------------------------------------
+
+
+def _stamped_lines(pkg):
+    import io
+    import logging
+
+    lc = mod(pkg, "logging_config")
+    stream = io.StringIO()
+    handler = logging.StreamHandler(stream)
+    handler.setFormatter(logging.Formatter("%(levelname)s %(name)s [%(trace_id)s/%(span_id)s] "
+                                           "%(message)s"))
+    handler.addFilter(lc.TraceContextFilter())
+    log = logging.getLogger("karpenter.test-stamp")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        log.info("outside")
+        with OBS[pkg].tracer().span("solver.solve") as sp:
+            log.info("inside")
+            ids = (sp.trace_id, sp.span_id)
+    finally:
+        log.removeHandler(handler)
+    return stream.getvalue().splitlines(), ids, lc.LOG_FORMAT
+
+
+def test_log_records_carry_the_span_ids():
+    out = {pkg: _stamped_lines(pkg) for pkg in BOTH}
+    (lines, (trace_id, span_id), fmt) = out[PORT]
+    assert fmt == out[JAX][2]
+    assert lines == [
+        "INFO karpenter.test-stamp [-/-] outside",
+        f"INFO karpenter.test-stamp [{trace_id}/{span_id}] inside",
+    ]
+    # the reference's lines differ only in their ids
+    jl, (jt, js), _ = out[JAX]
+    assert [line.replace(jt, "T").replace(js, "S") for line in jl] == [
+        line.replace(trace_id, "T").replace(span_id, "S") for line in lines]
+
+
+def test_trace_filter_installs_once():
+    import logging
+
+    lc = mod(PORT, "logging_config")
+    handler = logging.NullHandler()
+    root = logging.getLogger()
+    root.addHandler(handler)
+    try:
+        lc.install_trace_filter()
+        lc.install_trace_filter()
+        assert [type(f) for f in handler.filters] == [lc.TraceContextFilter]
+    finally:
+        root.removeHandler(handler)
+        for h in root.handlers:  # the handlers the test runner put there
+            h.removeFilter(lc._trace_filter)
+
+
+def test_log_level_watcher_reapplies_a_changed_level(tmp_path):
+    import logging
+
+    level_file = tmp_path / "loglevel"
+    root = logging.getLogger("karpenter")
+    was = root.level
+
+    def run(pkg):
+        lc = mod(pkg, "logging_config")
+        watcher = lc.LogLevelWatcher(str(level_file), interval=3600.0)
+        seen = []
+        for text in ("debug", "warning", "loud", "error"):
+            level_file.write_text(text)
+            watcher._apply_once()
+            seen.append(root.level)
+        return seen, [lc.validate_log_config(v) for v in ("Info", "loud")], lc.apply_log_level("x")
+
+    try:
+        assert same(run) == ([logging.DEBUG, logging.WARNING, logging.WARNING, logging.ERROR],
+                             [None, "log level 'loud' not in ['debug', 'error', 'info', 'warning']"],
+                             False)
+        lc = mod(PORT, "logging_config")
+        level_file.write_text("info")
+        watcher = lc.LogLevelWatcher(str(level_file), interval=0.05)
+        watcher.start()
+        try:
+            level_file.write_text("debug")
+            deadline = time.monotonic() + 5.0
+            while root.level != logging.DEBUG and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert root.level == logging.DEBUG  # the thread re-applied it live
+        finally:
+            watcher.stop()
+    finally:
+        root.setLevel(was)

@@ -395,9 +395,10 @@ def test_default_service_needs_a_card():
 
 
 def test_main_rejects_unported_flags():
-    # the sampling profiler is not ported (the flight and SLO flags are)
+    # the sidecar takes every flag of the reference's sidecar; the
+    # controller's own telemetry flag (its Options) is not ported
     with pytest.raises(SystemExit):
-        T.main(["--profile-hz", "19"])
+        T.main(["--telemetry-peers", "solver-0=http://127.0.0.1:8081"])
 
 
 # -- imports without grpc --------------------------------------------------------

@@ -21,6 +21,7 @@ the coalesced groups). Every wait is bounded and every server and client
 stopped in ``finally``.
 """
 
+import importlib
 import struct
 import threading
 import time
@@ -35,7 +36,7 @@ from karpenter_tpu.solver import stream as JS
 from karpenter_tpu_torch.resilience.overload import OverloadedError
 from karpenter_tpu_torch.solver import service as T
 from karpenter_tpu_torch.solver import stream as TS
-from torch_parity import encode_scenario, fresh_router, packer, scenario  # noqa: F401
+from torch_parity import encode_scenario, fresh_router, mods, packer, scenario  # noqa: F401
 
 STREAMS = (JS, TS)
 N = T.N_POD_ARRAYS
@@ -801,3 +802,67 @@ def test_stream_client_close_and_break(scan, args16):
             stream.solve(b"")
     finally:
         h.stop()
+
+
+def test_coalesced_entries_yield_identical_decision_records(scan):
+    """A coalesced group of three equal entries: each entry's assignment,
+    decision record and per-pod attribution equal the solo solve's, and
+    the port's equal the reference's (pods named alike in both)."""
+    def run(pkg, side):
+        M = mods(pkg)
+        prov, catalog, pods = scenario(pkg, "diverse", 5, 3, 8)
+        pods.append(M.factories.make_pod(name="stuck-x", requests={"cpu": "100000"}))
+        for i, p in enumerate(pods):
+            p.metadata.name = f"p{i}"
+        batch = encode_scenario(pkg, prov, catalog, pods)
+        args = [np.asarray(a) for a in batch.pack_args()]
+        p, r = len(batch.pod_valid), batch.pod_req.shape[1]
+        kernel = importlib.import_module(f"{pkg}.solver.kernel")
+        dec = importlib.import_module(f"{pkg}.obs.decisions")
+        expl = importlib.import_module(f"{pkg}.solver.explain")
+        svc = side.SolverService(**({"device": "cpu"} if side is T else {}))
+        key = side.catalog_session_key(*args[N:])
+        assert status_of(svc.open_session_bytes(
+            side.pack_arrays([side._key_array(key)] + list(args[N:])))) == side.STATUS_OK
+        frame = side.pack_arrays([side._key_array(key), np.asarray([16, 1], np.int32)]
+                                 + list(args[:N]))
+
+        def assignment(response):
+            arrays = side.unpack_arrays(response)
+            assert int(arrays[0].reshape(-1)[0]) == side.STATUS_OK
+            out = kernel.split_result(np.asarray(arrays[1]), p, 16, r)
+            return np.asarray(out.assignment)[: batch.n_pods].copy()
+
+        def record_of(assigned):
+            # a fixed clock and no nodes: what is left is a function of
+            # (batch, assignment)
+            rec = dec.DecisionLog(clock=lambda: 0.0).record_round(
+                "parity", batch.pods[: batch.n_pods], [], trace_id="t",
+                context={"batch": batch, "assignment": assigned, "n_max": 16,
+                         "route": "device"})
+            return {k: rec[k] for k in ("pods_considered", "unschedulable_count",
+                                         "unschedulable", "route")}
+
+        solo = assignment(svc.solve_bytes(frame))
+        assert (solo < 0).any(), "the scenario needs a stuck pod"
+        responses = []
+        before = svc.stream_stats["coalesced_dispatches"]
+        svc.solve_stream_group([svc.stream_parse_solve(frame, respond=responses.append)
+                                for _ in range(3)])
+        assert svc.stream_stats["coalesced_dispatches"] == before + 1 and len(responses) == 3
+        want = (solo.tolist(), record_of(solo), expl.explain_batch(batch, solo))
+        assert want[2], "attribution must cover the stuck pod"
+        for response in responses:
+            got = assignment(response)
+            assert (got.tolist(), record_of(got), expl.explain_batch(batch, got)) == want
+        return want
+
+    dec_mods = [importlib.import_module(f"{pkg}.obs.decisions")
+                for pkg in ("karpenter_tpu", "karpenter_tpu_torch")]
+    for d in dec_mods:
+        d.set_enabled(True)
+    try:
+        assert run("karpenter_tpu_torch", T) == run("karpenter_tpu", J)
+    finally:
+        for d in dec_mods:
+            d.set_enabled(None)
