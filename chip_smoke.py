@@ -222,10 +222,11 @@ Phases (any failure exits non-zero; nothing is swallowed):
              card, at full width; each part reads both kernels' launch
              counters before and after it and fails where they differ from
              its rounds (each round's pack_dispatches), the warm-up
-             included. (a) the event storm: a Manager with provisioning,
-             selection (wait=False, 32 threads), counter and pvc, wired as
-             the reference's main.py wires them, over a decorated
-             FakeCloudProvider(instance_types(400)); a solver: tpu
+             included. (a) the event storm (bench.py:1123-1195): the
+             port's build_runtime(Options(device="cuda")) and its Manager
+             (every controller main.py builds; selection wait=False, 32
+             threads) over a decorated FakeCloudProvider(instance_types(400));
+             a solver: tpu
              provisioner, its worker's warm-up of 2,000 pods awaited, the
              batch idle window 0.2 s; 10,000 pods (cpu 0.25/0.5/1 from
              Random(5)) created one by one until every one is bound: the
@@ -286,11 +287,11 @@ Phases (any failure exits non-zero; nothing is swallowed):
              full width; each part reads both kernels' launch counters
              around itself and fails where they differ from its rounds'
              pack_dispatches, the warm-ups included. (a) spot churn
-             (bench.py:1308-1402 with the headline's catalog and count): a
-             Manager with provisioning (a FileLaunchJournal), selection,
-             node, termination, counter, pvc, interruption (poll 0.1 s) and
-             garbage collection over a decorated
-             FakeCloudProvider(instance_types(400)), a solver: tpu
+             (bench.py:1308-1402 with the headline's catalog and count):
+             build_runtime(Options(launch_journal=<file>)) and its Manager
+             (every controller main.py builds, the interruption poll set to
+             0.1 s) over a decorated FakeCloudProvider(instance_types(400)),
+             a solver: tpu
              provisioner with batch idle 0.2 s; 10,000 pods (cpu
              0.1/0.25/0.5, Random(17)) bound, then 5 rounds each preempting
              ceil(5%) of the live nodes (grace 120 s) and waiting until every
@@ -329,10 +330,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              flashes at 16.5 and 24 of 24 pods over 3 s, seed 20260807),
              pods of cpu 0.25 alternating the selectors of provisioners
              fc-0 and fc-1) over a SimulatedCloudProvider whose create_fleet
-             sleeps 0.5 s, a Manager with provisioning (a memory journal),
-             selection, node, termination, counter, pvc and garbage
-             collection (interval 1 s, replay_after 3 s, warm-pool TTL 8 s),
-             run twice on the same schedule: cold (no warm pool, no
+             sleeps 0.5 s, build_runtime with the leg's options (a memory
+             journal, garbage collection every 1 s with replay_after 3 s,
+             warm-pool TTL 8 s) and its Manager, run twice on the same schedule: cold (no warm pool, no
              forecaster) and warm (the forecaster, bucket 1 s, alpha 0.35,
              horizon 8 s; the steal; a WarmPoolController, a wave every
              0.5 s, 12 warm nodes at most), then speculation paused until no
@@ -378,9 +378,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
              share of the samples. (d) 4 rounds without, then 16 with
              configure_sentinel(min_events=8): gate < 1 %. (e) the regression storm
              (bench.py:2794-2968, its parameters): 160 pods in waves of 4
-             (cpu 0.25) through a Manager wired by hand (wire_controllers
-             over a SimulatedCloudProvider, the solves sent to a SidecarChaos
-             pool of 2 card sidecars), a flight recorder (budget 10 s), the
+             (cpu 0.25) through build_runtime(Options(device="cpu",
+             solver_service_address=<pool>)) over a SimulatedCloudProvider,
+             the solves sent to a SidecarChaos pool of 2 card sidecars, a
+             flight recorder (budget 10 s), the
              profiler at 19 Hz, 3 warm waves, freeze_after_warmup, then
              configure_sentinel(min_events=6, window=4, sustain=2,
              abs_floor_s=0.005, cooldown_s=300); at least 12 steady waves
@@ -389,6 +390,38 @@ Phases (any failure exits non-zero; nothing is swallowed):
              stage, with a pinned flight record, a decision id and a profile
              fold; sentinel overhead < 1 %; every pod bound once; every
              round a pack_first_fit launch in the sidecars;
+20. process — (after phase 19) the controller process on the card; each
+             part reads both kernels' launch counters around itself. (a)
+             run_controller_process(parse_args([--cloud-provider
+             simulated-http, --leader-election-lease <file>,
+             --launch-journal <file>, --metrics-port, --health-probe-port,
+             --device cuda, --telemetry-dir])) in this process, the cloud
+             an in-process CloudAPIServer over SimCloudAPI reached through
+             KARPENTER_CLOUD_API_URL (its create-fleet burst raised for the
+             storm), then phase 15 (a)'s storm through the runtime's
+             cluster: every pod bound once, the counter = summed capacity,
+             nodes = virtual nodes = create_fleet calls over the wire =
+             the server's running instances, every round one launch;
+             /healthz, /readyz, /metrics and /debug/{profile,fleet,
+             incidents} answer from the served ports; rt.stop() releases
+             the lease and leaves no journal entry open; create->bind p50,
+             p99 and pods per second. (b) GKE TPU podslices (gke_catalog()
+             with the vendor default): 2,000 pods (Random(11): 1,600 of cpu
+             0.25/0.5/1/2, 400 asking google.com/tpu 1, 4 or 8 with cpu 8,
+             64 of them 4 chips pinned to gke-tpu-topology 4x4), the
+             reference's 6-pod CPU-only case and 1,600 CPU-only pods, each
+             one card round (one launch) equal to a device="cpu"
+             Scheduler's plan pod for pod, every TPU pod on a type with
+             enough chips, the 6-pod case on no TPU type, the encoded axes
+             printed (the TPU axis present in the mixed batch); a 16-chip
+             pod certified NO_CAPACITY by oracle.classify_drops; then the
+             mixed batch through build_runtime(cloud_provider=
+             GkeCloudProvider) under its Manager (a tainted tpu provisioner
+             declaring the topology label, the TPU pods tolerating it):
+             every pod bound, every 4x4 podslice one atomic create of 4
+             hosts, every pinned pod on one. (c) two LeaderElectors on one
+             file lease: exactly one leads; when it stops the other leads
+             within the lease duration. The phase's wall is printed;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -405,8 +438,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              ``interruption``: phase 17's launches by part, (a)'s lead
              times and rounds, (b)'s replacement rounds, (c)'s sweeps, and
              ``warmpool``: phase 18's launches by part, both passes of (a)
-             and (b)'s claims and rounds, and ``telemetry``: phase 19's
-             launches by part and what (a)-(e) measured.
+             and (b)'s claims and rounds, ``telemetry``: phase 19's
+             launches by part and what (a)-(e) measured, and ``process``:
+             phase 20's launches by part and what (a)-(c) measured.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -3475,6 +3509,8 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
     from karpenter_tpu_torch.cloudprovider.fake import (
         FakeCloudProvider, instance_types, instance_types_tradeoff)
     from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.main import build_runtime
+    from karpenter_tpu_torch.options import Options
     from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
     from karpenter_tpu_torch.testing import diverse_pods, make_pod, make_provisioner
 
@@ -3488,14 +3524,15 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
     def delta(start: dict) -> dict:
         return {name: n - start[name] for name, n in counts().items()}
 
-    # -- (a) the event storm through the Manager ------------------------
+    # -- (a) the event storm through build_runtime's Manager -------------
     # no collection is forced before a part: a full collection of the
     # script's heap lands where the allocator puts it, inside the storm's
     # latencies or a round, and its [gc] line says where
     cluster = Cluster()
     provider = FakeCloudProvider(instance_types(n_types))
-    manager, provisioning, _ = wire_controllers(cluster, provider, device, start_workers=True)
-    manager.start()
+    rt = build_runtime(Options(device=device), cluster=cluster, cloud_provider=provider)
+    provisioning = rt.provisioning
+    rt.manager.start()
     start = counts()
     try:
         t0 = time.perf_counter()
@@ -3596,9 +3633,9 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
             if n:
                 out[name]["launches_storm"] = n
     finally:
-        manager.stop()
-        provisioning.stop()
-    del cluster, provider, manager, provisioning
+        rt.stop()
+        forget_node_gauges({n.metadata.name for n in cluster.nodes()})
+    del cluster, provider, rt, provisioning
 
     # -- (b), (c) inline, against a device="cpu" controller ---------------
     # (b) runs twice on the card after the worker's warm-up: without the
@@ -3831,6 +3868,21 @@ class PlanProbe:
     def take(self) -> dict:
         times, self.times = self.times, {}
         return {k: v * 1e3 for k, v in times.items()}
+
+
+def forget_node_gauges(names: set) -> None:
+    """Drop the node gauges' series of ``names``. A runtime's node metrics
+    controller publishes a series per node into the process-global
+    registry and keeps it while the node lives; a runtime that stops over
+    live nodes leaves them behind (a process that exits takes them along),
+    and phase 16 (c) reads every series of provisioner ``default``."""
+    from karpenter_tpu_torch.controllers.metrics_node import NODE_GAUGES
+
+    for gauge in NODE_GAUGES:
+        for fam in gauge.collect():
+            for sample in fam.samples:
+                if sample.labels.get("node_name") in names:
+                    gauge.remove(*(sample.labels[k] for k in gauge._labelnames))
 
 
 def node_gauge_names(provisioner: str) -> set:
@@ -4278,6 +4330,8 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
     from karpenter_tpu_torch.interruption.types import DisruptionNotice
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.launch import FileLaunchJournal, MemoryLaunchJournal
+    from karpenter_tpu_torch.main import build_runtime
+    from karpenter_tpu_torch.options import Options
     from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
     from karpenter_tpu_torch.testing import diverse_pods, make_pod, make_provisioner
     from karpenter_tpu_torch.testing.chaos import LaunchCrash, LaunchCrashCluster
@@ -4315,24 +4369,14 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
         # -- (a) spot churn through a running Manager ---------------------
         cluster = Cluster()
         provider = FakeCloudProvider(instance_types(n_types))
-        metered = cpmetrics.decorate(provider)
         journal_path = os.path.join(scratch, "a.json")
-        manager, provisioning, _ = wire_controllers(
-            cluster, provider, device, start_workers=True,
-            journal=FileLaunchJournal(journal_path))
-        # the controllers bench_interruption_churn's runtime runs the churn
-        # through, less the node and pod metrics controllers: their
-        # reconcile on every pod event sets the load's pace at 10,000 pods
-        termination = wire_lifecycle(manager, cluster, metered, metrics=False)
-        interruption = InterruptionController(cluster, metered, provisioning=provisioning,
-                                              termination=termination, poll_interval=0.1)
-        collector = GarbageCollectionController(cluster, metered,
-                                                journal=FileLaunchJournal(journal_path),
-                                                termination=termination)
-        manager.register("interruption", interruption.reconcile, concurrency=2)
-        manager.register("garbage_collection", collector.reconcile, concurrency=1)
-        interruption.register(manager)
-        collector.register(manager)
+        # bench_interruption_churn's runtime (bench.py:1326-1327): every
+        # controller main.py builds, a file launch journal, the 0.1 s poll
+        rt = build_runtime(Options(device=device, launch_journal=journal_path),
+                           cluster=cluster, cloud_provider=provider)
+        rt.interruption.poll_interval = 0.1
+        provisioning, interruption = rt.provisioning, rt.interruption
+        collector = rt.garbage_collection
         binds, releases = {}, {}
         totals = {"binds": 0, "releases": 0}
         lock = threading.Lock()
@@ -4352,7 +4396,7 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
 
         cluster.bind = counting_bind
         interruption.orchestrator._release = counting_release
-        manager.start()
+        rt.manager.start()
         start = counts()
         t_start = time.perf_counter()
         try:
@@ -4410,9 +4454,7 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
                               "wall_s": time.perf_counter() - t0, "rounds": rounds[first:]})
             wall = time.perf_counter() - t_start
         finally:
-            manager.stop()
-            provisioning.stop()
-            termination.stop()
+            rt.stop()
         worker._thread.join(timeout=120)
         if worker._thread.is_alive():
             raise AssertionError("interruption (a): the provisioning worker did not stop")
@@ -4453,7 +4495,7 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
                 f"preempted, gone and every released pod re-bound in {c['wall_s']:.3f} s, "
                 f"{len(c['rounds'])} replacement round(s)")
         log(f"[interruption] (a) spot churn of {n_pods} pods (cpu 0.1/0.25/0.5, Random(17)) "
-            f"through a Manager: load bound in {load_s:.3f} s ({load_rounds} rounds); 5 churn "
+            f"through build_runtime's Manager: load bound in {load_s:.3f} s ({load_rounds} rounds); 5 churn "
             f"rounds of 5% preempted: {interruption.notices_handled} notices handled, "
             f"{len(lead)} pods replaced, notice->re-bind lead time p50 {p50 * 1e3:.1f} ms, p99 "
             f"{p99 * 1e3:.1f} ms; evicted_unready 0, every pod bound once a release, "
@@ -4471,7 +4513,7 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
             "victims": [c["victims"] for c in churn],
             "replacement_scheduling_ms": [r["scheduling_ms"] for c in churn for r in c["rounds"]],
         }
-        del cluster, provider, metered, manager, provisioning, termination, interruption
+        del cluster, provider, rt, provisioning, interruption
         del collector, pods, binds, releases
         part_done("a")
 
@@ -4821,14 +4863,13 @@ def nearest_rank_p99(values) -> float:
 def forecast_pass(card: str, label: str, schedule, in_flash, warm_pool: bool,
                   device: str) -> dict:
     """One pass of the forecast storm (the reference's ``_forecast_phase``,
-    bench.py:1735-1955): a Manager wired as the reference's main.py wires
-    it for these options over a decorated SimulatedCloudProvider whose
-    create_fleet sleeps 0.5 s — provisioning (a memory launch journal, the
-    steal with ``warm_pool``), selection, node, termination, counter, pvc
-    and garbage collection (interval 1 s, replay_after 3 s, the warm-pool
-    TTL), and with ``warm_pool`` the forecaster (bucket 1 s, alpha 0.35,
-    horizon 8 s) and the WarmPoolController (a wave every 0.5 s, at most 12
-    warm nodes), registered and enqueued. Two solver: tpu provisioners
+    bench.py:1735-1955): ``build_runtime`` with the leg's options over a
+    SimulatedCloudProvider whose create_fleet sleeps 0.5 s — every
+    controller main.py builds, a memory launch journal, the steal with
+    ``warm_pool``, garbage collection every 1 s (replay_after 3 s, the
+    warm-pool TTL), and with ``warm_pool`` the forecaster (bucket 1 s,
+    alpha 0.35, horizon 8 s) and the WarmPoolController (a wave every 0.5
+    s, at most 12 warm nodes). Two solver: tpu provisioners
     ``fc-<i>`` each admit pods with ``fc: fc-<i>``; the compiled schedule
     drives pods of cpu 0.25 in real time, alternating selectors; then every
     pod bound, and in the warm pass the epilogue: speculation paused until
@@ -4839,12 +4880,10 @@ def forecast_pass(card: str, label: str, schedule, in_flash, warm_pool: bool,
     from karpenter_tpu_torch import obs
     from karpenter_tpu_torch.api import labels as lbl
     from karpenter_tpu_torch.api.objects import NodeSelectorRequirement
-    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
     from karpenter_tpu_torch.cloudprovider.simulated import SimCloudAPI, SimulatedCloudProvider
-    from karpenter_tpu_torch.controllers.garbage_collection import GarbageCollectionController
-    from karpenter_tpu_torch.controllers.warmpool import WarmPoolController
     from karpenter_tpu_torch.kube.client import Cluster
-    from karpenter_tpu_torch.launch import MemoryLaunchJournal
+    from karpenter_tpu_torch.main import build_runtime
+    from karpenter_tpu_torch.options import Options
     from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
     from karpenter_tpu_torch.testing import make_pod, make_provisioner
 
@@ -4865,8 +4904,6 @@ def forecast_pass(card: str, label: str, schedule, in_flash, warm_pool: bool,
     api = SimCloudAPI()
     api.launch_latency_s = FORECAST_LAUNCH_S
     provider = SimulatedCloudProvider(api=api)
-    metered = cpmetrics.decorate(provider)
-    journal = MemoryLaunchJournal()
     created, bound_at, last_node, rebinds, binds = {}, {}, {}, [], {}
     lock = threading.Lock()
     bind = cluster.bind
@@ -4892,25 +4929,21 @@ def forecast_pass(card: str, label: str, schedule, in_flash, warm_pool: bool,
     cluster.watch("pods", on_pod)
     engine = obs.configure_forecast(bucket_s=1.0, alpha=0.35, default_horizon_s=8.0) \
         if warm_pool else None
-    manager, provisioning, _ = wire_controllers(cluster, provider, device, start_workers=True,
-                                                journal=journal, warm_pool=warm_pool)
-    termination = wire_lifecycle(manager, cluster, metered, metrics=False)
-    collector = GarbageCollectionController(cluster, metered, journal=journal,
-                                            termination=termination, gc_interval=1.0,
-                                            warm_pool_ttl=FORECAST_TTL_S)
+    # the reference's leg (bench.py:1813-1830): build_runtime with these
+    # options, then the compressed-time knobs on the built controllers
+    rt = build_runtime(Options(device=device, warm_pool=warm_pool,
+                               warm_pool_ttl=FORECAST_TTL_S,
+                               warm_pool_max_nodes=FORECAST_MAX_WARM, gc_interval=1.0,
+                               launch_journal="memory:"),
+                       cluster=cluster, cloud_provider=provider)
+    provisioning, collector, journal, wave = (rt.provisioning, rt.garbage_collection,
+                                              rt.journal, rt.warmpool)
     collector.replay_after = 3.0
-    manager.register("garbage_collection", collector.reconcile, concurrency=1)
-    collector.register(manager)
-    wave = None
-    if warm_pool:
-        wave = WarmPoolController(cluster, metered, provisioning, journal=journal,
-                                  interval=FORECAST_WAVE_S, warm_pool_ttl=FORECAST_TTL_S,
-                                  max_nodes=FORECAST_MAX_WARM)
-        manager.register("warmpool", wave.reconcile, concurrency=1)
-        wave.register(manager)
+    if wave is not None:
+        wave.interval = FORECAST_WAVE_S
     rounds, warmups = {}, {}
     start = {V1: pack_kernel.launches, V2: pack_kernel_v2.launches}
-    manager.start()
+    rt.manager.start()
     try:
         for name in names:
             cluster.create("provisioners", make_provisioner(
@@ -4976,9 +5009,7 @@ def forecast_pass(card: str, label: str, schedule, in_flash, warm_pool: bool,
                   and f"sim:///{i.zone}/{i.id}" not in provider_ids]
         open_entries = journal.unresolved()
     finally:
-        manager.stop()
-        provisioning.stop()
-        termination.stop()
+        rt.stop()
         if engine is not None:
             obs.shutdown_forecast(engine)
     for name in names:
@@ -5486,6 +5517,7 @@ def telemetry_two_process(card: str, device: str, n_pods: int, n_types: int, del
     (30 s at most), then the child's /debug/profile, /debug/incidents and
     /debug/fleet. The child builds nothing: phase 1 built the kernels into
     the build directory, whose file lock makes a second build wait."""
+    import urllib.error
     import urllib.request
 
     import grpc
@@ -5513,13 +5545,23 @@ def telemetry_two_process(card: str, device: str, n_pods: int, n_types: int, del
         with urllib.request.urlopen(f"http://127.0.0.1:{health}{path}", timeout=30) as r:
             return r.headers.get("Content-Type"), r.read()
 
+    def ready() -> bool:
+        # /readyz answers 503 until the child's warm-up solve, and urlopen
+        # raises on a 503 instead of returning its body
+        try:
+            return get("/readyz")[1] == b"ok"
+        except urllib.error.HTTPError as e:
+            if e.code != 503:
+                raise
+            return False
+
     sched = None
     start = counts()
     try:
         t0 = time.perf_counter()
         grpc.channel_ready_future(grpc.insecure_channel(address)).result(timeout=300)
         deadline = time.monotonic() + 300
-        while get("/readyz")[1] != b"ok":
+        while not ready():
             if time.monotonic() > deadline or proc.poll() is not None:
                 raise AssertionError("telemetry (b): the child sidecar never turned ready")
             time.sleep(0.2)
@@ -5600,8 +5642,8 @@ def telemetry_two_process(card: str, device: str, n_pods: int, n_types: int, del
 def regression_storm(card: str, device: str, n_pods: int, delta, counts,
                      pool_size: int = 2, latency_step_s: float = 0.05) -> dict:
     """Phase 19 (e): the reference's regression storm with its parameters.
-    A Manager wired by hand (wire_controllers over a SimulatedCloudProvider,
-    the provisioning controller's solves sent to a SidecarChaos pool of
+    ``build_runtime`` over a SimulatedCloudProvider (bench.py:2838-2842:
+    a ``device="cpu"`` controller whose solves go to a SidecarChaos pool of
     ``pool_size`` card sidecars, ChaosPolicy(seed=TELEMETRY_SEED + i)), a
     flight recorder (budget 10 s), the profiler at 19 Hz; 3 warm waves of 4
     pods (cpu 0.25), freeze_after_warmup, then configure_sentinel(
@@ -5615,6 +5657,8 @@ def regression_storm(card: str, device: str, n_pods: int, delta, counts,
     from karpenter_tpu_torch import obs
     from karpenter_tpu_torch.cloudprovider.simulated import SimCloudAPI, SimulatedCloudProvider
     from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.main import build_runtime
+    from karpenter_tpu_torch.options import Options
     from karpenter_tpu_torch.testing import make_pod, make_provisioner
     from karpenter_tpu_torch.testing.chaos import ChaosPolicy, SidecarChaos
     from karpenter_tpu_torch.utils import gcpolicy
@@ -5637,9 +5681,9 @@ def regression_storm(card: str, device: str, n_pods: int, delta, counts,
         bind(pod, node_name)
 
     cluster.bind = counting_bind
-    manager, provisioning, _ = wire_controllers(
-        cluster, SimulatedCloudProvider(api=SimCloudAPI()), "cpu", start_workers=True,
-        solver_service_address=sidecars.address_spec)
+    rt = build_runtime(Options(device="cpu", solver_service_address=sidecars.address_spec),
+                       cluster=cluster, cloud_provider=SimulatedCloudProvider(api=SimCloudAPI()))
+    provisioning = rt.provisioning
     services = [srv.solver_service for srv in sidecars.servers.values()]
     before_served = [dict(svc.served) for svc in services]
     start = counts()
@@ -5660,7 +5704,7 @@ def regression_storm(card: str, device: str, n_pods: int, delta, counts,
             time.sleep(0.02)
         raise AssertionError(f"telemetry (e): wave {prefix} not bound in {timeout} s")
 
-    manager.start()
+    rt.manager.start()
     try:
         cluster.create("provisioners", make_provisioner(solver="tpu"))
         deadline = time.time() + 60
@@ -5699,8 +5743,7 @@ def regression_storm(card: str, device: str, n_pods: int, delta, counts,
         overhead = eng.overhead_ratio() * 100
         incidents = eng.incidents.recent()
     finally:
-        manager.stop()
-        provisioning.stop()
+        rt.stop()
         sidecars.stop_all()
         if eng is not None:
             obs.shutdown_sentinel(eng)
@@ -5762,6 +5805,501 @@ def regression_storm(card: str, device: str, n_pods: int, delta, counts,
                              f"and the warm-up dispatched {dispatches}")
     expect_launches("telemetry e", launches, served_by)
     return row
+
+
+GKE_SEED = 11  # this phase's mixed serving-and-training batch
+GKE_PODS = 2000
+GKE_TPU_PODS = 400
+GKE_SLICE_PODS = 64  # of the TPU pods: 4 chips each, pinned to the 4x4 podslice
+GKE_CPU_ONLY = 1600
+LEASE_DURATION_S = 2.0
+
+
+def gke_batch(n_pods: int = GKE_PODS, seed: int = GKE_SEED, tolerate: bool = False) -> list:
+    """The mixed GKE batch (at 2,000 pods): 1,600 CPU-only pods of cpu
+    0.25, 0.5, 1 or 2; 400 pods asking ``google.com/tpu`` 1, 4 or 8 with
+    cpu 8, the first 64 of them 4 chips pinned by
+    ``cloud.google.com/gke-tpu-topology: 4x4`` to the multi-host shape;
+    shuffled by ``Random(seed)``. A smaller ``n_pods`` keeps the shares.
+    ``tolerate`` gives the TPU pods a toleration of the ``google.com/tpu``
+    taint (``tpu_provisioners``)."""
+    from karpenter_tpu_torch.api.objects import Toleration
+    from karpenter_tpu_torch.cloudprovider.gke import GKE_TPU_TOPOLOGY_LABEL, TPU_RESOURCE
+    from karpenter_tpu_torch.testing import make_pod
+
+    tol = [Toleration(key=TPU_RESOURCE, operator="Exists")] if tolerate else None
+
+    n_tpu = n_pods * GKE_TPU_PODS // GKE_PODS
+    n_slice = n_pods * GKE_SLICE_PODS // GKE_PODS // 4 * 4
+    rng = random.Random(seed)
+    pods = [make_pod(name=f"web-{i}", requests={"cpu": f"{rng.choice([0.25, 0.5, 1, 2])}"})
+            for i in range(n_pods - n_tpu)]
+    for i in range(n_tpu):
+        if i < n_slice:
+            pods.append(make_pod(name=f"slice-{i}", requests={"cpu": "8", TPU_RESOURCE: "4"},
+                                 node_selector={GKE_TPU_TOPOLOGY_LABEL: "4x4"},
+                                 tolerations=tol))
+        else:
+            pods.append(make_pod(name=f"tpu-{i}", requests={
+                "cpu": "8", TPU_RESOURCE: f"{rng.choice([1, 4, 8])}"}, tolerations=tol))
+    rng.shuffle(pods)
+    return pods
+
+
+def gke_provisioner():
+    """A solver: tpu provisioner with the GKE vendor default and the
+    catalog's requirements, as ``tests/test_gke_provider.py:24-30`` builds
+    it; returns (provisioner, catalog)."""
+    from karpenter_tpu_torch.cloudprovider.gke import GkeCloudProvider, gke_catalog
+    from karpenter_tpu_torch.cloudprovider.requirements import catalog_requirements
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    catalog = gke_catalog()
+    prov = make_provisioner(solver="tpu")
+    c = prov.spec.constraints
+    GkeCloudProvider().default(c)
+    c.requirements = c.requirements.merge(catalog_requirements(catalog))
+    return prov, catalog
+
+
+def tpu_provisioners() -> list:
+    """The runtime's provisioners for the GKE batch: ``tpu`` declares the
+    ``cloud.google.com/gke-tpu-topology`` values of the catalog (selection
+    admits a pod's selector on a label only when its provisioner declares
+    it, in both packages) and taints its nodes ``google.com/tpu``;
+    ``default`` takes the CPU-only pods."""
+    from karpenter_tpu_torch.api.objects import NodeSelectorRequirement, Taint
+    from karpenter_tpu_torch.cloudprovider.gke import (
+        GKE_TPU_TOPOLOGY_LABEL, TPU_RESOURCE, gke_catalog)
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    topologies = sorted({it.labels[GKE_TPU_TOPOLOGY_LABEL] for it in gke_catalog()
+                         if GKE_TPU_TOPOLOGY_LABEL in it.labels})
+    return [
+        make_provisioner(name="tpu", solver="tpu", taints=[
+            Taint(key=TPU_RESOURCE, value="present", effect="NoSchedule")], requirements=[
+            NodeSelectorRequirement(key=GKE_TPU_TOPOLOGY_LABEL, operator="In",
+                                    values=topologies)]),
+        make_provisioner(name="default", solver="tpu"),
+    ]
+
+
+def http_get(url: str) -> tuple:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.status, resp.headers.get("Content-Type", ""), resp.read()
+
+
+def process_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
+                  gke_pods: int = GKE_PODS, cpu_only: int = GKE_CPU_ONLY) -> dict:
+    """Phase 20: the controller process on the card. (a) the entry point
+    over the HTTP cloud wire, (b) GKE TPU podslices, (c) leader election.
+    Returns the kernels line's ``process`` entries."""
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider import simulated
+    from karpenter_tpu_torch.cloudprovider.gke import (
+        GKE_NODEPOOL_LABEL, GKE_TPU_TOPOLOGY_LABEL, TPU_RESOURCE, GkeCloudProvider, SimGkeAPI,
+        slice_hosts)
+    from karpenter_tpu_torch.cloudprovider.httpapi import CloudAPIServer
+    from karpenter_tpu_torch.cloudprovider.simulated import SimCloudAPI
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.launch import FileLaunchJournal
+    from karpenter_tpu_torch.main import build_runtime, run_controller_process
+    from karpenter_tpu_torch.options import Options, parse_args
+    from karpenter_tpu_torch.scheduling import oracle
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.solver.backend import N_MAX_FIRST
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+    from karpenter_tpu_torch.utils.lease import FileLease, LeaderElector
+    from karpenter_tpu_torch.utils.resources import requests_for_pods
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    out = {V1: {}, V2: {}, "summary": {}}
+    t_phase = time.perf_counter()
+
+    def counts() -> dict:
+        return {name: m.launches for name, m in modules.items()}
+
+    def delta(start: dict) -> dict:
+        return {name: n - start[name] for name, n in counts().items()}
+
+    def note(label: str, launches: dict) -> None:
+        for name, n in launches.items():
+            if n:
+                out[name][f"launches_{label}"] = out[name].get(f"launches_{label}", 0) + n
+
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-process-")
+    try:
+        # -- (a) run_controller_process over the HTTP cloud wire ----------
+        api = SimCloudAPI()
+        server = CloudAPIServer(api, page_size=1000).start()
+        env_before = os.environ.get("KARPENTER_CLOUD_API_URL")
+        os.environ["KARPENTER_CLOUD_API_URL"] = server.url
+        # the simulated cloud paces create_fleet at 2 QPS past a burst of
+        # 100; the storm's ~180 creates would wait ~40 s for that budget,
+        # which the reference's leg (a fake cloud) never meets: the burst
+        # is raised for this runtime and restored after its build
+        burst = simulated.CREATE_FLEET_BURST
+        simulated.CREATE_FLEET_BURST = 10 * n_pods
+        lease_path = os.path.join(scratch, "leader.lease")
+        journal_path = os.path.join(scratch, "journal.json")
+        metrics_port, health_port = (int(free_address().rsplit(":", 1)[1]) for _ in range(2))
+        while health_port == metrics_port:
+            health_port = int(free_address().rsplit(":", 1)[1])
+        opts = parse_args([
+            "--cloud-provider", "simulated-http", "--leader-election-lease", lease_path,
+            "--launch-journal", journal_path, "--metrics-port", str(metrics_port),
+            "--health-probe-port", str(health_port), "--device", device,
+            "--telemetry-dir", os.path.join(scratch, "telemetry"),
+            "--telemetry-flush-interval", "1",
+        ])
+        t0 = time.perf_counter()
+        try:
+            rt = run_controller_process(opts, serve=True)
+        finally:
+            simulated.CREATE_FLEET_BURST = burst
+        started_s = time.perf_counter() - t0
+        cluster = rt.cluster
+        binds, created, bound_at = {}, {}, {}
+        lock = threading.Lock()
+        bind = cluster.bind
+
+        def counting_bind(pod, node_name):
+            with lock:
+                binds[pod.key] = binds.get(pod.key, 0) + 1
+            bind(pod, node_name)
+
+        def on_pod(event, pod):
+            if event == "MODIFIED" and pod.spec.node_name:
+                now = time.perf_counter()
+                with lock:
+                    if pod.metadata.name in created and pod.metadata.name not in bound_at:
+                        bound_at[pod.metadata.name] = now
+
+        cluster.bind = counting_bind
+        cluster.watch("pods", on_pod)
+        start = counts()
+        stopped = False
+        try:
+            if not (rt.elector is not None and rt.elector.is_leader
+                    and FileLease(lease_path, identity="probe").holder() is not None):
+                raise AssertionError("process (a): the runtime does not hold its lease")
+            cluster.create("provisioners", make_provisioner(solver="tpu"))
+            deadline = time.time() + 60
+            while time.time() < deadline and not rt.provisioning.workers:
+                time.sleep(0.01)
+            worker = rt.provisioning.workers["default"]
+            worker.batcher.idle_duration = 0.2
+            if not worker.warmed.wait(timeout=600):
+                raise AssertionError("process (a): the warm-up never finished")
+            warm = worker.scheduler.torch.completed_profile()
+            if warm.get("packer_backend") not in (V1, V2):
+                raise AssertionError(f"process (a): warm-up served by "
+                                     f"{warm.get('packer_backend')!r}")
+            warm_launches = delta(start)
+            expect_launches("process a, warm-up", warm_launches,
+                            {warm["packer_backend"]: warm.get("pack_dispatches", 0)})
+            rounds = []
+            record_rounds(worker, rounds)
+            rng = random.Random(5)
+            storm_start = counts()
+            t0 = time.perf_counter()
+            for i in range(n_pods):
+                name = f"storm-{i}"
+                p = make_pod(name=name, requests={"cpu": f"{rng.choice([0.25, 0.5, 1])}"})
+                with lock:
+                    created[name] = time.perf_counter()
+                cluster.create("pods", p)
+            enqueue_s = time.perf_counter() - t0
+            deadline = time.time() + 600
+            while time.time() < deadline:
+                with lock:
+                    if len(bound_at) >= n_pods:
+                        break
+                time.sleep(0.02)
+            wall = time.perf_counter() - t0
+            storm_launches = delta(storm_start)
+            with lock:
+                lat = sorted(bound_at[k] - created[k] for k in bound_at)
+                twice = {k: n for k, n in binds.items() if n != 1}
+            if len(lat) != n_pods or len(binds) != n_pods:
+                raise AssertionError(f"process (a): {len(lat)} of {n_pods} pods bound in "
+                                     f"{wall:.1f} s")
+            if twice:
+                raise AssertionError(f"process (a): pods bound more than once: {list(twice)[:5]}")
+            launched = check_rounds(rounds, {V1, V2}, "process (a)")
+            expect_launches("process a, storm", storm_launches, launched)
+            for i, r in enumerate(rounds):
+                if r["dispatches"] != 1:
+                    raise AssertionError(f"process (a) round {i}: {r['dispatches']} dispatches")
+            planned = sum(r["nodes"] for r in rounds)
+            nodes = cluster.nodes()
+            running = [i for i in api.instances.values() if i.state == "running"]
+            fleet_calls = api.calls.get("create_fleet", 0)
+            if not (planned == len(nodes) == len(running) == fleet_calls):
+                raise AssertionError(f"process (a): {planned} virtual nodes, {len(nodes)} Nodes, "
+                                     f"{len(running)} running instances on the server, "
+                                     f"{fleet_calls} create_fleet calls over the wire")
+            if {n.metadata.name for n in nodes} != {i.id for i in running}:
+                raise AssertionError("process (a): the Nodes are not the server's instances")
+            capacity = fits_and_counts(cluster, "default", "process (a)")
+            deadline = time.time() + 60
+            while time.time() < deadline and counted(cluster, "default") != capacity:
+                time.sleep(0.05)
+            if counted(cluster, "default") != capacity:
+                raise AssertionError(f"process (a): counter {counted(cluster, 'default')} != "
+                                     f"capacity {capacity}")
+            # the served ports: health and debug on one, the registry on the other
+            base = f"http://127.0.0.1:{health_port}"
+            answers = {}
+            for path in ("/healthz", "/readyz", "/debug/profile", "/debug/fleet",
+                         "/debug/incidents"):
+                status, ctype, body = http_get(base + path)
+                answers[path] = (status, len(body))
+                if status != 200:
+                    raise AssertionError(f"process (a): {path} answered {status}")
+            status, _, body = http_get(f"http://127.0.0.1:{metrics_port}/metrics")
+            if status != 200 or b"karpenter_" not in body:
+                raise AssertionError(f"process (a): /metrics answered {status}")
+            answers["/metrics"] = (status, len(body))
+            profile = json.loads(http_get(base + "/debug/profile")[2])["profile"]
+            incidents = json.loads(http_get(base + "/debug/incidents")[2])
+            fleet = json.loads(http_get(base + "/debug/fleet")[2])["fleet"]
+            p50 = lat[len(lat) // 2]
+            p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+            journal_entries = len(FileLaunchJournal(journal_path).unresolved())
+            t0 = time.perf_counter()
+            rt.stop()
+            stopped = True
+            stop_s = time.perf_counter() - t0
+        finally:
+            if not stopped:
+                rt.stop()
+            server.stop()
+            if env_before is None:
+                os.environ.pop("KARPENTER_CLOUD_API_URL", None)
+            else:
+                os.environ["KARPENTER_CLOUD_API_URL"] = env_before
+        holder = FileLease(lease_path, identity="probe").holder()
+        still_open = FileLaunchJournal(journal_path).unresolved()
+        if holder is not None:
+            raise AssertionError(f"process (a): the lease is still held by {holder} after stop")
+        if still_open:
+            raise AssertionError(f"process (a): {len(still_open)} journal entries open")
+        for i, r in enumerate(rounds):
+            log(f"[process] (a) round {i}: batch {r['pods']}, nodes {r['nodes']}, "
+                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
+                f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms")
+        log(f"[process] (a) run_controller_process(--cloud-provider simulated-http, "
+            f"--leader-election-lease, --launch-journal, --device {device}) up and leading in "
+            f"{started_s:.3f} s; warm-up {warm['packer_backend']} ({warm_launches}); storm of "
+            f"{n_pods} pods (Random(5)): create->bind p50 {p50 * 1e3:.1f} ms, p99 "
+            f"{p99 * 1e3:.1f} ms, {n_pods / wall:.1f} bound pods/s, wall {wall:.3f} s (creates "
+            f"{enqueue_s:.3f} s), {len(rounds)} rounds, each one launch; {len(nodes)} Nodes = "
+            f"{planned} virtual nodes = {fleet_calls} create_fleet calls over the wire = "
+            f"{len(running)} running instances on the server; every pod bound once; counter == "
+            f"capacity {capacity}; served {answers}; profiler {profile.get('samples')} samples, "
+            f"sentinel {len(incidents.get('sentinel', {}).get('baselines', []))} baselines, "
+            f"{len(fleet.get('members') or [])} fleet members; {journal_entries} journal "
+            f"entries open before stop, stop {stop_s:.3f} s released the lease (holder None) "
+            f"and left 0 open; card {card}")
+        note("a", {k: warm_launches[k] + storm_launches[k] for k in warm_launches})
+        out["summary"]["a"] = {
+            "pods": n_pods, "rounds": len(rounds), "batches": [r["pods"] for r in rounds],
+            "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "pods_per_s": n_pods / wall,
+            "wall_s": wall, "nodes": len(nodes), "create_fleet_calls": fleet_calls,
+            "started_s": started_s, "stop_s": stop_s,
+        }
+        del rt, cluster
+
+        # -- (b) GKE TPU podslices on the card ----------------------------
+        prov, catalog = gke_provisioner()
+        parts = {}
+        # the reference's CPU-only case (tests/test_gke_provider.py:57-64,
+        # 6 pods of cpu 2) must buy no TPU host; at 1,600 pods first fit
+        # keeps filling a node while any type still fits its total, so its
+        # nodes outgrow the largest CPU machine (48 cpu) and take the
+        # 224-cpu ct5lp-hightpu-8t, in both packages (the gate there is the
+        # device="cpu" plan)
+        for label, pods in (("mixed", gke_batch(gke_pods)),
+                            ("cpu_only_6", [make_pod(name=f"web-{i}", requests={"cpu": "2"})
+                                            for i in range(6)]),
+                            ("cpu_only", [make_pod(name=f"web-{i}", requests={"cpu": "2"})
+                                          for i in range(cpu_only)])):
+            batch = encode_batch(catalog, pods)
+            axes = list(batch.axis_names)
+            start = counts()
+            sched = Scheduler(Cluster(), rng=random.Random(1), device=device)
+            t0 = time.perf_counter()
+            nodes = sched.solve(prov, catalog, pods)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof = sched.last_stage_profile()
+            got = delta(start)
+            kernel = prof.get("packer_backend")
+            if kernel not in (V1, V2) or prof.get("pack_dispatches") != 1 or sum(got.values()) != 1:
+                raise AssertionError(f"process (b) {label}: served by {kernel!r}, "
+                                     f"{prof.get('pack_dispatches')} dispatches, launches {got}")
+            cpu_sched = Scheduler(Cluster(), rng=random.Random(1), device="cpu")
+            cpu_nodes = cpu_sched.solve(prov, catalog, pods)
+            not_degraded(cpu_sched, f"process (b) {label} cpu plan")
+            if plan_of(nodes, pods) != plan_of(cpu_nodes, pods):
+                raise AssertionError(f"process (b) {label}: the card's plan differs from the "
+                                     f"device='cpu' plan")
+            placed = sum(len(n.pods) for n in nodes)
+            for n in nodes:
+                it = n.instance_type_options[0]
+                for p in n.pods:
+                    want = requests_for_pods(p).get(TPU_RESOURCE, 0.0)
+                    if want and it.resources.get(TPU_RESOURCE, 0) < want:
+                        raise AssertionError(f"process (b) {label}: {p.metadata.name} asks "
+                                             f"{want} chips on {it.name}")
+                if label == "cpu_only_6" and it.resources.get(TPU_RESOURCE):
+                    raise AssertionError(f"process (b): the CPU-only batch bought {it.name}")
+            if ("google.com/tpu" in axes) != (label == "mixed"):
+                raise AssertionError(f"process (b): encoded axes {axes} lack the TPU axis")
+            types = {}
+            for n in nodes:
+                types[n.instance_type_options[0].name] = types.get(
+                    n.instance_type_options[0].name, 0) + 1
+            F = int(batch.frontiers.shape[1])
+            plan = pack_kernel.launch_plan(F, len(axes), N_MAX_FIRST)
+            if not plan.node_state_in_smem:
+                raise AssertionError(f"process (b) {label}: R={len(axes)} puts the node state "
+                                     f"in device memory ({plan})")
+            note(f"b_{label}", got)
+            parts[label] = {"nodes": len(nodes), "placed": placed, "kernel": kernel,
+                            "wall_ms": wall_ms, "axes": axes, "R": len(axes)}
+            log(f"[process] (b) {label} batch of {len(pods)} pods: encoded R={len(axes)} "
+                f"axes {axes} (P={len(batch.pod_valid)}, S={batch.join_table.shape[0]}, "
+                f"F={batch.frontiers.shape[1]}, C={batch.join_table.shape[1]}), launch plan at "
+                f"n_max {N_MAX_FIRST} {tuple(plan)} (node state in shared memory), {kernel} "
+                f"({prof.get('pack_route')}), one launch; {len(nodes)} nodes, {placed} pods "
+                f"placed, types {dict(sorted(types.items()))}; == the device='cpu' plan pod for "
+                f"pod; round {wall_ms:.3f} ms: {stage_line(prof)}; card {card}")
+        huge = [make_pod(name="huge", requests={TPU_RESOURCE: "16"})]
+        cluster = Cluster()
+        start = counts()
+        sched = Scheduler(cluster, rng=random.Random(0), device=device)
+        vnodes = sched.solve(prov, catalog, huge)
+        verdict = oracle.classify_drops(cluster, prov.spec.constraints, catalog, huge,
+                                        [p for v in vnodes for p in v.pods])
+        got = delta(start)
+        if vnodes or verdict["expected"] != {oracle.NO_CAPACITY: 1} or verdict["unexplained"]:
+            raise AssertionError(f"process (b): the 16-chip pod: {len(vnodes)} nodes, {verdict}")
+        note("b_oracle", got)
+        log(f"[process] (b) a 16-chip pod: no node, oracle {verdict['expected']}, unexplained "
+            f"{verdict['unexplained']}; launches {got}")
+
+        # the mixed batch launched through build_runtime under a Manager: a
+        # tainted tpu provisioner declaring the topology label, the TPU pods
+        # tolerating it, and a default one for the rest
+        api = SimGkeAPI()
+        provider = GkeCloudProvider(api=api)
+        cluster = Cluster()
+        rt = build_runtime(Options(device=device), cluster=cluster, cloud_provider=provider)
+        rt.manager.start()
+        pods = gke_batch(gke_pods, tolerate=True)
+        start = counts()
+        rounds, warm = [], {}
+        try:
+            for p in tpu_provisioners():
+                cluster.create("provisioners", p)
+            deadline = time.time() + 60
+            while time.time() < deadline and len(rt.provisioning.workers) < 2:
+                time.sleep(0.01)
+            for name in ("tpu", "default"):
+                worker = rt.provisioning.workers[name]
+                worker.batcher.idle_duration = 0.2
+                if not worker.warmed.wait(timeout=600):
+                    raise AssertionError(f"process (b): {name}'s warm-up never finished")
+                warm[name] = worker.scheduler.torch.completed_profile()
+                record_rounds(worker, rounds)
+            t0 = time.perf_counter()
+            for p in pods:
+                cluster.create("pods", p)
+            deadline = time.time() + 300
+            while time.time() < deadline and any(
+                    not cluster.get("pods", p.metadata.name).spec.node_name for p in pods):
+                time.sleep(0.05)
+            launch_s = time.perf_counter() - t0
+            unbound = [p.metadata.name for p in pods
+                       if not cluster.get("pods", p.metadata.name).spec.node_name]
+            slices = [pool for pool in api.create_calls if pool.tpu_topology == "4x4"]
+            partial = [pool.name for pool in slices
+                       if pool.count != slice_hosts("ct5lp-hightpu-4t-4x4")
+                       or len(pool.instances) != pool.count]
+            hosts = {n.metadata.name: n for n in cluster.nodes()
+                     if n.metadata.labels.get(GKE_TPU_TOPOLOGY_LABEL) == "4x4"}
+            pinned = [cluster.get("pods", p.metadata.name) for p in pods
+                      if p.spec.node_selector.get(GKE_TPU_TOPOLOGY_LABEL) == "4x4"]
+            off_slice = [p.metadata.name for p in pinned if p.spec.node_name not in hosts]
+            pools = {n.metadata.labels[GKE_NODEPOOL_LABEL] for n in hosts.values()}
+        finally:
+            rt.stop()
+        got = delta(start)
+        launched = check_rounds(rounds, {V1, V2}, "process (b) runtime")
+        for prof in warm.values():
+            launched[prof["packer_backend"]] = (launched.get(prof["packer_backend"], 0)
+                                                + prof.get("pack_dispatches", 0))
+        expect_launches("process b runtime", got, launched)
+        if unbound or partial or off_slice or not slices:
+            raise AssertionError(f"process (b) runtime: {len(unbound)} unbound, partial pools "
+                                 f"{partial}, {len(off_slice)} slice pods off a 4x4 host, "
+                                 f"{len(slices)} 4x4 pools")
+        note("b_runtime", got)
+        for i, r in enumerate(rounds):
+            log(f"[process] (b) runtime round {i}: batch {r['pods']}, nodes {r['nodes']}, "
+                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
+                f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms")
+        log(f"[process] (b) build_runtime(cloud_provider=GkeCloudProvider) bound {len(pods)} "
+            f"pods in {launch_s:.3f} s: {len(api.create_calls)} node-pool creates, "
+            f"{len(slices)} 4x4 podslices each one atomic create of 4 hosts, {len(hosts)} "
+            f"4x4 hosts in {len(pools)} pools, every 4x4-pinned pod on one; launches {got}; "
+            f"card {card}")
+        out["summary"]["b"] = {**parts, "runtime": {
+            "pods": len(pods), "rounds": len(rounds), "pool_creates": len(api.create_calls),
+            "slices": len(slices), "launch_s": launch_s}}
+        del rt, cluster, provider, api
+
+        # -- (c) leader election on one file lease ------------------------
+        path = os.path.join(scratch, "pair.lease")
+        electors = [LeaderElector(FileLease(path, identity=name, duration=LEASE_DURATION_S),
+                                  renew_interval=0.1) for name in ("a", "b")]
+        for e in electors:
+            e.start()
+        try:
+            deadline = time.time() + 10
+            while time.time() < deadline and not any(e.is_leader for e in electors):
+                time.sleep(0.01)
+            time.sleep(0.5)
+            leaders = [e.is_leader for e in electors]
+            if sum(leaders) != 1:
+                raise AssertionError(f"process (c): leaders {leaders}")
+            leader, other = electors[leaders.index(True)], electors[1 - leaders.index(True)]
+            t0 = time.perf_counter()
+            leader.stop()
+            took = other.wait_for_leadership(timeout=LEASE_DURATION_S + 1.0)
+            takeover_s = time.perf_counter() - t0
+        finally:
+            for e in electors:
+                e.stop()
+        if not took or takeover_s > LEASE_DURATION_S:
+            raise AssertionError(f"process (c): takeover {took} after {takeover_s:.3f} s")
+        log(f"[process] (c) two LeaderElectors on one file lease (duration "
+            f"{LEASE_DURATION_S:g} s, renew 0.1 s): exactly one led; it stopped and the other "
+            f"led {takeover_s * 1e3:.1f} ms later")
+        out["summary"]["c"] = {"takeover_s": takeover_s}
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    out["summary"]["phase_s"] = phase_s
+    log(f"[process] phase 20 wall {phase_s:.3f} s; card {card}")
+    return out
 
 
 def main() -> int:
@@ -5990,6 +6528,9 @@ def main() -> int:
     # -- 19. telemetry ----------------------------------------------------
     telemetry = telemetry_phase(card)
 
+    # -- 20. process ------------------------------------------------------
+    process = process_phase(card)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -6015,6 +6556,7 @@ def main() -> int:
         "interruption": {**interruption["pack_first_fit"], **interruption["summary"]},
         "warmpool": {**warmpool["pack_first_fit"], **warmpool["summary"]},
         "telemetry": {**telemetry["pack_first_fit"], **telemetry["summary"]},
+        "process": {**process["pack_first_fit"], **process["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -6043,6 +6585,7 @@ def main() -> int:
         "interruption": {**interruption["pack_first_fit_v2"], **interruption["summary"]},
         "warmpool": {**warmpool["pack_first_fit_v2"], **warmpool["summary"]},
         "telemetry": {**telemetry["pack_first_fit_v2"], **telemetry["summary"]},
+        "process": {**process["pack_first_fit_v2"], **process["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

@@ -20,8 +20,8 @@ Component map (reference file → here):
 - aws/apis/v1alpha1/provider*.go → SimProviderConfig (+defaults/validation)
 - aws/fake/ec2api.go            → SimCloudAPI
 
-The reference's HTTP wire to the double (``cloudprovider/httpapi.py``) is
-not ported: every caller here holds the ``SimCloudAPI`` in process.
+Callers hold the ``SimCloudAPI`` in process, or reach it over HTTP through
+``cloudprovider/httpapi.py`` (``HttpCloudAPI`` is a drop-in ``api``).
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ provider its per-method breakers, the
 solver wire's typed verdicts (:class:`IntegrityError`,
 :class:`OverloadedError`, :class:`DeadlineExceededError`), the round
 :class:`Budget` with :func:`decorrelated_jitter` backoff, the
-:class:`RetryPolicy` the metered cloud provider retries through, the
+:class:`RetryPolicy` the metered cloud provider and the HTTP cloud wire
+retry through with the per-dependency :class:`RetryBudget` it spends, the
 ``@idempotent`` marker that opts a callable into its retries, and the
 :class:`MissTracker` that debounces a cloud's describe misses before a
 node counts as gone."""
@@ -23,6 +24,9 @@ from karpenter_tpu_torch.resilience.markers import idempotent, is_idempotent  # 
 from karpenter_tpu_torch.resilience.overload import (  # noqa: F401
     DeadlineExceededError,
     OverloadedError,
+    RetryBudget,
+    default_retry_budget,
+    reset_default_retry_budget,
 )
 from karpenter_tpu_torch.resilience.policy import (  # noqa: F401
     Budget,

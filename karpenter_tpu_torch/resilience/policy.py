@@ -113,8 +113,8 @@ class RetryPolicy:
     fits inside the per-operation deadline (further capped by the active
     round :class:`Budget`); otherwise the last exception propagates. The
     ``dependency`` label feeds the ``retries_total`` /
-    ``deadline_exceeded_total`` counters. There is no per-dependency retry
-    token bucket: every retry the deadline admits is taken.
+    ``deadline_exceeded_total`` counters. A labelled policy also spends
+    one token of its dependency's :class:`RetryBudget` per retry.
     """
 
     def __init__(
@@ -128,6 +128,7 @@ class RetryPolicy:
         rng: Optional[random.Random] = None,
         clock: Callable[[], float] = time.monotonic,
         sleep: Callable[[float], None] = time.sleep,
+        retry_budget=None,
     ):
         self.max_attempts = max(int(max_attempts), 1)
         self.base = base
@@ -138,6 +139,9 @@ class RetryPolicy:
         self._rng = rng
         self._clock = clock
         self._sleep = sleep
+        # None + a dependency label = the process-shared default budget;
+        # an unlabelled policy keeps no budget (nothing to draw down)
+        self._retry_budget = retry_budget
 
     def effective_deadline(self) -> float:
         """Seconds this operation may spend: the policy deadline, capped by
@@ -148,14 +152,26 @@ class RetryPolicy:
             return self.deadline
         return min(self.deadline, max(budget.remaining(), 0.0))
 
+    def _budget(self):
+        if self._retry_budget is not None:
+            return self._retry_budget
+        if not self.dependency:
+            return None
+        from karpenter_tpu_torch.resilience.overload import default_retry_budget
+
+        return default_retry_budget()
+
     def call(self, fn: Callable, *args, **kwargs):
         start = self._clock()
         allowance = self.effective_deadline()
         backoffs = decorrelated_jitter(self.base, self.cap, self._rng)
+        budget = self._budget()
+        last: Optional[BaseException] = None
         for attempt in range(self.max_attempts):
             try:
-                return fn(*args, **kwargs)
+                out = fn(*args, **kwargs)
             except Exception as e:  # noqa: BLE001 — classification decides
+                last = e
                 if attempt + 1 >= self.max_attempts or not self.retryable(e):
                     raise
                 pause = next(backoffs)
@@ -164,8 +180,21 @@ class RetryPolicy:
                         dependency=self.dependency or "unknown"
                     ).inc()
                     raise
+                # a dry bucket propagates the failure instead of
+                # multiplying the load on the dependency
+                if budget is not None and not budget.try_spend(self.dependency):
+                    metrics.RESILIENCE_RETRIES.labels(
+                        dependency=self.dependency or "unknown",
+                        outcome="budget_exhausted",
+                    ).inc()
+                    raise
                 metrics.RESILIENCE_RETRIES.labels(
                     dependency=self.dependency or "unknown", outcome="retried"
                 ).inc()
                 self._sleep(pause)
-        raise AssertionError("unreachable")
+            else:
+                # successes refill the bucket
+                if budget is not None:
+                    budget.record_success(self.dependency)
+                return out
+        raise last if last is not None else AssertionError("unreachable")

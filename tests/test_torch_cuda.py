@@ -12,7 +12,9 @@ spans, the decision replay blob through the kernel ladder); a notice's
 replacement round and an adopted crash on the card; the warm-hit steal
 over the simulated cloud before a card round; the profiler's samples of a
 card round's fetch under ``solve.pack_fetch``, and the sidecar's entry
-point with its telemetry flags on the card. Every comparison is exact.
+point with its telemetry flags on the card; the GKE provider's ``tpu``-solver
+cases (chip requests on their own axis) and ``run_controller_process``
+binding pods on the card. Every comparison is exact.
 
 Marked ``cuda``; each skips without a CUDA device (decided in a fixture,
 never at import). This file imports neither JAX nor the JAX package, so it
@@ -1535,3 +1537,105 @@ def test_sidecar_main_serves_the_telemetry_endpoints_on_card(cuda, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# -- process assembly: the GKE provider and the controller process ------------
+
+
+def gke_solve(device, pods):
+    """A ``solver: tpu`` solve over ``gke_catalog()`` with the vendor
+    default; returns (plan by pod index, the round's profile)."""
+    from karpenter_tpu_torch.cloudprovider.gke import GkeCloudProvider, gke_catalog
+    from karpenter_tpu_torch.cloudprovider.requirements import catalog_requirements
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    catalog = gke_catalog()
+    prov = make_provisioner(solver="tpu")
+    c = prov.spec.constraints
+    GkeCloudProvider().default(c)
+    c.requirements = c.requirements.merge(catalog_requirements(catalog))
+    sched = Scheduler(Cluster(), rng=random.Random(0), device=device)
+    nodes = sched.solve(prov, catalog, pods)
+    index = {id(p): i for i, p in enumerate(pods)}
+    return ([([it.name for it in n.instance_type_options], sorted(index[id(p)] for p in n.pods))
+             for n in nodes], sched.last_stage_profile())
+
+
+@pytest.mark.parametrize("case", ["cheapest slice", "cpu only", "first fit packs chips",
+                                  "chips pack and split", "topology selector", "mixed"])
+def test_gke_tpu_solve_on_card_equals_the_cpu_plan(cuda, case):
+    """``tests/test_gke_provider.py``'s ``tpu``-solver cases (and a mixed
+    batch of 200) on the card: one kernel launch, the plan equal to the
+    ``device="cpu"`` scheduler's; the chip requests ride their own axis."""
+    from karpenter_tpu_torch.cloudprovider.gke import GKE_TPU_TOPOLOGY_LABEL, TPU_RESOURCE
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.testing import make_pod
+
+    def pods():
+        if case == "cheapest slice":
+            return [make_pod(requests={"cpu": "8", TPU_RESOURCE: "4"})]
+        if case == "cpu only":
+            return [make_pod(requests={"cpu": "2"}) for _ in range(6)]
+        if case == "first fit packs chips":
+            return [make_pod(requests={"cpu": "8", TPU_RESOURCE: "4"}) for _ in range(2)]
+        if case == "chips pack and split":
+            return [make_pod(requests={"cpu": "4", TPU_RESOURCE: "4"},
+                             node_selector={lbl.INSTANCE_TYPE: "ct5lp-hightpu-8t"})
+                    for _ in range(3)]
+        if case == "topology selector":
+            return [make_pod(requests={"cpu": "8", TPU_RESOURCE: "4"},
+                             node_selector={GKE_TPU_TOPOLOGY_LABEL: "4x4"})]
+        rng = random.Random(11)
+        return ([make_pod(requests={"cpu": f"{rng.choice([0.25, 0.5, 1, 2])}"})
+                 for _ in range(160)]
+                + [make_pod(requests={"cpu": "8", TPU_RESOURCE: f"{rng.choice([1, 4, 8])}"})
+                   for _ in range(40)])
+
+    before = pack_kernel.launches + pack_kernel_v2.launches
+    card, prof = gke_solve(cuda, pods())
+    torch.cuda.synchronize()
+    assert pack_kernel.launches + pack_kernel_v2.launches == before + 1
+    assert prof["packer_backend"] in ("pack_first_fit", "pack_first_fit_v2")
+    cpu, _ = gke_solve("cpu", pods())
+    assert card == cpu
+
+
+def test_run_controller_process_binds_pods_on_card(tmp_path):
+    """``run_controller_process`` with ``--device cuda`` (the default) and a
+    file leader lease: a ``solver: tpu`` provisioner's pods bind through a
+    kernel launch, and ``stop`` releases the lease."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+
+    from karpenter_tpu_torch.main import run_controller_process
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+    from karpenter_tpu_torch.utils.lease import FileLease
+
+    lease = str(tmp_path / "lease")
+    rt = run_controller_process(Options(leader_election_lease=lease), serve=False)
+    try:
+        assert rt.options.device == "cuda" and rt.elector.is_leader
+        rt.cluster.create("provisioners", make_provisioner(solver="tpu"))
+        deadline = time.time() + 60
+        while time.time() < deadline and not rt.provisioning.workers:
+            time.sleep(0.02)
+        worker = rt.provisioning.workers["default"]
+        worker.batcher.idle_duration = 0.05
+        assert worker.warmed.wait(timeout=600)
+        before = pack_kernel.launches + pack_kernel_v2.launches
+        for i in range(8):
+            rt.cluster.create("pods", make_pod(name=f"card-{i}", requests={"cpu": "0.5"}))
+        deadline = time.time() + 60
+        while time.time() < deadline and not all(p.spec.node_name for p in rt.cluster.pods()):
+            time.sleep(0.02)
+        assert all(p.spec.node_name for p in rt.cluster.pods())
+        assert pack_kernel.launches + pack_kernel_v2.launches > before
+        assert worker.scheduler.last_stage_profile()["packer_backend"] in (
+            "pack_first_fit", "pack_first_fit_v2")
+    finally:
+        rt.stop()
+    assert FileLease(lease, identity="probe").holder() is None

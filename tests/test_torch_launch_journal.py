@@ -573,7 +573,13 @@ def crash_case(point, kind):
                         and (gc.adopted >= 1 or point == "after_node_write"), 30)
             crash_node = proxy.crash_nodes[point]
             adopted = cluster.try_get("nodes", crash_node, namespace="")
-            assert wait(lambda: cluster.get("pods", "victim").spec.node_name, 30)
+            # a launch binds its pods before it resolves its journal entry
+            # (mark_created, bind, resolve): when the victim got a fresh
+            # launch rather than the adopted node, the journal is read once
+            # that launch has resolved too, never between its bind and
+            # its resolve
+            assert wait(lambda: cluster.get("pods", "victim").spec.node_name
+                        and not M.launch.FileLaunchJournal(path).unresolved(), 30)
             tokens = [i.launch_token for i in provider.list_instances() if i.launch_token]
             return (wreck, gc.adopted, gc.leaks_terminated,
                     adopted.metadata.annotations.get("karpenter.sh/adopted"),

@@ -124,7 +124,11 @@ def test_importing_the_port_loads_no_jax():
         "    'resilience.liveness', 'utils.gcpolicy', 'utils.node', 'interruption.orchestrator',\n"
         "    'controllers.interruption', 'controllers.garbage_collection', 'launch.journal',\n"
         "    'launch.recovery', 'utils.lease', 'fleet', 'forecast.model',\n"
-        "    'cloudprovider.simulated', 'controllers.warmpool'))\n"
+        "    'cloudprovider.simulated', 'controllers.warmpool', 'options', 'main', 'webhook',\n"
+        "    'cloudprovider.registry', 'cloudprovider.gke', 'cloudprovider.httpapi',\n"
+        "    'scheduling.oracle'))\n"
+        "from karpenter_tpu_torch.options import parse_args\n"
+        "new = new and parse_args([]).device == 'cuda'\n"
         "bad += ['grpc'] if 'grpc' in sys.modules else []\n"
         "print(n, new, bad)\n"
     )

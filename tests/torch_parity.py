@@ -342,6 +342,23 @@ def deprov(pkg: str) -> SimpleNamespace:
     )
 
 
+def proc(pkg: str) -> SimpleNamespace:
+    """``deprov(pkg)`` plus the process-assembly modules: options, main,
+    the webhook, the cloud registry, the GKE provider, the HTTP wire, the
+    oracle, the leases, the retry vocabulary and the scheduler facade."""
+    def m(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    return SimpleNamespace(
+        **vars(deprov(pkg)), options=m("options"), main=m("main"), webhook=m("webhook"),
+        registry=m("cloudprovider.registry"), gke=m("cloudprovider.gke"),
+        http=m("cloudprovider.httpapi"), oracle=m("scheduling.oracle"), lease=m("utils.lease"),
+        overload=m("resilience.overload"), policy=m("resilience.policy"), resilience=m("resilience"),
+        Scheduler=m("scheduling.scheduler").Scheduler, prov_api=m("api.provisioner"),
+        Requirements=m("api.requirements").Requirements,
+    )
+
+
 def on_cpu(M, kw: dict) -> dict:
     """``kw`` with ``device="cpu"`` for the port's controllers."""
     if M.pkg == "karpenter_tpu_torch":
@@ -554,12 +571,14 @@ def canon(value) -> str:
     return re.sub(r"fake-node-(\d+)", lambda m: f"node#{rank[int(m.group(1))]}", text)
 
 
-def both_canon(fn):
-    """``fn(M)`` on each package under its pinned packer; the port's
-    result, once it equals the reference's under ``canon``."""
+def both_canon(fn, ns=None):
+    """``fn(M)`` on each package under its pinned packer (``M`` is
+    ``ns(pkg)``, ``deprov`` by default); the port's result, once it equals
+    the reference's under ``canon``."""
+    ns = ns or deprov
     out = []
     for pkg in PACKAGES:
         with pinned(pkg):
-            out.append(fn(deprov(pkg)))
+            out.append(fn(ns(pkg)))
     assert canon(out[1]) == canon(out[0])
     return out[1]
