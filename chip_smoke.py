@@ -422,6 +422,43 @@ Phases (any failure exits non-zero; nothing is swallowed):
              hosts, every pinned pod on one. (c) two LeaderElectors on one
              file lease: exactly one leads; when it stops the other leads
              within the lease duration. The phase's wall is printed;
+21. apiserver — (after phase 20) the process over the in-repo API server
+             (kube/testserver.py), every client an ApiCluster over HTTP.
+             (a) run_controller_process(Options(kube_api_server=<url>,
+             leader_election_lease="kube:kube-system/karpenter-leader-
+             election", launch_journal="kube:kube-system/launch", the client
+             QPS knobs raised so the client's bucket does not pace the
+             storm)) with a solver: tpu provisioner and the headline's
+             10,000 diverse pods over instance_types(400), created in the
+             server's store and seen through the watch: every pod bound, or
+             given a PodUnschedulable event (one round), every bound pod
+             bound once through one binding POST, Nodes on the server =
+             virtual nodes = cloud creates, the informer cache equal to
+             list_live for pods and nodes but for resourceVersions and the
+             toleration relaxation adds in place (both counted);
+             create->bind p50, p99 and pods per second, the REST requests by
+             verb, the transport's retries and throttles, the rounds and
+             their launches. (c) the same runtime under
+             ApiServerChaos(throttle_rate, retry_after=0.05, seed), two PATCHes
+             failed with 503 (fail_next) and one
+             3 s blackout during a 2,000-pod storm: every pod bound once, no
+             pod on two nodes, no launch token created twice, the leader
+             never fenced, retries and throttles above 0; the journal
+             entries that chaos left are swept by the process's own garbage
+             collector; rt.stop() releases the Lease and leaves no journal
+             entry open. (b) Scheduler over an ApiCluster whose informers hold
+             200 standing nodes, their bound pods and a daemonset: the
+             headline (pack_first_fit) and the team mix (pack_first_fit_v2),
+             each one launch and equal to a device="cpu" Scheduler's plan
+             over the same ApiCluster, pod for pod, with its stage times. (d)
+             two LeaderElectors over KubeLeases on one Lease, each its own
+             ApiCluster: exactly one leads, the other takes over within the
+             lease duration, a blackout past expiry fences the holder and
+             the first answer lifts the fence. (e) ConsolidationController
+             (migration=None) over an ApiCluster picks evict; its plan runs on
+             the card, the drain goes through the eviction subresource, a
+             workload stand-in recreates the pods and the runtime's card
+             rounds bind them all. The phase's wall is printed;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -439,8 +476,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
              times and rounds, (b)'s replacement rounds, (c)'s sweeps, and
              ``warmpool``: phase 18's launches by part, both passes of (a)
              and (b)'s claims and rounds, ``telemetry``: phase 19's
-             launches by part and what (a)-(e) measured, and ``process``:
-             phase 20's launches by part and what (a)-(c) measured.
+             launches by part and what (a)-(e) measured, ``process``:
+             phase 20's launches by part and what (a)-(c) measured, and
+             ``apiserver``: phase 21's launches by part and what (a)-(e)
+             measured.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -3334,7 +3373,8 @@ def record_rounds(worker, rounds: list) -> None:
     """Wrap the worker's scheduler.solve: each round appends its batch
     size, the nodes it planned, what served it (packer_backend, pack_route,
     pack_dispatches), its SCHEDULING_DURATION observation and its host
-    wall time; a round that raises appends its error and re-raises."""
+    wall time, and the batch's pods that no node holds (``unplaced``); a
+    round that raises appends its error and re-raises."""
     sched = worker.scheduler
     solve = sched.solve
     labels = {"provisioner": worker.provisioner.name}
@@ -3354,6 +3394,7 @@ def record_rounds(worker, rounds: list) -> None:
         prof = sched.last_stage_profile()
         rounds.append({
             "pods": len(pods), "nodes": len(nodes),
+            "unplaced": len(pods) - sum(len(n.pods) for n in nodes),
             "backend": prof.get("packer_backend"), "route": prof.get("pack_route"),
             "dispatches": prof.get("pack_dispatches", 0),
             "scheduling_ms": (metric("karpenter_allocation_controller_scheduling_duration_seconds_sum", labels)
@@ -5726,8 +5767,11 @@ def regression_storm(card: str, device: str, n_pods: int, delta, counts,
         eng = obs.configure_sentinel(min_events=6, window=4, sustain=2, abs_floor_s=0.005,
                                      cooldown_s=300.0)
         steady_waves = max((n_pods // 2) // 4, 12)
+        steady_s = []
         for w in range(steady_waves):
+            t_wave = time.perf_counter()
             wave(f"steady-{w}")
+            steady_s.append(time.perf_counter() - t_wave)
         steady_fp = eng.incidents.count()
         baselines = eng.baseline_count()
         for proxy in sidecars.proxies.values():
@@ -5778,14 +5822,21 @@ def regression_storm(card: str, device: str, n_pods: int, delta, counts,
     }
     log(f"[telemetry] (e) regression storm: {len(created)} pods in waves of 4 over "
         f"{pool_size} sidecars (seed {TELEMETRY_SEED}), gc frozen after the 3 warm waves: "
-        f"{froze}; steady {steady_waves} waves, {steady_fp} false positives, {baselines} "
+        f"{froze}; steady {steady_waves} waves ({min(steady_s) * 1e3:.1f}–"
+        f"{max(steady_s) * 1e3:.1f} ms a wave, median "
+        f"{sorted(steady_s)[len(steady_s) // 2] * 1e3:.1f}), {steady_fp} false positives, {baselines} "
         f"baselines; step {latency_step_s * 1e3:g} ms on every proxy, {step_waves} waves, "
         f"{len(incidents)} incident(s) on {stages}, evidence: {flights} pinned flight "
         f"records, {decisions} decision ids, {folds} profile folds; sentinel overhead "
         f"{overhead:.4f} %; {len(rounds)} rounds served {served_by}, launches {launches}; "
         f"{row['wall_s']:.3f} s; card {card}")
     if steady_fp:
-        raise AssertionError(f"telemetry (e): {steady_fp} incidents in the steady phase")
+        trips = [{k: v for k, v in st.items() if k in ("stage", "observed_s", "baseline_s",
+                                                        "threshold_s", "observations")}
+                 for st in incidents[0]["stages"]] if incidents else []
+        raise AssertionError(f"telemetry (e): {steady_fp} incidents in the steady phase: "
+                             f"{trips}; steady waves (ms) "
+                             f"{[round(t * 1e3, 1) for t in steady_s]}")
     if len(incidents) != 1:
         raise AssertionError(f"telemetry (e): {len(incidents)} incidents in the step phase")
     if not set(stages) & set(STITCHED_STAGES):
@@ -6302,6 +6353,938 @@ def process_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
     return out
 
 
+APISERVER_LEASE = "kube:kube-system/karpenter-leader-election"
+APISERVER_JOURNAL = "kube:kube-system/launch"
+# the client's QPS knobs (--kube-client-qps / --kube-client-burst), raised
+# so that the client's token bucket is not what paces the storm
+APISERVER_QPS = 5000.0
+APISERVER_BURST = 10000
+CHAOS_PODS = 2000
+CHAOS_SEED = 20260803  # bench_partition_storm's (bench.py:2105)
+CHAOS_THROTTLE = 0.05  # share of requests answered 429 during (c)'s storm
+CHAOS_BLACKOUT_S = 3.0  # under KubeLease's 15 s duration less its 3 s margin
+STANDING_NODES = 200  # (b)'s fleet, read through the informers
+KUBE_LEASE_S = 2.0  # (d)'s Lease duration
+CONSOLIDATION_NODES = 5  # (e): one evict wave (EVICT_WAVE_SIZE)
+
+
+class RestCounter:
+    """A ``chaos=`` hook on the in-repo API server: counts every request
+    that reaches the REST surface by verb and subresource, and the binding
+    POSTs per pod. ``inner`` (an ``ApiServerChaos``) decides first: a
+    request it fails or drops is not counted."""
+
+    def __init__(self):
+        self.inner = None
+        self._mu = threading.Lock()
+        self.requests = {}
+        self.bindings = {}
+
+    def intercept(self, handler, method, path) -> bool:
+        inner = self.inner
+        if inner is not None and inner.intercept(handler, method, path):
+            return True
+        parts = path.split("?")[0].rstrip("/").split("/")
+        sub = parts[-1] if parts[-1] in ("binding", "eviction", "status") else ""
+        watch = "watch=true" in path
+        key = f"{method} {sub or ('watch' if watch else 'rest')}"
+        with self._mu:
+            self.requests[key] = self.requests.get(key, 0) + 1
+            if sub == "binding":
+                self.bindings[parts[-2]] = self.bindings.get(parts[-2], 0) + 1
+        return False
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            return dict(self.requests)
+
+
+def kube_counters() -> dict:
+    """The transport's retries by verb class and its throttles by source,
+    from the port's registry."""
+    out = {}
+    for cls in ("read", "mutate", "create", "watch", "events", "lease"):
+        out[f"retries_{cls}"] = metric("karpenter_kube_request_retries_total", {"verb_class": cls})
+    for source in ("server", "client"):
+        out[f"throttled_{source}"] = metric("karpenter_kube_throttled_total", {"source": source})
+    out["events_dropped"] = metric("karpenter_kube_events_dropped_total")
+    return out
+
+
+def counters_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] - before.get(k, 0)}
+
+
+class BindWatch:
+    """Watches a server's backing store: when each pod was created (by the
+    caller) and first bound, how many times its nodeName went from empty to
+    set, and every flip between two nodes (a pod provisioned twice)."""
+
+    def __init__(self, cluster):
+        self._mu = threading.Lock()
+        self.created, self.bound_at, self.binds, self.flips, self.last = {}, {}, {}, [], {}
+        cluster.watch("pods", self._on_pod)
+
+    def _on_pod(self, event, pod) -> None:
+        if event == "DELETED":
+            return
+        name, node = pod.metadata.name, pod.spec.node_name
+        now = time.perf_counter()
+        with self._mu:
+            prev = self.last.get(name, "")
+            if node and not prev:
+                self.binds[name] = self.binds.get(name, 0) + 1
+                self.bound_at.setdefault(name, now)
+            elif node and prev and node != prev:
+                self.flips.append((name, prev, node))
+            self.last[name] = node
+
+    def create(self, cluster, pod) -> None:
+        with self._mu:
+            self.created[pod.metadata.name] = time.perf_counter()
+        cluster.create("pods", pod)
+
+    def wait(self, names, timeout: float, stuck) -> list:
+        """Wait until every pod in ``names`` was bound, or is in
+        ``stuck()`` (the pods the controller declared unschedulable);
+        raises after ``timeout``. Returns the pods left unbound."""
+        deadline = time.time() + timeout
+        while True:
+            given_up = stuck()
+            with self._mu:
+                missing = [n for n in names if n not in self.bound_at]
+            if all(n in given_up for n in missing):
+                return missing
+            if time.time() > deadline:
+                raise AssertionError(f"{len(missing)} of {len(names)} pods unbound after "
+                                     f"{timeout} s: {missing[:5]}")
+            time.sleep(0.2)
+
+    def latencies(self, names) -> list:
+        with self._mu:
+            return sorted(self.bound_at[n] - self.created[n] for n in names
+                          if n in self.bound_at)
+
+
+def unschedulable(cluster) -> set:
+    """The pods with a ``PodUnschedulable`` Warning on ``cluster``: the
+    controller's verdict that no launch can seat them."""
+    return {e.involved_name for e in cluster.list("events") if e.reason == "PodUnschedulable"}
+
+
+def unschedulable_reasons(cluster, names) -> dict:
+    """How many of ``names`` were given a ``PodUnschedulable`` event,
+    by the event's message less the pod's name."""
+    names = set(names)
+    out = {}
+    for e in cluster.list("events"):
+        if e.reason == "PodUnschedulable" and e.involved_name in names:
+            why = e.message.replace(e.involved_name, "<pod>")[:160]
+            out[why] = out.get(why, 0) + 1
+    return out
+
+
+def pod_report(cluster, names) -> dict:
+    """The store's view of ``names``: each pod's node (empty when
+    unbound or "gone" when absent) and the reasons and messages of the
+    events about it."""
+    events = {}
+    for e in cluster.list("events"):
+        if e.involved_name in names:
+            events.setdefault(e.involved_name, []).append(f"{e.reason}: {e.message[:200]}")
+    out = {}
+    for name in names:
+        pod = cluster.try_get("pods", name)
+        out[name] = {"node": "gone" if pod is None else pod.spec.node_name,
+                     "events": events.get(name, [])}
+    return out
+
+
+def apiserver_child(conn) -> None:
+    """The in-repo API server in a process of its own, as a real API server
+    is: its HTTP threads and watch fan-out do not share the controller's
+    interpreter. Serves the parent's requests over ``conn``, one dict in
+    and one dict out (``{"ok": value}`` or ``{"error": text}``), until
+    ``{"op": "stop"}``. Pods are created in the server's own store, so they
+    reach the controller through its watch; creation and bind times are
+    taken here."""
+    from karpenter_tpu_torch.kube import serde
+    from karpenter_tpu_torch.kube.testserver import TestApiServer
+    from karpenter_tpu_torch.launch.journal import KubeLaunchJournal
+    from karpenter_tpu_torch.testing import diverse_pods, make_pod
+    from karpenter_tpu_torch.testing.chaos import ApiServerChaos
+
+    server = TestApiServer()
+    rest = RestCounter()
+    server.chaos = rest
+    server.start()
+    watch = BindWatch(server.cluster)
+    store = server.cluster
+
+    def storm(which: str, n: int, seed: int = 0, blackout_at: int = -1,
+              blackout_s: float = 0.0) -> dict:
+        if which == "diverse":
+            pods = diverse_pods(n)
+        else:
+            sizes = random.Random(seed).choices([0.25, 0.5, 1], k=n)
+            pods = [make_pod(name=f"{which}-{i}", requests={"cpu": f"{c}"})
+                    for i, c in enumerate(sizes)]
+        t0 = time.perf_counter()
+        for i, p in enumerate(pods):
+            watch.create(store, p)
+            if i == blackout_at:
+                rest.inner.blackout(blackout_s)
+        return {"names": [p.metadata.name for p in pods], "enqueue_s": time.perf_counter() - t0}
+
+    def state(names) -> dict:
+        with watch._mu:
+            binds = {n: watch.binds.get(n, 0) for n in names}
+            flips = [f for f in watch.flips if f[0] in set(names)]
+        with rest._mu:
+            posts = {n: rest.bindings.get(n, 0) for n in names}
+        return {"latencies": watch.latencies(names), "binds": binds, "flips": flips,
+                "posts": posts}
+
+    def chaos(fail_next=None, **kw) -> dict:
+        if kw:
+            rest.inner = ApiServerChaos(**kw)
+            for verb, n in (fail_next or {}).items():
+                rest.inner.fail_next(verb, n)
+            return {}
+        armed, rest.inner = rest.inner, None
+        return {"throttled": armed.counts(armed.throttled), "dropped": armed.counts(armed.dropped),
+                "injected": armed.counts(armed.injected)}
+
+    ops = {
+        "create": lambda kind, doc: store.create(kind, serde.from_wire(kind, doc)) and None,
+        "storm": storm,
+        "wait": lambda names, limit: watch.wait(names, limit, lambda: unschedulable(store)),
+        "state": state,
+        "requests": rest.snapshot,
+        "chaos": chaos,
+        "nodes": lambda: sorted(n.metadata.name for n in store.nodes()),
+        "lease_holder": lambda name, namespace: store.get(
+            "leases", name, namespace=namespace).holder_identity,
+        "journal_open": lambda prefix: len(KubeLaunchJournal(store, prefix=prefix).unresolved()),
+        "delete_pods": lambda names: [store.delete("pods", n) for n in names] and None,
+        "pod_report": lambda names: pod_report(store, names),
+        "unschedulable_reasons": lambda names: unschedulable_reasons(store, names),
+    }
+    conn.send({"ok": server.url})
+    try:
+        while True:
+            msg = conn.recv()
+            op = msg.pop("op")
+            if op == "stop":
+                break
+            try:
+                conn.send({"ok": ops[op](**msg)})
+            except Exception as e:  # answered to the parent, which raises it
+                conn.send({"error": f"{op}: {e!r}"})
+    finally:
+        server.stop()
+        conn.close()
+
+
+class ApiServerProcess:
+    """The parent's handle on ``apiserver_child``: a spawned process (it
+    imports the package anew and never touches the card), ``call(op,
+    **kw)`` for its answers, ``stop()`` to end it."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self.process = ctx.Process(target=apiserver_child, args=(child,), daemon=True,
+                                   name="apiserver")
+        self.process.start()
+        child.close()
+        self.url = self._answer("start", 120)
+
+    def _answer(self, op: str, timeout: float):
+        if not self._conn.poll(timeout):
+            raise AssertionError(f"apiserver process: no answer to {op} in {timeout} s")
+        msg = self._conn.recv()
+        if "error" in msg:
+            raise AssertionError(f"apiserver process: {msg['error']}")
+        return msg["ok"]
+
+    def call(self, op: str, timeout: float = 120.0, **kw):
+        self._conn.send({"op": op, **kw})
+        return self._answer(op, timeout)
+
+    def stop(self) -> None:
+        try:
+            self._conn.send({"op": "stop"})
+        except (OSError, BrokenPipeError):
+            pass
+        self.process.join(10)
+        if self.process.is_alive():
+            self.process.kill()
+            self.process.join(5)
+
+
+def stuck_report(rt, server, names, n: int = 6) -> dict:
+    """Why the first ``n`` of ``names`` are unbound: the server's view
+    (node, events) beside the controller's (its cached pod's node and
+    whether it is provisionable, whether the worker holds it pending, the
+    selection queue's failure count for it)."""
+    from karpenter_tpu_torch.utils.pod import is_provisionable
+
+    names = list(names)[:n]
+    report = server.call("pod_report", names=names)
+    selection = rt.manager._controllers["selection"].queue
+    workers = rt.provisioning.list_workers()
+    for name in names:
+        pod = rt.cluster.try_get("pods", name)
+        report[name]["cache"] = (
+            "gone" if pod is None else
+            {"node": pod.spec.node_name, "provisionable": is_provisionable(pod),
+             "pending": any(w.is_pending(pod.key) for w in workers),
+             "selection_failures": selection.backoff.retries((name, pod.metadata.namespace))})
+    return report
+
+
+def chaos_soak(device: str = "cpu", n_pre: int = 2000, n_chaos: int = CHAOS_PODS,
+               iterations: int = 12, n_types: int = 100, stall_s: float = 60.0) -> list:
+    """Phase 21 (c)'s chaos storm, repeated on one runtime: a process over
+    the in-repo API server (a process of its own) takes ``n_pre`` diverse
+    pods, then ``iterations`` storms of ``n_chaos`` pods, each under
+    ``ApiServerChaos`` 429s, two 503 PATCHes and a 3 s blackout (the
+    ``i``-th seeded ``CHAOS_SEED + i``). Returns each storm's seconds to
+    bind every pod and its chaos counts; raises with ``stuck_report`` when
+    no pod binds for ``stall_s`` seconds. Runs on the CPU:
+    ``python3 -c "import chip_smoke; print(chip_smoke.chaos_soak())"``."""
+    from karpenter_tpu_torch.cloudprovider import registry
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.kube import serde
+    from karpenter_tpu_torch.main import run_controller_process
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    server = ApiServerProcess()
+    provider = FakeCloudProvider(instance_types(n_types))
+    registry.register("fake", lambda: provider)
+    rt = None
+    try:
+        rt = run_controller_process(Options(
+            kube_api_server=server.url, leader_election_lease=APISERVER_LEASE,
+            launch_journal=APISERVER_JOURNAL, device=device, cloud_provider="fake",
+            kube_client_qps=APISERVER_QPS, kube_client_burst=APISERVER_BURST,
+            unschedulable_event_rounds=1), serve=False)
+        server.call("create", kind="provisioners",
+                    doc=serde.to_wire("provisioners", make_provisioner(solver="tpu")))
+        deadline = time.time() + 60
+        while time.time() < deadline and "default" not in rt.provisioning.workers:
+            time.sleep(0.01)
+        worker = rt.provisioning.workers["default"]
+        worker.batcher.idle_duration = 0.2
+        worker.warmed.wait(timeout=600)
+        if n_pre:
+            names = server.call("storm", which="diverse", n=n_pre)["names"]
+            server.call("delete_pods", names=server.call(
+                "wait", timeout=960, names=names, limit=900))
+        out = []
+        for i in range(iterations):
+            server.call("chaos", throttle_rate=CHAOS_THROTTLE, retry_after=0.05,
+                        seed=CHAOS_SEED + i, fail_next={"PATCH": 2})
+            t0 = time.perf_counter()
+            names = server.call("storm", which=f"soak{i}", n=n_chaos, seed=CHAOS_SEED + i,
+                                blackout_at=n_chaos // 4, blackout_s=CHAOS_BLACKOUT_S)["names"]
+            left, moved = len(names), time.perf_counter()
+            while left:
+                binds = server.call("state", names=names)["binds"]
+                missing = [n for n, k in binds.items() if not k]
+                if len(missing) < left:
+                    left, moved = len(missing), time.perf_counter()
+                elif time.perf_counter() - moved > stall_s:
+                    raise AssertionError(
+                        f"chaos soak storm {i}: {left} of {n_chaos} pods unbound for "
+                        f"{stall_s:g} s; leading {rt.elector.is_leader}, controllers running "
+                        f"{rt.manager.healthz()}; {stuck_report(rt, server, missing)}")
+                else:
+                    time.sleep(0.5)
+            out.append({"storm": i, "bound_s": time.perf_counter() - t0,
+                        **server.call("chaos"), "fenced": rt.elector.lease.status.fenced})
+            log(f"[soak] {out[-1]}")
+        return out
+    finally:
+        registry.register("fake", FakeCloudProvider)
+        if rt is not None:
+            rt.stop()
+        server.stop()
+
+
+RELAXED_TOLERATION = {"effect": "PreferNoSchedule", "operator": "Exists"}
+
+
+def same_view(client, kind: str, timeout: float = 30.0) -> tuple:
+    """Wait until ``client``'s informer cache holds what ``list_live(kind)``
+    answers: every object's wire form but its resourceVersion, and but the
+    PreferNoSchedule toleration that selection's relaxation adds to a
+    cached pod it could not seat (in place, never written, as in the
+    reference). A bind caches the caller's pod (the Binding answer carries
+    no object), so a watch echo that landed first leaves the cached
+    resourceVersion behind the server's, as in the reference. Returns
+    (objects, cached resourceVersions behind, relaxed pods)."""
+    from karpenter_tpu_torch.kube import serde
+
+    def view(objs):
+        docs = {}
+        for o in objs:
+            doc = serde.to_wire(kind, o)
+            rv = doc["metadata"].pop("resourceVersion", None)
+            exact = json.dumps(doc, sort_keys=True)
+            spec = doc.get("spec") or {}
+            if RELAXED_TOLERATION in (spec.get("tolerations") or []):
+                spec["tolerations"] = [t for t in spec["tolerations"] if t != RELAXED_TOLERATION]
+                if not spec["tolerations"]:
+                    del spec["tolerations"]
+            docs[(o.metadata.namespace, o.metadata.name)] = (
+                json.dumps(doc, sort_keys=True), rv, exact)
+        return docs
+
+    deadline = time.time() + timeout
+    while True:
+        live, cached = view(client.list_live(kind)), view(client.list(kind))
+        differ = sorted(k for k in set(live) | set(cached)
+                        if live.get(k, (None,))[0] != cached.get(k, (None,))[0])
+        if not differ:
+            return (len(live), sum(live[k][1] != cached[k][1] for k in live),
+                    sum(live[k][2] != cached[k][2] for k in live))
+        if time.time() > deadline:
+            raise AssertionError(f"apiserver: the informer cache of {kind} differs from "
+                                 f"list_live ({len(cached)} cached, {len(live)} live, "
+                                 f"{len(differ)} differ: {differ[:6]})")
+        time.sleep(0.1)
+
+
+def apiserver_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
+                    n_types: int = 400, chaos_pods: int = CHAOS_PODS,
+                    standing: int = STANDING_NODES, solve_pods: int = 10000) -> dict:
+    """Phase 21: the process over the in-repo API server. (a) the headline
+    storm through run_controller_process over an ApiCluster, (b) one solve
+    per kernel through an ApiCluster at full width, (c) chaos during a
+    storm, (d) two electors on one Lease, (e) consolidation over the API
+    server. Returns the kernels line's ``apiserver`` entries."""
+    import torch
+
+    from karpenter_tpu_torch.api.objects import OwnerReference, PodCondition
+    from karpenter_tpu_torch.cloudprovider import registry
+    from karpenter_tpu_torch.cloudprovider.fake import (FakeCloudProvider, instance_types,
+                                                         instance_types_tradeoff)
+    from karpenter_tpu_torch.controllers.consolidation import ConsolidationController
+    from karpenter_tpu_torch.kube import serde
+    from karpenter_tpu_torch.kube.apiserver import ApiCluster
+    from karpenter_tpu_torch.kube.leader import KubeLease
+    from karpenter_tpu_torch.kube.testserver import TestApiServer
+    from karpenter_tpu_torch.main import build_runtime, run_controller_process
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.testing import diverse_pods, make_daemonset, make_pod, make_provisioner
+    from karpenter_tpu_torch.testing.chaos import ApiServerChaos
+    from karpenter_tpu_torch.testing.factories import make_node
+    from karpenter_tpu_torch.utils.lease import LeaderElector
+    from karpenter_tpu_torch.api import labels as lbl
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    out = {V1: {}, V2: {}, "summary": {}}
+    t_phase = time.perf_counter()
+
+    def counts() -> dict:
+        return {name: m.launches for name, m in modules.items()}
+
+    def delta(start: dict) -> dict:
+        return {name: n - start[name] for name, n in counts().items()}
+
+    def note(label: str, launches: dict) -> None:
+        for name, n in launches.items():
+            if n:
+                out[name][f"launches_{label}"] = out[name].get(f"launches_{label}", 0) + n
+
+    def stop_clients(*clients) -> None:
+        for c in clients:
+            c.stop()
+
+    # -- (a) run_controller_process over the API server -------------------
+    server = ApiServerProcess()
+    provider = FakeCloudProvider(instance_types(n_types))
+    registry.register("fake", lambda: provider)
+    # a pod no launch can seat (the headline's hostname-affinity pods whose
+    # peers an earlier batch bound) gets its PodUnschedulable event after
+    # one round
+    opts = Options(kube_api_server=server.url, leader_election_lease=APISERVER_LEASE,
+                   launch_journal=APISERVER_JOURNAL, device=device, cloud_provider="fake",
+                   kube_client_qps=APISERVER_QPS, kube_client_burst=APISERVER_BURST,
+                   unschedulable_event_rounds=1)
+    rt, stopped = None, False
+    try:
+        t0 = time.perf_counter()
+        try:
+            rt = run_controller_process(opts, serve=False)
+        finally:
+            registry.register("fake", FakeCloudProvider)
+        started_s = time.perf_counter() - t0
+        cluster = rt.cluster
+        if not isinstance(cluster, ApiCluster) or not isinstance(rt.elector.lease, KubeLease):
+            raise AssertionError(f"apiserver (a): runtime over {type(cluster).__name__}, "
+                                 f"lease {type(rt.elector.lease).__name__}")
+        holder = server.call("lease_holder", name="karpenter-leader-election",
+                             namespace="kube-system")
+        if not rt.elector.is_leader or holder != rt.elector.lease.identity:
+            raise AssertionError(f"apiserver (a): the runtime does not hold the Lease ({holder!r})")
+        start = counts()
+        server.call("create", kind="provisioners",
+                    doc=serde.to_wire("provisioners", make_provisioner(solver="tpu")))
+        deadline = time.time() + 60
+        while time.time() < deadline and "default" not in rt.provisioning.workers:
+            time.sleep(0.01)
+        worker = rt.provisioning.workers["default"]
+        worker.batcher.idle_duration = 0.2
+        if not worker.warmed.wait(timeout=600):
+            raise AssertionError("apiserver (a): the warm-up never finished")
+        warm = worker.scheduler.torch.completed_profile()
+        if warm.get("packer_backend") not in (V1, V2):
+            raise AssertionError(f"apiserver (a): warm-up served by {warm.get('packer_backend')!r}")
+        warm_launches = delta(start)
+        expect_launches("apiserver a, warm-up", warm_launches,
+                        {warm["packer_backend"]: warm.get("pack_dispatches", 0)})
+        rounds = []
+        record_rounds(worker, rounds)
+        requests_before, kube_before = server.call("requests"), kube_counters()
+        storm_start = counts()
+        t0 = time.perf_counter()
+        created = server.call("storm", which="diverse", n=n_pods)
+        names = created["names"]
+        stuck = server.call("wait", timeout=660, names=names, limit=600)
+        wall = time.perf_counter() - t0
+        storm_launches = delta(storm_start)
+        seated = [n for n in names if n not in set(stuck)]
+        st = server.call("state", names=names)
+        twice = {n: k for n, k in st["binds"].items() if k > 1 or (k == 0 and n in seated)}
+        posts = {n: st["posts"][n] for n in seated if st["posts"][n] != 1}
+        if twice or st["flips"] or posts:
+            raise AssertionError(f"apiserver (a): binds {list(twice.items())[:5]}, flips "
+                                 f"{st['flips'][:5]}, binding POSTs {list(posts.items())[:5]}")
+        launched = check_rounds(rounds, {V1, V2}, "apiserver (a)")
+        expect_launches("apiserver a, storm", storm_launches, launched)
+        planned = sum(r["nodes"] for r in rounds)
+        nodes = server.call("nodes")
+        made = sorted(i.id for i in provider.list_instances())
+        if not (planned == len(nodes) == len(provider.create_calls)) or nodes != made:
+            raise AssertionError(f"apiserver (a): {planned} virtual nodes, {len(nodes)} Nodes on "
+                                 f"the server, {len(provider.create_calls)} cloud creates")
+        cached = {k: same_view(cluster, k) for k in ("pods", "nodes")}
+        requests = counters_delta(requests_before, server.call("requests"))
+        kube = counters_delta(kube_before, kube_counters())
+        lat = st["latencies"]
+        p50 = lat[len(lat) // 2]
+        p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+        for i, r in enumerate(rounds):
+            log(f"[apiserver] (a) round {i}: batch {r['pods']}, nodes {r['nodes']}, "
+                f"unplaced {r['unplaced']}, "
+                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']}), "
+                f"SCHEDULING_DURATION {r['scheduling_ms']:.3f} ms")
+        log(f"[apiserver] (a) run_controller_process(--kube-api-server {server.url} (the "
+            f"in-repo API server, a process of its own), --leader-election-lease "
+            f"{APISERVER_LEASE}, --launch-journal {APISERVER_JOURNAL}, --kube-client-qps "
+            f"{APISERVER_QPS:g}, --kube-client-burst {APISERVER_BURST}, --device {device}): "
+            f"informers synced and leading in {started_s:.3f} s; warm-up "
+            f"{warm['packer_backend']} ({warm_launches}); storm of {n_pods} diverse pods created "
+            f"in the server's store ({created['enqueue_s']:.3f} s) and seen through the watch: "
+            f"{len(seated)} bound, {len(stuck)} with a PodUnschedulable event; create->bind "
+            f"p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms, {len(seated) / wall:.1f} bound "
+            f"pods/s, wall {wall:.3f} s; {len(rounds)} rounds, launches {storm_launches}; every "
+            f"bound pod bound once through one binding POST; {len(nodes)} Nodes on the server "
+            f"= {planned} virtual nodes = {len(provider.create_calls)} cloud creates; informer "
+            f"cache == list_live but for resourceVersions and relaxed pods' tolerations "
+            f"(objects, resourceVersions behind, relaxed) {cached}; REST requests {dict(sorted(requests.items()))}; transport {kube}; card "
+            f"{card}")
+        note("a", {k: warm_launches[k] + storm_launches[k] for k in warm_launches})
+        out["summary"]["a"] = {
+            "pods": n_pods, "bound": len(seated), "unschedulable": len(stuck),
+            "rounds": len(rounds), "batches": [r["pods"] for r in rounds],
+            "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "pods_per_s": len(seated) / wall,
+            "wall_s": wall, "nodes": len(nodes), "started_s": started_s,
+            "requests": requests, "transport": kube, "cache_vs_live": cached,
+            "qps": APISERVER_QPS, "burst": APISERVER_BURST}
+        # the pods no launch can seat leave the cluster: every later round
+        # would re-solve them and re-post their events
+        server.call("delete_pods", names=stuck)
+
+        # -- (c) chaos during a storm through the same runtime --------------
+        fenced = []
+        stop_probe = threading.Event()
+
+        def probe_fence():
+            while not stop_probe.is_set():
+                if rt.elector.lease.status.fenced or not rt.elector.is_leader:
+                    fenced.append(time.perf_counter())
+                stop_probe.wait(0.02)
+
+        probe = threading.Thread(target=probe_fence, daemon=True)
+        probe.start()
+        rounds.clear()
+        creates_before = len(provider.create_calls)
+        requests_before, kube_before = server.call("requests"), kube_counters()
+        start = counts()
+        # the two next PATCHes answer 503 (the round's lastScaleTime and the
+        # counter's status patches are PATCHes): the mutate class retries
+        server.call("chaos", throttle_rate=CHAOS_THROTTLE, retry_after=0.05, seed=CHAOS_SEED,
+                    fail_next={"PATCH": 2})
+        t0 = time.perf_counter()
+        try:
+            created = server.call("storm", which="chaos", n=chaos_pods, seed=CHAOS_SEED,
+                                  blackout_at=chaos_pods // 4, blackout_s=CHAOS_BLACKOUT_S)
+            names = created["names"]
+            try:
+                left = server.call("wait", timeout=360, names=names, limit=300)
+            except AssertionError as e:
+                missing = [n for n, k in server.call("state", names=names)["binds"].items()
+                           if not k]
+                raise AssertionError(
+                    f"{e}; leading {rt.elector.is_leader}, fenced "
+                    f"{rt.elector.lease.status.fenced}, controllers running "
+                    f"{rt.manager.healthz()}, fenced or not leading at {len(fenced)} probes; "
+                    f"{len(missing)} unbound, the first: "
+                    f"{stuck_report(rt, server, missing)}; rounds (batch, nodes, unplaced) "
+                    f"{[(r['pods'], r.get('nodes'), r.get('unplaced')) for r in rounds]}; "
+                    f"PodUnschedulable events "
+                    f"{server.call('unschedulable_reasons', names=names)}") from None
+        finally:
+            injected = server.call("chaos")
+            stop_probe.set()
+            probe.join(5)
+        wall_c = time.perf_counter() - t0
+        chaos_launches = delta(start)
+        launched = check_rounds(rounds, {V1, V2}, "apiserver (c)")
+        expect_launches("apiserver c", chaos_launches, launched)
+        st = server.call("state", names=names)
+        twice = {n: k for n, k in st["binds"].items() if k != 1}
+        requests = counters_delta(requests_before, server.call("requests"))
+        kube = counters_delta(kube_before, kube_counters())
+        creates = provider.create_calls[creates_before:]
+        tokens = [r.launch_token for r in creates]
+        retries = sum(v for k, v in kube.items() if k.startswith("retries_"))
+        throttled = kube.get("throttled_server", 0)
+        if left or twice or st["flips"] or len(set(tokens)) != len(tokens) or fenced:
+            raise AssertionError(f"apiserver (c): unbound {left[:5]}, binds "
+                                 f"{list(twice.items())[:5]}, flips {st['flips'][:5]}, "
+                                 f"{len(tokens) - len(set(tokens))} repeated launch tokens, "
+                                 f"fenced or not leading at {len(fenced)} probes")
+        if retries <= 0 or throttled <= 0 or not injected["dropped"]:
+            raise AssertionError(f"apiserver (c): retries {retries}, throttles {throttled}, "
+                                 f"chaos {injected}")
+        for i, r in enumerate(rounds):
+            log(f"[apiserver] (c) round {i}: batch {r['pods']}, nodes {r['nodes']}, "
+                f"unplaced {r['unplaced']}, "
+                f"{r['backend']} ({r['route']}, dispatches {r['dispatches']})")
+        lat = st["latencies"]
+        log(f"[apiserver] (c) ApiServerChaos(throttle_rate={CHAOS_THROTTLE}, retry_after=0.05, "
+            f"seed={CHAOS_SEED}), fail_next('PATCH', 2) and a {CHAOS_BLACKOUT_S:g} s blackout "
+            f"during a storm of "
+            f"{chaos_pods} pods: all bound in {wall_c:.3f} s (p50 {lat[len(lat) // 2] * 1e3:.1f} "
+            f"ms, p99 {lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3:.1f} ms), every pod "
+            f"bound once, no pod on two nodes, {len(creates)} cloud creates with "
+            f"{len(set(tokens))} distinct launch tokens, the leader never fenced nor lost the "
+            f"Lease; chaos {injected}; transport {kube}; REST requests "
+            f"{dict(sorted(requests.items()))}; launches {chaos_launches}; card {card}")
+        note("c", chaos_launches)
+        out["summary"]["c"] = {"pods": chaos_pods, "wall_s": wall_c, "rounds": len(rounds),
+                               "chaos": injected, "transport": kube, "creates": len(creates)}
+
+        # the launches that chaos failed after their cloud create left
+        # journal entries: the process's own garbage collector settles them
+        # (adopt or confirm never launched), swept at once here instead of
+        # after its 120 s replay floor
+        from karpenter_tpu_torch.controllers.garbage_collection import GC_POLL_KEY
+
+        open_after_c = server.call("journal_open", prefix="launch")
+        gc_before = (rt.garbage_collection.adopted, rt.garbage_collection.replays,
+                     rt.garbage_collection.leaks_terminated)
+        if open_after_c:
+            rt.garbage_collection.replay_after = 0.0
+            rt.garbage_collection.reconcile(GC_POLL_KEY)
+        gc_after = (rt.garbage_collection.adopted, rt.garbage_collection.replays,
+                    rt.garbage_collection.leaks_terminated)
+        leaked = sorted({i.id for i in provider.list_instances()} - set(server.call("nodes")))
+        if leaked:
+            raise AssertionError(f"apiserver (c): instances without a Node after the GC sweep: "
+                                 f"{leaked[:5]}")
+        log(f"[apiserver] (c) {open_after_c} journal entries open after the chaos storm (launches "
+            f"that chaos failed after their cloud create); one GC sweep: adopted/replays/leaks "
+            f"{gc_before} -> {gc_after}, {server.call('journal_open', prefix='launch')} open, "
+            f"every cloud instance has its Node")
+        out["summary"]["c"]["journal_open"] = open_after_c
+        out["summary"]["c"]["adopted"] = gc_after[0] - gc_before[0]
+
+        # -- rt.stop(): the Lease released, no journal entry open ----------
+        t0 = time.perf_counter()
+        rt.stop()
+        stopped = True
+        stop_s = time.perf_counter() - t0
+        holder = server.call("lease_holder", name="karpenter-leader-election",
+                             namespace="kube-system")
+        open_entries = server.call("journal_open", prefix="launch")
+        if holder or open_entries:
+            raise AssertionError(f"apiserver (a): after stop the Lease is held by {holder!r}, "
+                                 f"{open_entries} journal entries open")
+        log(f"[apiserver] (a) rt.stop() in {stop_s:.3f} s released the Lease (holder '') and "
+            f"left 0 journal entries open on the server")
+        out["summary"]["a"]["stop_s"] = stop_s
+    finally:
+        if rt is not None and not stopped:
+            rt.stop()
+        server.stop()
+    del rt, cluster, provider
+
+    # -- (b) one solve per kernel through an ApiCluster at full width ------
+    server = TestApiServer()
+    server.start()
+    client = ApiCluster(server.url, qps=APISERVER_QPS, burst=APISERVER_BURST)
+    try:
+        rng = random.Random(7)
+        # cpu only: a memory request would add a resource axis and take the
+        # team mix's v2 tables past V2_TABLE_BUDGET (the shape rule's v1)
+        server.cluster.create("daemonsets", make_daemonset(name="node-agent",
+                                                           requests={"cpu": "0.1"}))
+        for i in range(standing):
+            node = make_node(name=f"standing-{i}", provisioner_name="default",
+                             capacity={"cpu": "16", "memory": "32Gi", "pods": "100"},
+                             labels={lbl.INSTANCE_TYPE: f"fake-it-{rng.randrange(300, 400)}",
+                                     lbl.TOPOLOGY_ZONE: f"test-zone-{1 + i % 3}",
+                                     lbl.CAPACITY_TYPE: "on-demand"})
+            server.cluster.create("nodes", node)
+            for j in range(rng.randrange(1, 4)):
+                server.cluster.create("pods", make_pod(
+                    name=f"bound-{i}-{j}", labels={"app": f"a{j}"},
+                    requests={"cpu": f"{rng.choice([0.5, 1, 2])}"},
+                    node_name=node.metadata.name, unschedulable=False))
+        t0 = time.perf_counter()
+        client.start()
+        if not client.wait_for_sync(60):
+            raise AssertionError("apiserver (b): the informers never synced")
+        sync_s = time.perf_counter() - t0
+        cases = (("headline", V1, make_provisioner(solver="tpu"), instance_types(n_types),
+                  diverse_pods(solve_pods)),
+                 ("team mix", V2, make_provisioner(solver="tpu"),
+                  instance_types_tradeoff(n_types), team_pods(solve_pods, 9)))
+        parts = {}
+        for label, kernel, prov, catalog, batch in cases:
+            start = counts()
+            sched = Scheduler(client, rng=random.Random(1), device=device)
+            t0 = time.perf_counter()
+            nodes = sched.solve(prov, catalog, batch)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof = sched.last_stage_profile()
+            got = delta(start)
+            if prof.get("packer_backend") != kernel or prof.get("pack_dispatches") != 1 \
+                    or got[kernel] != 1:
+                raise AssertionError(f"apiserver (b) {label}: served by "
+                                     f"{prof.get('packer_backend')!r}, launches {got}")
+            cpu_sched = Scheduler(client, rng=random.Random(1), device="cpu")
+            cpu_nodes = cpu_sched.solve(prov, catalog, batch)
+            not_degraded(cpu_sched, f"apiserver (b) {label} cpu plan")
+            if plan_of(nodes, batch) != plan_of(cpu_nodes, batch):
+                raise AssertionError(f"apiserver (b) {label}: the card's plan differs from the "
+                                     f"device='cpu' plan over the same ApiCluster")
+            note(f"b_{label.replace(' ', '_')}", got)
+            parts[label] = {"nodes": len(nodes), "wall_ms": wall_ms, "kernel": kernel}
+            log(f"[apiserver] (b) {label}: {len(batch)} pods over an ApiCluster holding "
+                f"{len(client.nodes())} nodes, {len(client.pods())} bound pods and a daemonset "
+                f"(informers synced in {sync_s:.3f} s): {kernel} ({prof.get('pack_route')}), one "
+                f"launch; {len(nodes)} nodes == the device='cpu' plan pod for pod; round "
+                f"{wall_ms:.3f} ms: {stage_line(prof)}; card {card}")
+        out["summary"]["b"] = parts
+    finally:
+        client.stop()
+        server.stop()
+
+    # -- (d) two electors on one Lease, then a blackout past expiry --------
+    chaos = ApiServerChaos(seed=CHAOS_SEED)
+    server = TestApiServer()
+    server.start()
+    clients = [ApiCluster(server.url, kinds=()) for _ in range(2)]
+    electors = [LeaderElector(KubeLease(c, name="phase21-lead", identity=name,
+                                        duration=KUBE_LEASE_S), renew_interval=0.1)
+                for c, name in zip(clients, ("a", "b"))]
+    try:
+        for e in electors:
+            e.start()
+        deadline = time.time() + 10
+        while time.time() < deadline and not any(e.is_leader for e in electors):
+            time.sleep(0.01)
+        time.sleep(0.5)
+        leaders = [e.is_leader for e in electors]
+        if sum(leaders) != 1:
+            raise AssertionError(f"apiserver (d): leaders {leaders}")
+        leader, other = electors[leaders.index(True)], electors[1 - leaders.index(True)]
+        t0 = time.perf_counter()
+        leader.stop()
+        took = other.wait_for_leadership(timeout=KUBE_LEASE_S + 1.0)
+        takeover_s = time.perf_counter() - t0
+        if not took or takeover_s > KUBE_LEASE_S:
+            raise AssertionError(f"apiserver (d): takeover {took} after {takeover_s:.3f} s")
+        server.chaos = chaos
+        t0 = time.perf_counter()
+        chaos.blackout(KUBE_LEASE_S * 2)
+        deadline = time.time() + KUBE_LEASE_S * 2
+        while time.time() < deadline and not other.lease.status.fenced:
+            time.sleep(0.01)
+        fenced_s = time.perf_counter() - t0
+        if not other.lease.status.fenced:
+            raise AssertionError("apiserver (d): a blackout past expiry never fenced the holder")
+        while chaos.in_blackout():
+            time.sleep(0.01)
+        t1 = time.perf_counter()
+        deadline = time.time() + 10
+        while time.time() < deadline and (other.lease.status.fenced or not other.is_leader):
+            time.sleep(0.01)
+        lifted_s = time.perf_counter() - t1
+        if other.lease.status.fenced or not other.is_leader:
+            raise AssertionError("apiserver (d): recovery did not lift the fence")
+    finally:
+        for e in electors:
+            e.stop()
+        stop_clients(*clients)
+        server.stop()
+    log(f"[apiserver] (d) two LeaderElectors over KubeLeases on one Lease (duration "
+        f"{KUBE_LEASE_S:g} s, renew 0.1 s), each its own ApiCluster: exactly one led; it stopped "
+        f"and the other led {takeover_s * 1e3:.1f} ms later; a {KUBE_LEASE_S * 2:g} s blackout "
+        f"fenced the holder after {fenced_s:.3f} s (chaos dropped {chaos.counts(chaos.dropped)} "
+        f"requests) and the first answer after it lifted the fence and the lead in "
+        f"{lifted_s * 1e3:.1f} ms")
+    out["summary"]["d"] = {"takeover_s": takeover_s, "fenced_after_s": fenced_s,
+                           "lifted_s": lifted_s}
+
+    # -- (e) consolidation over the API server ------------------------------
+    server = TestApiServer()
+    rest = RestCounter()
+    server.chaos = rest
+    server.start()
+    provider = FakeCloudProvider(instance_types(n_types))
+    kubectl = ApiCluster(server.url, kinds=("pods",))
+    controller = ApiCluster(server.url)
+    rt = None
+    try:
+        kubectl.start()
+        controller.start()
+        if not (kubectl.wait_for_sync(30) and controller.wait_for_sync(30)):
+            raise AssertionError("apiserver (e): the informers never synced")
+        rt = build_runtime(Options(device=device), cluster=controller, cloud_provider=provider)
+        rt.manager.start()
+        recreated = []
+
+        def recreate(event, pod):
+            if event != "DELETED" or not pod.metadata.labels.get("workload"):
+                return
+            if pod.metadata.name in recreated:
+                return
+            recreated.append(pod.metadata.name)
+            kubectl.create("pods", make_pod(name=f"{pod.metadata.name}-r",
+                                            labels=dict(pod.metadata.labels),
+                                            requests={"cpu": "1"}))
+
+        kubectl.watch("pods", recreate)
+        server.cluster.create("provisioners", make_provisioner(solver="tpu"))
+        deadline = time.time() + 60
+        while time.time() < deadline and "default" not in rt.provisioning.workers:
+            time.sleep(0.01)
+        worker = rt.provisioning.workers["default"]
+        if not worker.warmed.wait(timeout=600):
+            raise AssertionError("apiserver (e): the warm-up never finished")
+        worker.batcher.idle_duration = 0.1
+        rounds = []
+        record_rounds(worker, rounds)
+        owner = OwnerReference(api_version="apps/v1", kind="ReplicaSet", name="w")
+        victims = []
+        for i in range(CONSOLIDATION_NODES):
+            node = make_node(name=f"old-{i}", provisioner_name="default",
+                             capacity={"cpu": "64", "memory": "256Gi", "pods": "100"},
+                             labels={lbl.INSTANCE_TYPE: f"fake-it-{n_types - 1}",
+                                     lbl.TOPOLOGY_ZONE: "test-zone-1",
+                                     lbl.CAPACITY_TYPE: "on-demand"},
+                             finalizers=[lbl.TERMINATION_FINALIZER])
+            node.status.conditions = [PodCondition(type="Ready", status="True")]
+            server.cluster.create("nodes", node)
+            for j in range(2):
+                p = make_pod(name=f"w-{i}-{j}", labels={"workload": "a"}, requests={"cpu": "1"},
+                             node_name=node.metadata.name, unschedulable=False, owner=owner)
+                server.cluster.create("pods", p)
+                victims.append(p.metadata.name)
+        deadline = time.time() + 30
+        while time.time() < deadline and (
+                sum(n.metadata.name.startswith("old-") for n in controller.nodes())
+                < CONSOLIDATION_NODES
+                or sum(p.metadata.name.startswith("w-") for p in controller.pods())
+                < len(victims)):
+            time.sleep(0.02)
+        consolidation = ConsolidationController(controller, provider, device=device)
+        if consolidation.migration != "evict":
+            raise AssertionError(f"apiserver (e): migration {consolidation.migration!r} on an "
+                                 f"ApiCluster")
+        start = counts()
+        requests_before = rest.snapshot()
+        t0 = time.perf_counter()
+        plan = consolidation.plan(controller.get("provisioners", "default", namespace=""))
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        plan_launches = delta(start)
+        if not plan.worthwhile or sum(plan_launches.values()) < 1:
+            raise AssertionError(f"apiserver (e): plan worthwhile {plan.worthwhile}, launches "
+                                 f"{plan_launches}")
+        launched_nodes = consolidation.execute(plan)
+        replaced = [f"{n}-r" for n in victims]
+        deadline = time.time() + 120
+        while time.time() < deadline and (
+                any(n.metadata.name.startswith("old-") for n in server.cluster.nodes())
+                or not all((p := server.cluster.try_get("pods", n)) is not None
+                           and p.spec.node_name for n in replaced)):
+            time.sleep(0.05)
+        settle_s = time.perf_counter() - t0
+        left = [n.metadata.name for n in server.cluster.nodes() if n.metadata.name.startswith("old-")]
+        unbound = [p.metadata.name for p in server.cluster.pods() if not p.spec.node_name]
+        if left or unbound or len(recreated) != len(victims):
+            raise AssertionError(f"apiserver (e): old nodes {left}, unbound {unbound[:5]}, "
+                                 f"{len(recreated)} of {len(victims)} recreated")
+        got = delta(start)
+        launched = check_rounds(rounds, {V1, V2}, "apiserver (e)")
+        replacement = {k: got[k] - plan_launches[k] for k in got}
+        expect_launches("apiserver e, replacement", replacement, launched)
+        if not sum(replacement.values()):
+            raise AssertionError("apiserver (e): the replacement plan never ran on the card")
+        requests = counters_delta(requests_before, rest.snapshot())
+        if requests.get("POST eviction", 0) < len(victims):
+            raise AssertionError(f"apiserver (e): {requests.get('POST eviction', 0)} evictions "
+                                 f"for {len(victims)} pods")
+        log(f"[apiserver] (e) ConsolidationController(migration=None) over an ApiCluster picked "
+            f"{consolidation.migration!r}; plan of {len(plan.nodes)} under-used nodes in "
+            f"{plan_ms:.3f} ms ({plan_launches}, worthwhile, {plan.current_price:.4f} -> "
+            f"{plan.proposed_price:.4f} $/h), execute pre-launched {len(launched_nodes)}; "
+            f"{requests.get('POST eviction', 0)} evictions through the eviction subresource, "
+            f"{len(recreated)} pods recreated and bound by {len(rounds)} card rounds "
+            f"({replacement}); every pod bound, old nodes gone in {settle_s:.3f} s; card {card}")
+        note("e_plan", plan_launches)
+        note("e_replacement", replacement)
+        out["summary"]["e"] = {"plan_ms": plan_ms, "settle_s": settle_s,
+                               "evictions": requests.get("POST eviction", 0),
+                               "rounds": len(rounds)}
+    finally:
+        if rt is not None:
+            rt.stop()
+        stop_clients(kubectl, controller)
+        server.stop()
+
+    phase_s = time.perf_counter() - t_phase
+    out["summary"]["phase_s"] = phase_s
+    log(f"[apiserver] phase 21 wall {phase_s:.3f} s; card {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6531,6 +7514,9 @@ def main() -> int:
     # -- 20. process ------------------------------------------------------
     process = process_phase(card)
 
+    # -- 21. apiserver ----------------------------------------------------
+    apiserver = apiserver_phase(card)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -6557,6 +7543,7 @@ def main() -> int:
         "warmpool": {**warmpool["pack_first_fit"], **warmpool["summary"]},
         "telemetry": {**telemetry["pack_first_fit"], **telemetry["summary"]},
         "process": {**process["pack_first_fit"], **process["summary"]},
+        "apiserver": {**apiserver["pack_first_fit"], **apiserver["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -6586,6 +7573,7 @@ def main() -> int:
         "warmpool": {**warmpool["pack_first_fit_v2"], **warmpool["summary"]},
         "telemetry": {**telemetry["pack_first_fit_v2"], **telemetry["summary"]},
         "process": {**process["pack_first_fit_v2"], **process["summary"]},
+        "apiserver": {**apiserver["pack_first_fit_v2"], **apiserver["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

@@ -19,16 +19,18 @@ risk, plus a per-pod move charge.
 
 Execute has two migration modes:
 
-- ``bind`` (the default: the in-memory ``Cluster`` is the store this
-  package has, and it permits rebinding): launch replacements through the
-  cloud provider and rebind pods directly; every retired node is deleted
-  at once and the termination controller drains it;
-- ``evict``: retire at most ``wave_size`` victims a reconcile, admitted by
-  the disruption budget. With an ``orchestrator`` wired, each victim runs
-  the interruption subsystem's taint→replace→drain sequence (its pods are
-  released and submitted to provisioning BEFORE any eviction); without
-  one, each is deleted and the termination controller drains it. Workload
-  recreations flow through the normal provisioning path. The next wave
+- ``bind`` (the default on the in-memory ``Cluster``, which permits
+  rebinding): launch replacements through the cloud provider and rebind
+  pods directly; a real apiserver rejects Binding a pod that already has a
+  nodeName, so an ``ApiCluster`` refuses this mode; every retired node is
+  deleted at once and the termination controller drains it;
+- ``evict`` (the default on an ``ApiCluster``): retire at most
+  ``wave_size`` victims a reconcile, admitted by the disruption budget.
+  With an ``orchestrator`` wired, each victim runs the interruption
+  subsystem's taint→replace→drain sequence (its pods are released and
+  submitted to provisioning BEFORE any eviction); without one, each is
+  deleted and the termination controller drains it. Workload recreations
+  flow through the normal provisioning path. The next wave
   waits until the victims are gone and the pods displaced since the wave
   began are seated (``wave_settled``).
 
@@ -135,7 +137,8 @@ class ConsolidationController:
     provisioner's re-pack runs (``cuda``, the default, needs a card;
     ``cpu`` runs the plain PyTorch version); each plan builds a new
     ``Scheduler`` on it, as the reference builds one per plan.
-    ``migration`` None means ``bind``."""
+    ``migration`` None means ``evict`` on an ``ApiCluster`` and ``bind``
+    on any other store."""
 
     def __init__(
         self,
@@ -143,7 +146,7 @@ class ConsolidationController:
         cloud_provider: CloudProvider,
         enabled: bool = True,
         solver_service_address: Optional[str] = None,
-        migration: Optional[str] = None,  # "bind" | "evict" | None = bind
+        migration: Optional[str] = None,  # "bind" | "evict" | None = auto
         wave_size: int = EVICT_WAVE_SIZE,
         ownership=None,
         decisions=None,  # obs.decisions.DecisionLog override (tests)
@@ -179,8 +182,11 @@ class ConsolidationController:
         self.nodes_reclaimed = 0
         self.budget_blocked = 0
         self.cost_delta_usd = 0.0
+        from karpenter_tpu_torch.kube.apiserver import ApiCluster
+
         if migration is None:
-            migration = "bind"
+            # a real apiserver rejects rebinding a running pod
+            migration = "evict" if isinstance(cluster, ApiCluster) else "bind"
         if migration not in ("bind", "evict"):
             raise ValueError(f"migration must be bind|evict, got {migration}")
         self.wave_size = max(1, wave_size)
@@ -196,6 +202,13 @@ class ConsolidationController:
         # the first wave the ladder pauses. In-flight waves still settle;
         # only NEW plans are deferred.
         self._paused = False  # guarded-by: self._wave_lock
+        if migration == "bind" and isinstance(cluster, ApiCluster):
+            # would fail mid-execute on the first rebind (409), leaking the
+            # already-launched replacements next to the old capacity
+            raise ValueError(
+                "bind migration cannot work against a real apiserver "
+                "(Binding an assigned pod is rejected); use evict"
+            )
         self.migration = migration
 
     def _decision_log(self):

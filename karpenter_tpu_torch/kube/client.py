@@ -63,10 +63,12 @@ class _Store:
 class Cluster:
     """Typed object store: pods, nodes, daemonsets, provisioners, PVCs, PVs,
     storage classes, PDBs, leases (the launch journal's kube backend keeps
-    one per open entry), events."""
+    one per open entry), the webhook registrations (the caBundle
+    reconciler's targets), events."""
 
     KINDS = ("pods", "nodes", "daemonsets", "provisioners", "pvcs", "pvs",
-             "storageclasses", "pdbs", "leases", "events")
+             "storageclasses", "pdbs", "leases", "validatingwebhookconfigurations",
+             "mutatingwebhookconfigurations", "events")
 
     def __init__(self, clock: Optional[Callable[[], float]] = None):
         self._lock = threading.RLock()

@@ -11,9 +11,11 @@ can drive or stop it.
 Every controller that solves is built on ``options.device`` (``cuda``
 unless the caller asks for ``cpu``): on the card every ``solver: tpu``
 round launches the hand-written kernels, and nothing falls back to the
-CPU. The apiserver client, the shard leases and the apiserver-backed
-leader lease are not ported: ``--kube-api-server``, ``--shard-lease`` and a
-``kube:`` leader-election lease raise ValueError naming what is missing.
+CPU. ``--kube-api-server`` runs the process over an API server
+(``ApiCluster``, informer caches started and synced before leadership), and
+a ``kube:<namespace>/<name>`` leader-election lease is a Lease object there.
+The shard leases are not ported: ``--shard-lease`` raises ValueError naming
+what is missing.
 """
 
 from __future__ import annotations
@@ -256,9 +258,16 @@ def _build_cluster(options: Options) -> Cluster:
     (reference: cmd/controller/main.go:68-70 rate-limited kube client)."""
     if not options.kube_api_server:
         return Cluster()
-    raise ValueError(
-        "--kube-api-server needs kube/apiserver.py (ApiCluster) and "
-        "kube/transport.py, which are not ported"
+    from karpenter_tpu_torch.kube.apiserver import ApiCluster
+
+    if options.kube_api_server == "in-cluster":
+        return ApiCluster.from_env(
+            qps=options.kube_client_qps, burst=options.kube_client_burst
+        )
+    return ApiCluster(
+        options.kube_api_server,
+        qps=options.kube_client_qps,
+        burst=options.kube_client_burst,
     )
 
 
@@ -456,14 +465,6 @@ def build_runtime(
 def run_controller_process(options: Optional[Options] = None, serve: bool = True) -> Runtime:
     """The ``main()`` equivalent: build, wait for leadership when a lease is
     configured, start, and serve metrics/health."""
-    options = options or Options()
-    if options.leader_election_lease.startswith("kube:"):
-        # a Lease object needs the apiserver client; refused before any
-        # controller thread starts
-        raise ValueError(
-            "a kube: leader-election lease needs kube/leader.py (KubeLease) "
-            "and kube/apiserver.py, which are not ported"
-        )
     runtime = build_runtime(options)
     from karpenter_tpu_torch.logging_config import LogLevelWatcher, setup_logging
 
@@ -541,6 +542,12 @@ def run_controller_process(options: Optional[Options] = None, serve: bool = True
     if runtime.options.log_config_file:
         runtime.log_watcher = LogLevelWatcher(runtime.options.log_config_file)
         runtime.log_watcher.start()
+    from karpenter_tpu_torch.kube.apiserver import ApiCluster
+
+    if isinstance(runtime.cluster, ApiCluster):
+        runtime.cluster.start()
+        if not runtime.cluster.wait_for_sync(60):
+            raise RuntimeError("apiserver cache never synced")
     if runtime.options.leader_election_lease:
         from karpenter_tpu_torch.utils.lease import FileLease, LeaderElector
 
@@ -552,7 +559,31 @@ def run_controller_process(options: Optional[Options] = None, serve: bool = True
             runtime.manager.stop()
 
         spec = runtime.options.leader_election_lease
-        lease = FileLease(spec)
+        if spec.startswith("kube:"):
+            # cluster-scoped Lease object: kube:<namespace>/<name> (a bare
+            # kube:<name> lands in kube-system)
+            # (reference: cmd/controller/main.go:84-85)
+            from karpenter_tpu_torch.kube.leader import KubeLease
+
+            if not isinstance(runtime.cluster, ApiCluster):
+                # an in-memory store is per-process: every replica would
+                # elect itself — silent split brain
+                raise ValueError(
+                    "kube: leader election requires --kube-api-server "
+                    "(the in-memory cluster cannot coordinate replicas)"
+                )
+            ns_name = spec[len("kube:"):]
+            if "/" in ns_name:
+                namespace, _, name = ns_name.partition("/")
+            else:
+                namespace, name = "kube-system", ns_name
+            lease = KubeLease(
+                runtime.cluster,
+                name=name or "karpenter-leader-election",
+                namespace=namespace or "kube-system",
+            )
+        else:
+            lease = FileLease(spec)
         runtime.elector = LeaderElector(lease, on_lost=on_lost)
         runtime.elector.start()
         logger.info("waiting for leadership (%s)", spec)

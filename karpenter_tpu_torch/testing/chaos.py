@@ -21,7 +21,10 @@ in-process sidecars with kill and restart controls. ``LaunchCrash`` and
 ``LaunchCrashCluster`` simulate a replica dying between the launch path's
 writes (cloud create → Node object → bind). ``ArrivalPattern`` compiles a
 seeded diurnal + flash-crowd pod-arrival schedule (the forecast storm's
-demand), bit for bit the reference's for the same seed.
+demand), bit for bit the reference's for the same seed. ``ApiServerChaos``
+wraps the in-repo Kubernetes API server (``kube/testserver.py``): seeded
+503s, 429s with ``Retry-After``, latency and blackout windows that drop the
+connection, drawn in the reference's order.
 """
 
 from __future__ import annotations
@@ -346,6 +349,153 @@ def _nan_inject(frame: bytes, seed: int) -> bytes:
         return False
 
     return _reframe(frame, seed, patch)
+
+
+# ---------------------------------------------------------------------------
+# control-plane partition scenarios (docs/partition.md): the KUBE apiserver
+# misbehaving — the one dependency every subsystem shares
+# ---------------------------------------------------------------------------
+
+
+class ApiServerChaos:
+    """Chaos for the Kubernetes control plane: wraps ``TestApiServer``
+    (``TestApiServer(chaos=...)`` or ``server.chaos = ...``) so every REST
+    request — reads, writes, lease renewals, watch connects — can be
+    seeded-randomly failed, throttled, slowed, or dropped:
+
+    - **error_rate**: per-request probability of an injected 503 (a
+      browning-out apiserver), optionally overridden per HTTP verb
+      (``per_verb={"PATCH": 0.5}``);
+    - **throttle_rate**: probability of a 429 WITH a ``Retry-After``
+      header — the signal the transport's backoff must honor;
+    - **latency_floor / latency_p95**: server-side delay (deterministic
+      floor + exponential tail capped at 4x p95);
+    - **blackout windows**: the connection is dropped without a response
+      (the client sees ``RemoteDisconnected`` — a real partition's shape,
+      not a polite error document). ``blackout(seconds)`` opens a window
+      starting now; ``blackouts`` pre-seeds windows relative to arming.
+
+    Counters (``injected``/``throttled``/``dropped``/``delayed`` by verb)
+    let tests assert chaos actually fired; the RNG is seeded and drawn
+    under a lock so a storm's draw SEQUENCE is reproducible."""
+
+    def __init__(
+        self,
+        error_rate: float = 0.0,
+        throttle_rate: float = 0.0,
+        retry_after: float = 0.25,
+        latency_p95: float = 0.0,
+        latency_floor: float = 0.0,
+        blackouts: Sequence[ChaosWindow] = (),
+        per_verb: Optional[Dict[str, float]] = None,
+        seed: int = 0,
+        clock=time.monotonic,
+    ):
+        import random
+
+        self.error_rate = error_rate
+        self.throttle_rate = throttle_rate
+        self.retry_after = retry_after
+        self.latency_p95 = latency_p95
+        self.latency_floor = latency_floor
+        self.blackouts = list(blackouts)
+        self.per_verb = dict(per_verb or {})
+        self._clock = clock
+        self._t0 = clock()
+        self._rng = random.Random(seed)
+        self._mu = threading.Lock()
+        self.injected: Dict[str, int] = {}   # verb -> injected 503s
+        self.throttled: Dict[str, int] = {}  # verb -> injected 429s
+        self.dropped: Dict[str, int] = {}    # verb -> blackout drops
+        self.delayed: Dict[str, int] = {}    # verb -> latency injections
+        # verb -> remaining forced failures (fail_next): the deterministic
+        # "exactly the next N requests fail" primitive retry tests need —
+        # probabilistic rates make "retried then succeeded" flaky
+        self._forced: Dict[str, int] = {}
+
+    def elapsed(self) -> float:
+        return self._clock() - self._t0
+
+    def blackout(self, seconds: float) -> ChaosWindow:
+        """Open a blackout window starting NOW (storm legs phase these)."""
+        now = self.elapsed()
+        window = ChaosWindow(now, now + seconds)
+        with self._mu:
+            self.blackouts.append(window)
+        return window
+
+    def in_blackout(self) -> bool:
+        now = self.elapsed()
+        with self._mu:
+            return any(w.contains(now) for w in self.blackouts)
+
+    def _note(self, table: Dict[str, int], verb: str) -> None:
+        with self._mu:
+            table[verb] = table.get(verb, 0) + 1
+
+    def counts(self, table: Dict[str, int]) -> int:
+        with self._mu:
+            return sum(table.values())
+
+    def fail_next(self, verb: str, n: int = 1) -> None:
+        """Force exactly the next ``n`` requests of ``verb`` to answer 503
+        (counted in ``injected``) regardless of rates — the deterministic
+        arm for proving a retry ladder recovers."""
+        with self._mu:
+            self._forced[verb] = self._forced.get(verb, 0) + n
+
+    def intercept(self, handler, method: str, path: str) -> bool:
+        """Chaos disposition for one request. Returns True when the chaos
+        layer handled it (sent an error / dropped the connection) and the
+        real handler must not run."""
+        with self._mu:
+            roll = self._rng.random()
+            throttle_roll = self._rng.random()
+            forced = self._forced.get(method, 0) > 0
+            if forced:
+                self._forced[method] -= 1
+            delay = self.latency_floor
+            if self.latency_p95 > 0.0:
+                delay += min(
+                    self._rng.expovariate(_LN20 / self.latency_p95),
+                    self.latency_p95 * 4.0,
+                )
+        if delay > 0.0:
+            self._note(self.delayed, method)
+            time.sleep(delay)
+        if self.in_blackout():
+            # a partition, not a polite error: drop the connection without
+            # a response — the client sees RemoteDisconnected/reset
+            self._note(self.dropped, method)
+            handler.close_connection = True
+            try:
+                import socket as _socket
+
+                handler.connection.shutdown(_socket.SHUT_RDWR)
+            except OSError:
+                pass
+            return True
+        if forced or roll < self.per_verb.get(method, self.error_rate):
+            self._note(self.injected, method)
+            handler._send_json(503, {
+                "apiVersion": "v1", "kind": "Status", "status": "Failure",
+                "code": 503, "reason": "ServiceUnavailable",
+                "message": "chaos: injected apiserver failure",
+            })
+            return True
+        if throttle_roll < self.throttle_rate:
+            self._note(self.throttled, method)
+            handler._send_json(
+                429,
+                {
+                    "apiVersion": "v1", "kind": "Status", "status": "Failure",
+                    "code": 429, "reason": "TooManyRequests",
+                    "message": "chaos: apiserver brownout",
+                },
+                headers={"Retry-After": f"{self.retry_after:g}"},
+            )
+            return True
+        return False
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Leader election via a lease — the active/passive single-writer hook
 (reference: cmd/controller/main.go:84-85 ``karpenter-leader-election``) —
 and the keyed lease SET that generalizes it into the fleet's sharding
-primitive (docs/fleet.md). The sharding manager that drives the set
-(``fleet/ownership.py``) and the apiserver-backed leases are not ported
-yet; the set and the elector over a file lease are.
+primitive (docs/fleet.md). The apiserver-backed leases are
+``kube/leader.py``'s; the sharding manager that drives a set
+(``fleet/ownership.py``) is not ported yet.
 
 The in-memory deployment has one process, so the default lease is in-process;
 multi-process deployments back it with a shared file (one machine) or swap in
@@ -36,6 +36,10 @@ logger = logging.getLogger("karpenter.lease")
 
 DEFAULT_LEASE_DURATION = 15.0
 DEFAULT_RENEW_INTERVAL = 5.0
+# how soon a renewal that found the lease's backend unreachable is retried
+# (client-go's RetryPeriod): at the renew interval, two transient failures
+# in a row (a 429, then a short blackout) outlast a 15 s lease's hold
+RETRY_INTERVAL = 2.0
 
 # a crashed writer can leave its write-to-temp file behind forever; sweep
 # anything older than this many lease durations during acquire rounds
@@ -308,7 +312,9 @@ class FileLeaseSet:
 
 class LeaderElector:
     """Blocks followers until leadership is acquired, then renews on a
-    heartbeat; ``is_leader`` flips false if renewal fails (lost lease) and
+    heartbeat (a renewal that held the lease optimistically, its backend
+    unreachable, is retried after ``RETRY_INTERVAL`` instead);
+    ``is_leader`` flips false if renewal fails (lost lease) and
     the ``on_lost`` callback fires — a second active leader must never keep
     mutating cloud state (the reference exits the process on lost lease)."""
 
@@ -371,7 +377,12 @@ class LeaderElector:
                 # split-brain case election exists to prevent
                 logger.exception("lease operation failed")
                 self._fire_lost()
-            self._stop.wait(self.renew_interval)
+            wait = self.renew_interval
+            if self._leader.is_set() and getattr(self.lease, "unreachable", False):
+                # an optimistic hold (kube/leader.py): retry soon, so a
+                # short outage is bridged well before the hold's fence
+                wait = min(wait, RETRY_INTERVAL)
+            self._stop.wait(wait)
 
     def wait_for_leadership(self, timeout: Optional[float] = None) -> bool:
         return self._leader.wait(timeout)

@@ -292,13 +292,7 @@ def serve(
 
 
 def main(argv=None) -> None:
-    """Webhook process entrypoint: ``python -m karpenter_tpu_torch.webhook``.
-
-    HTTPS when ``--tls-cert`` and ``--tls-key`` name a serving cert and key
-    (PEM files made elsewhere), plain HTTP otherwise. Generating the cert and
-    reconciling the webhook registrations' caBundle need an apiserver
-    client, which this package does not have yet: ``--kube-api-server`` is
-    refused with a ValueError."""
+    """Webhook process entrypoint: ``python -m karpenter_tpu_torch.webhook``."""
     import argparse
     import time
 
@@ -308,31 +302,72 @@ def main(argv=None) -> None:
     ap.add_argument("--address", default="0.0.0.0:8443")
     ap.add_argument("--cloud-provider", default="fake")
     ap.add_argument("--default-solver", default=SOLVER_FFD)
-    ap.add_argument("--tls-cert", default="", help="PEM serving certificate")
-    ap.add_argument("--tls-key", default="", help="PEM private key")
+    ap.add_argument("--cert-dir", default="/tmp/karpenter-webhook-certs",
+                    help="serving cert dir; cert is self-generated when absent")
+    ap.add_argument("--service-name", default="karpenter-tpu-webhook")
+    ap.add_argument("--service-namespace", default="karpenter")
+    ap.add_argument("--no-tls", action="store_true", help="plain HTTP (dev only)")
     ap.add_argument("--kube-api-server", default="",
-                    help="refused: the apiserver client (caBundle "
-                         "self-reconciliation) is not ported")
+                    help="'in-cluster' or an apiserver URL; enables runtime "
+                         "caBundle self-reconciliation of the webhook "
+                         "registrations (reference: cmd/webhook/main.go:46-63)")
+    ap.add_argument("--webhook-config", action="append", default=[],
+                    metavar="KIND:NAME",
+                    help="webhook registration to keep current, e.g. "
+                         "validating:validation.webhook.provisioners.karpenter.sh "
+                         "(repeatable; defaults to the two shipped registrations)")
     args = ap.parse_args(argv)
-    if args.kube_api_server:
-        raise ValueError(
-            "--kube-api-server needs kube/apiserver.py (ApiCluster) and "
-            "kube/cabundle.py, which are not ported"
-        )
-    if bool(args.tls_cert) != bool(args.tls_key):
-        ap.error("--tls-cert and --tls-key go together")
     provider = registry.new_cloud_provider(args.cloud_provider)
+    tls_cert = tls_key = ca_path = None
+    if not args.no_tls:
+        from karpenter_tpu_torch.kube.certs import ensure_serving_cert
+
+        dns = [
+            args.service_name,
+            f"{args.service_name}.{args.service_namespace}",
+            f"{args.service_name}.{args.service_namespace}.svc",
+            f"{args.service_name}.{args.service_namespace}.svc.cluster.local",
+        ]
+        tls_cert, tls_key, ca_path = ensure_serving_cert(args.cert_dir, dns)
+        print(f"serving cert ready; caBundle at {ca_path}")
+    reconciler = None
+    if args.kube_api_server and ca_path:
+        from karpenter_tpu_torch.kube.apiserver import ApiCluster
+        from karpenter_tpu_torch.kube.cabundle import CABundleReconciler
+
+        _KIND_ALIASES = {
+            "validating": "validatingwebhookconfigurations",
+            "mutating": "mutatingwebhookconfigurations",
+        }
+        specs = args.webhook_config or [
+            "mutating:defaulting.webhook.provisioners.karpenter.sh",
+            "validating:validation.webhook.provisioners.karpenter.sh",
+        ]
+        configs = []
+        for spec in specs:
+            kind, _, name = spec.partition(":")
+            configs.append((_KIND_ALIASES.get(kind, kind), name))
+        if args.kube_api_server == "in-cluster":
+            cluster = ApiCluster.from_env()
+        else:
+            cluster = ApiCluster(args.kube_api_server)
+        # no informer start: the reconciler reads live and patches — the
+        # webhook RBAC grants only get/update/patch on admissionregistration
+        reconciler = CABundleReconciler(cluster, configs, ca_path).start()
+        print(f"caBundle reconciler running for {configs}")
     server = serve(
         Webhook(provider, default_solver=args.default_solver),
         args.address,
-        tls_cert=args.tls_cert or None,
-        tls_key=args.tls_key or None,
+        tls_cert=tls_cert,
+        tls_key=tls_key,
     )
     try:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
         server.shutdown()
+        if reconciler is not None:
+            reconciler.stop()
 
 
 if __name__ == "__main__":

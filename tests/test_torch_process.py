@@ -16,6 +16,7 @@ webhook over HTTPS from given cert files, and two electors on one lease.
 """
 
 import gc
+import importlib
 import json
 import subprocess
 import threading
@@ -176,15 +177,34 @@ def test_build_runtime_threads_the_device_into_every_solving_controller():
             rt.stop()
 
 
-# -- the settings the port refuses ----------------------------------------------
+# -- the API server settings, and the one the port still refuses --------------------
 
 
-def test_kube_api_server_is_refused():
-    M = proc(PORT)
-    with pytest.raises(ValueError, match="kube/apiserver.py"):
-        M.main.build_runtime(M.options.Options(device="cpu", kube_api_server="http://x:6443"))
-    with pytest.raises(ValueError, match="kube/apiserver.py"):
-        M.webhook.main(["--kube-api-server", "in-cluster", "--address", "127.0.0.1:0"])
+def test_kube_api_server_is_refused(monkeypatch):
+    """``--kube-api-server`` was refused until the API server client was
+    ported; now ``build_runtime`` runs over an ``ApiCluster`` with the
+    client QPS knobs, and ``in-cluster`` reads the service-account
+    environment, as in the reference."""
+    monkeypatch.setenv("KUBERNETES_SERVICE_HOST", "10.0.0.1")
+    monkeypatch.setenv("KUBERNETES_SERVICE_PORT", "6443")
+
+    def run(M):
+        api = importlib.import_module(f"{M.pkg}.kube.apiserver")
+        out = []
+        for url in ("http://127.0.0.1:6443", "in-cluster"):
+            rt = M.main.build_runtime(options(M, kube_api_server=url, kube_client_qps=50,
+                                              kube_client_burst=60), start_workers=False)
+            try:
+                c = rt.cluster
+                out.append((type(c) is api.ApiCluster, c._scheme, c._host, c._port,
+                            c.transport.limiter.qps, c.transport.limiter.burst,
+                            rt.consolidation.migration))
+            finally:
+                rt.stop()
+        return out
+
+    assert both(run) == [(True, "http", "127.0.0.1", 6443, 50.0, 60, "evict"),
+                         (True, "https", "10.0.0.1", 6443, 50.0, 60, "evict")]
 
 
 def test_shard_lease_is_refused(tmp_path):
@@ -194,14 +214,46 @@ def test_shard_lease_is_refused(tmp_path):
 
 
 def test_kube_leader_election_lease_is_refused():
+    """A ``kube:`` leader-election lease was refused until the leases over
+    the API were ported; now ``run_controller_process`` over an API server
+    syncs its informers, leads through a Lease object, keeps its launch
+    journal on the server (``kube:``), binds pods created server-side, and
+    releases the Lease on stop. Without an API server the reference's
+    ValueError stands."""
+    def run(M):
+        ts = importlib.import_module(f"{M.pkg}.kube.testserver")
+        server = ts.TestApiServer()
+        server.start()
+        rt = M.main.run_controller_process(options(
+            M, kube_api_server=server.url, leader_election_lease="kube:kube-system/lead",
+            launch_journal="kube:kube-system/launch", cloud_provider="fake"), serve=False)
+        try:
+            leader = server.cluster.get("leases", "lead", namespace="kube-system")
+            led = (leader.holder_identity == rt.elector.lease.identity, rt.elector.is_leader)
+            server.cluster.create("provisioners", M.f.make_provisioner())
+            assert wait(lambda: "default" in rt.provisioning.workers, 30)
+            rt.provisioning.workers["default"].batcher.idle_duration = 0.1
+            for i in range(3):
+                server.cluster.create("pods", M.f.make_pod(name=f"app-{i}",
+                                                           requests={"cpu": "1"}))
+            bound = wait(lambda: all(p.spec.node_name for p in server.cluster.pods()), 30)
+            settled = wait(lambda: not rt.journal.unresolved(), 10)
+            nodes = len(server.cluster.nodes())
+        finally:
+            rt.stop()
+            stopped = server.cluster.get("leases", "lead", namespace="kube-system")
+            server.stop()
+        return led, bound, settled, nodes, stopped.holder_identity, type(rt.journal).__name__
+
+    assert both(run) == ((True, True), True, True, 1, "", "KubeLaunchJournal")
     M = proc(PORT)
-    threads = threading.active_count()
-    with pytest.raises(ValueError, match="kube/leader.py"):
-        M.main.run_controller_process(
-            M.options.Options(device="cpu", leader_election_lease="kube:kube-system/lead"),
-            serve=False)
-    # refused before any controller thread started
-    assert threading.active_count() <= threads
+    with pytest.raises(ValueError, match="kube: leader election requires --kube-api-server"):
+        try:
+            M.main.run_controller_process(
+                M.options.Options(device="cpu", leader_election_lease="kube:kube-system/lead"),
+                serve=False)
+        finally:
+            importlib.import_module(f"{PORT}.obs").reset_for_tests()
 
 
 # -- TestServedEndpoints ----------------------------------------------------------
@@ -485,8 +537,7 @@ def test_webhook_server_endpoints():
 
 def test_webhook_serves_https_from_given_cert_files(tmp_path):
     """``serve`` with a cert and key made outside the package (here by the
-    ``openssl`` command line) speaks HTTPS; the port's ``main`` takes them as
-    ``--tls-cert`` / ``--tls-key``."""
+    ``openssl`` command line) speaks HTTPS."""
     import ssl
 
     cert, key = tmp_path / "tls.crt", tmp_path / "tls.key"

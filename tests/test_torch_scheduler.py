@@ -126,7 +126,8 @@ def test_importing_the_port_loads_no_jax():
         "    'launch.recovery', 'utils.lease', 'fleet', 'forecast.model',\n"
         "    'cloudprovider.simulated', 'controllers.warmpool', 'options', 'main', 'webhook',\n"
         "    'cloudprovider.registry', 'cloudprovider.gke', 'cloudprovider.httpapi',\n"
-        "    'scheduling.oracle'))\n"
+        "    'scheduling.oracle', 'kube.transport', 'kube.apiserver', 'kube.testserver',\n"
+        "    'kube.leader', 'kube.cabundle'))\n"
         "from karpenter_tpu_torch.options import parse_args\n"
         "new = new and parse_args([]).device == 'cuda'\n"
         "bad += ['grpc'] if 'grpc' in sys.modules else []\n"

@@ -21,6 +21,7 @@ lowest index of the pods it holds.
 import importlib
 import json
 import re
+import threading
 from types import SimpleNamespace
 
 import pytest
@@ -403,9 +404,11 @@ def test_gc_sweep_reaps_expired_speculation():
 
 def test_brownout_freezes_a_wave_midflight_and_resumes():
     """Rung 1 arriving during a wave of 12 freezes the launches not yet
-    started (how many ran first depends on the executor's threads: 1 to
-    8 in either package); rung 0 lets the next wave top the pool up to
-    the same 12 Nodes in both."""
+    started; rung 0 lets the next wave top the pool up to the same 12
+    Nodes in both. The wave runs on 8 threads, so how many creates pass
+    the pause check before the first tick depends on thread timing: the
+    creates wait on a barrier of 8 before they tick, so exactly the 8
+    first tasks launch and the other 4 freeze in both packages."""
     def run(M):
         env = Env(M, max_nodes=12)
         try:
@@ -413,8 +416,10 @@ def test_brownout_freezes_a_wave_midflight_and_resumes():
             ctl = M.brownout.BrownoutController(burning_fn=lambda: True, warmpool=env.wp,
                                                 escalate_after=1)
             orig = env.provider.create
+            first_eight = threading.Barrier(8, timeout=30.0)
 
             def create_then_brownout(request):
+                first_eight.wait()
                 node = orig(request)
                 ctl.tick()
                 return node
@@ -422,7 +427,7 @@ def test_brownout_freezes_a_wave_midflight_and_resumes():
             env.provider.create = create_then_brownout
             env.wp.reconcile(M.warmpool.WARM_POOL_KEY)
             frozen = env.wp.speculative_launches
-            assert 1 <= frozen <= 8 and len(env.warm_nodes()) == frozen and env.wp.paused()
+            assert frozen == 8 and len(env.warm_nodes()) == frozen and env.wp.paused()
             env.provider.create = orig
             ctl.stop()
             paused = env.wp.paused()

@@ -582,3 +582,120 @@ def both_canon(fn, ns=None):
             out.append(fn(ns(pkg)))
     assert canon(out[1]) == canon(out[0])
     return out[1]
+
+
+# -- the API server path -------------------------------------------------------
+
+
+def kube(pkg: str) -> SimpleNamespace:
+    """``proc(pkg)`` plus the API server path: the transport, ``ApiCluster``,
+    the test API server, the leases, the webhook's caBundle reconciler and
+    the event recorder."""
+    def m(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    return SimpleNamespace(
+        **vars(proc(pkg)), transport=m("kube.transport"), api=m("kube.apiserver"),
+        ts=m("kube.testserver"), leader=m("kube.leader"), cabundle=m("kube.cabundle"),
+        kevents=m("kube.events"), client=m("kube.client"), obs=m("obs"),
+        scenarios=m("testing.scenarios"))
+
+
+def stop_client(client) -> None:
+    """Stop an ``ApiCluster`` without waiting out its watch reads: each
+    watch socket is shut down, so a thread blocked in a read returns at
+    once instead of at the server's next heartbeat (a second)."""
+    import socket
+
+    client._stop.set()
+    for conn in list(client._watch_conns.values()):
+        sock = getattr(conn, "sock", None)
+        if sock is not None:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+    client.stop()
+
+
+class KubeEnv:
+    """One package's ``TestApiServer``, started, over ``cluster`` (a fresh
+    in-memory store by default), and the ``ApiCluster`` clients
+    ``connect`` hands out; ``stop`` stops them all (``stop_client``)."""
+
+    def __init__(self, M, cluster=None, chaos=None):
+        self.M = M
+        self.server = M.ts.TestApiServer(cluster=cluster, chaos=chaos)
+        self.server.start()
+        self.url = self.server.url
+        self.cluster = self.server.cluster
+        self.clients = []
+
+    @property
+    def chaos(self):
+        return self.server.chaos
+
+    @chaos.setter
+    def chaos(self, value):
+        self.server.chaos = value
+
+    def connect(self, M=None, start=True, fast_retries=False, **kw):
+        """An ``ApiCluster`` of package ``M`` (the server's by default);
+        ``start`` runs its informers and waits for the first sync;
+        ``fast_retries`` shrinks the transport's backoff to 10-50 ms."""
+        M = M or self.M
+        client = M.api.ApiCluster(self.url, **kw)
+        if fast_retries:
+            client.transport._backoff_base = 0.01
+            client.transport._backoff_cap = 0.05
+        self.clients.append(client)
+        if start:
+            client.start()
+            assert client.wait_for_sync(10)
+        return client
+
+    def stop(self) -> None:
+        for client in self.clients:
+            stop_client(client)
+        self.server.stop()
+
+
+@contextlib.contextmanager
+def kube_env(M, **kw):
+    """``KubeEnv(M, **kw)`` around the block."""
+    env = KubeEnv(M, **kw)
+    try:
+        yield env
+    finally:
+        env.stop()
+
+
+def sample(M, name, labels=None) -> float:
+    """One sample of package ``M``'s metrics registry (0 when absent)."""
+    return M.metrics.REGISTRY.get_sample_value(name, labels or {}) or 0.0
+
+
+def both_at_once(fn, ns=kube):
+    """``fn(M)`` for the two packages on two threads at once (for cases
+    that wait out server-side timeouts or latency); the port's result, once
+    it equals the reference's under ``canon``."""
+    import threading
+
+    out, errors = {}, []
+
+    def run(pkg):
+        try:
+            out[pkg] = fn(ns(pkg))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(pkg,)) for pkg in PACKAGES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if errors:
+        raise errors[0]
+    assert set(out) == set(PACKAGES)
+    assert canon(out[PACKAGES[1]]) == canon(out[PACKAGES[0]])
+    return out[PACKAGES[1]]
