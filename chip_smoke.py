@@ -228,8 +228,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              threads) over a decorated FakeCloudProvider(instance_types(400));
              a solver: tpu
              provisioner, its worker's warm-up of 2,000 pods awaited, the
-             batch idle window 0.2 s; 10,000 pods (cpu 0.25/0.5/1 from
-             Random(5)) created one by one until every one is bound: the
+             batch idle window 0.2 s; 5,000 pods (cpu 0.25/0.5/1 from
+             Random(5); the bench's 10,000, cut since phase 22 runs) created
+             one by one until every one is bound: the
              create->bind p50 and p99, bound pods per second and the wall;
              each round's batch, kernel, route and SCHEDULING_DURATION; it
              fails on a pod bound twice, a round that names no kernel or
@@ -292,8 +293,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              (every controller main.py builds, the interruption poll set to
              0.1 s) over a decorated FakeCloudProvider(instance_types(400)),
              a solver: tpu
-             provisioner with batch idle 0.2 s; 10,000 pods (cpu
-             0.1/0.25/0.5, Random(17)) bound, then 5 rounds each preempting
+             provisioner with batch idle 0.2 s; 5,000 pods (cpu
+             0.1/0.25/0.5, Random(17); the bench's 10,000, cut since phase
+             22 runs) bound, then 5 rounds each preempting
              ceil(5%) of the live nodes (grace 120 s) and waiting until every
              victim is gone and every released pod is bound again: notices,
              pods replaced, notice->re-bind lead time p50 and p99, each
@@ -459,6 +461,54 @@ Phases (any failure exits non-zero; nothing is swallowed):
              the card, the drain goes through the eviction subresource, a
              workload stand-in recreates the pods and the runtime's card
              rounds bind them all. The phase's wall is printed;
+22. fleet  — (after phase 21) the sharded fleet (fleet/ownership.py,
+             ReplicaChaos, --shard-lease in build_runtime), under the GC
+             policy a deployed replica applies once warm (the heap the
+             earlier phases left frozen, gen-0 threshold 50,000, as
+             utils/gcpolicy.py's freeze_after_warmup), so that full
+             collections of that heap do not stop the lease ticks; each
+             part reads
+             both kernels' launch counters around itself and fails where
+             they differ from its rounds' dispatches (every worker's
+             warm-up included) or, in (b), from what the sidecars served.
+             (a) three build_runtime(Options(device="cuda",
+             shard_lease=<file>, shard_lease_duration=2.0)) replicas with
+             shard_identity replica-0..2 over one Cluster and one decorated
+             FakeCloudProvider(instance_types(400)), each ShardManager
+             renewing every 0.4 s (bench_fleet_storm's lease, bench.py:
+             1527-1536); eight solver: tpu provisioners fleet-0..7, each
+             requiring fleet In [fleet-i]; once every shard has one owner
+             with a warm worker, 10,000 pods (cpu 0.25/0.5/1 from
+             Random(5), bench_selection_storm's, as phase 15 (a) before its
+             cut) selecting the provisioners
+             round-robin, the owner of fleet-0 killed (ReplicaChaos.kill:
+             its leases left to expire) after 2,000 creates. It fails on a
+             pod unbound or whose nodeName changes, the killed replica's
+             shards not re-owned by the survivors within 2 x 2.0 s + 2 s
+             (tests/test_fleet.py's bar and margin), FLEET_REBALANCES not
+             moving, Nodes != cloud creates, or a round that names no
+             kernel. It prints the rebalance time, create->bind p50 / p99
+             and pods per second, each replica's rounds and launches, and
+             the shards per replica before and after the kill. (b)
+             bench_fleet_storm's leg with its parameters: 400 pods (cpu
+             0.25), 8 provisioners, 3 replicas (device="cpu" controllers
+             whose solves go to a SidecarChaos pool of 2 card sidecars,
+             KARPENTER_PACKER=device) over a SimulatedCloudProvider, lease
+             2.0 s, renew 0.4 s; the sidecar holding sessions and the owner
+             of fleet-0 killed mid-storm: success rate 1.0, no duplicate
+             launch, the rebalance within 2 x 2.0 s, pool failovers >= 1, a
+             p99 time-to-bind and pods per second > 0, every round served
+             by the pool. (c) two replicas with shard_lease="kube:kube-
+             system/karpenter-shard" (15 s Leases, Options' default,
+             renewed every 2 s) and the
+             kube: launch journal, each its own ApiCluster over the in-repo
+             API server (a process of its own), four provisioners and a
+             2,000-pod storm created in the server's store with one 20 s
+             blackout: both replicas fenced during it (fenced() True and
+             karpenter_fleet_fenced 1), no cloud create or delete by a
+             fenced replica, the fence lifted after it, every shard owned
+             again, every pod bound once, and no journal entry open after
+             the collectors' sweep and stop(). The phase's wall is printed;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -479,7 +529,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
              launches by part and what (a)-(e) measured, ``process``:
              phase 20's launches by part and what (a)-(c) measured, and
              ``apiserver``: phase 21's launches by part and what (a)-(e)
-             measured.
+             measured, and ``fleet``: phase 22's launches by part and what
+             (a)-(c) measured.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -533,9 +584,12 @@ def log(msg: str) -> None:
 
 def log_gc_pauses(over_s: float = 0.1):
     """Log every garbage collection that stops the process for longer than
-    ``over_s``, with the objects it still tracks: a full collection of the
-    script's heap stops every thread, which explains a host-clock outlier
-    in whichever stage it lands. Returns the hook, for
+    ``over_s``, with the memory blocks the interpreter holds: a full
+    collection of the script's heap stops every thread, which explains a
+    host-clock outlier in whichever stage it lands. (``gc.get_objects()``
+    here would hand out references to tuples other threads are still
+    building, and their ``tuple(...)`` would raise SystemError.) Returns
+    the hook, for
     ``gc.callbacks.remove`` before the last lines are printed; its ``full``
     list holds the pause (s) of every generation-2 collection it saw."""
     began = {}
@@ -550,7 +604,7 @@ def log_gc_pauses(over_s: float = 0.1):
             hook.full.append(took)
         if took > over_s:
             log(f"[gc] generation {info['generation']} collection {took * 1e3:.1f} ms, "
-                f"{len(gc.get_objects())} objects tracked")
+                f"{sys.getallocatedblocks()} blocks allocated")
 
     hook.full = []  # the pause of every generation-2 collection, in order
     gc.callbacks.append(hook)
@@ -3331,6 +3385,9 @@ def sidecar_traced(card: str, classes: dict, catalogs: dict, rounds: dict) -> di
 
 
 STORM_PODS = 10000
+# phases 15 (a) and 17 (a), cut from STORM_PODS so the script keeps well
+# inside its time limit once phase 22 runs
+CUT_STORM_PODS = 5000
 CONTROLLER_BATCH = 2000  # the batcher's default max_items
 
 
@@ -3544,9 +3601,11 @@ def inline_controller(device: str, catalog, pods, requirements=None, freeze=None
 
 
 def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
-                     n_types: int = 400, gc_hook=None) -> dict:
+                     n_types: int = 400, gc_hook=None,
+                     storm_pods: int = CUT_STORM_PODS) -> dict:
     """Phase 15: the provisioning control plane on the card, at full
-    width. Returns the kernels line's ``controller`` entries."""
+    width, (a)'s storm at ``storm_pods``. Returns the kernels line's
+    ``controller`` entries."""
     from karpenter_tpu_torch.cloudprovider.fake import (
         FakeCloudProvider, instance_types, instance_types_tradeoff)
     from karpenter_tpu_torch.kube.client import Cluster
@@ -3617,7 +3676,7 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
         rng = random.Random(5)
         storm_start = counts()
         t0 = time.perf_counter()
-        for i in range(n_pods):
+        for i in range(storm_pods):
             name = f"storm-{i}"
             p = make_pod(name=name, requests={"cpu": f"{rng.choice([0.25, 0.5, 1])}"})
             with lock:
@@ -3627,7 +3686,7 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
         deadline = time.time() + 600
         while time.time() < deadline:
             with lock:
-                if len(bound_at) >= n_pods:
+                if len(bound_at) >= storm_pods:
                     break
             time.sleep(0.02)
         wall = time.perf_counter() - t0
@@ -3635,8 +3694,8 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
         with lock:
             lat = sorted(bound_at[k] - created[k] for k in bound_at)
             twice = {k: n for k, n in binds.items() if n > 1}
-        if len(lat) != n_pods:
-            raise AssertionError(f"controller (a): {len(lat)} of {n_pods} pods bound in {wall:.1f} s")
+        if len(lat) != storm_pods:
+            raise AssertionError(f"controller (a): {len(lat)} of {storm_pods} pods bound in {wall:.1f} s")
         if twice:
             raise AssertionError(f"controller (a): pods bound more than once: {list(twice)[:5]}")
         launched = check_rounds(rounds, {V1, V2}, "controller (a)")
@@ -3659,14 +3718,14 @@ def controller_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
                                  f"capacity {capacity}")
         p50 = lat[len(lat) // 2]
         p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
-        log(f"[controller] (a) storm of {n_pods} pods: create->bind p50 {p50 * 1e3:.1f} ms, "
-            f"p99 {p99 * 1e3:.1f} ms, {n_pods / wall:.1f} bound pods/s, wall {wall:.3f} s "
+        log(f"[controller] (a) storm of {storm_pods} pods: create->bind p50 {p50 * 1e3:.1f} ms, "
+            f"p99 {p99 * 1e3:.1f} ms, {storm_pods / wall:.1f} bound pods/s, wall {wall:.3f} s "
             f"(creates {enqueue_s:.3f} s), {len(rounds)} rounds, {len(nodes)} nodes = "
             f"{planned} virtual nodes = {len(provider.create_calls)} creates, counter "
             f"status.resources == summed capacity {capacity}; card {card}")
         out["summary"]["storm"] = {
-            "pods": n_pods, "rounds": len(rounds), "batches": [r["pods"] for r in rounds],
-            "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "pods_per_s": n_pods / wall,
+            "pods": storm_pods, "rounds": len(rounds), "batches": [r["pods"] for r in rounds],
+            "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "pods_per_s": storm_pods / wall,
             "wall_s": wall, "nodes": len(nodes),
         }
         for name in (V1, V2):
@@ -4353,9 +4412,11 @@ def inline_interruption(device: str, catalog, pods, requirements=None, frac: flo
 
 
 def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
-                       n_types: int = 400, n_nodes: int = 1000) -> dict:
+                       n_types: int = 400, n_nodes: int = 1000,
+                       storm_pods: int = CUT_STORM_PODS) -> dict:
     """Phase 17: interruption and crash-safe launch on the card, at full
-    width. Returns the kernels line's ``interruption`` entries."""
+    width, (a)'s churn at ``storm_pods``. Returns the kernels line's
+    ``interruption`` entries."""
     from karpenter_tpu_torch.api import labels as lbl
     from karpenter_tpu_torch.api.objects import NodeSelectorRequirement
     from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
@@ -4454,7 +4515,7 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
             record_rounds(worker, rounds)
             rng = random.Random(17)
             pods = [make_pod(name=f"churn-{i}", requests={"cpu": f"{rng.choice([0.1, 0.25, 0.5])}"})
-                    for i in range(n_pods)]
+                    for i in range(storm_pods)]
             t0 = time.perf_counter()
             for p in pods:
                 cluster.create("pods", p)
@@ -4464,7 +4525,7 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
                 stop = time.time() + timeout
                 while time.time() < stop:
                     with lock:
-                        if totals["binds"] >= n_pods + totals["releases"]:
+                        if totals["binds"] >= storm_pods + totals["releases"]:
                             return True
                     time.sleep(0.005)
                 return False
@@ -4506,9 +4567,9 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
         with lock:
             wrong = {k: n for k, n in binds.items() if n != 1 + releases.get(k, 0)}
         unbound = [p.key for p in cluster.pods() if not p.spec.node_name]
-        if wrong or unbound or len(binds) != n_pods:
+        if wrong or unbound or len(binds) != storm_pods:
             raise AssertionError(f"interruption (a): {len(wrong)} pods bound other than once a "
-                                 f"release, {len(unbound)} unbound, {len(binds)} of {n_pods} bound")
+                                 f"release, {len(unbound)} unbound, {len(binds)} of {storm_pods} bound")
         if interruption.evicted_unready:
             raise AssertionError(f"interruption (a): evicted_unready "
                                  f"{interruption.evicted_unready}")
@@ -4535,7 +4596,7 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
             log(f"[interruption] (a) churn round {k}: {c['victims']} of {c['live']} live nodes "
                 f"preempted, gone and every released pod re-bound in {c['wall_s']:.3f} s, "
                 f"{len(c['rounds'])} replacement round(s)")
-        log(f"[interruption] (a) spot churn of {n_pods} pods (cpu 0.1/0.25/0.5, Random(17)) "
+        log(f"[interruption] (a) spot churn of {storm_pods} pods (cpu 0.1/0.25/0.5, Random(17)) "
             f"through build_runtime's Manager: load bound in {load_s:.3f} s ({load_rounds} rounds); 5 churn "
             f"rounds of 5% preempted: {interruption.notices_handled} notices handled, "
             f"{len(lead)} pods replaced, notice->re-bind lead time p50 {p50 * 1e3:.1f} ms, p99 "
@@ -4548,7 +4609,7 @@ def interruption_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS
             if a_launches[name]:
                 out[name]["launches_a"] = a_launches[name]
         out["summary"]["a"] = {
-            "pods": n_pods, "notices": interruption.notices_handled, "replaced": len(lead),
+            "pods": storm_pods, "notices": interruption.notices_handled, "replaced": len(lead),
             "lead_p50_ms": p50 * 1e3, "lead_p99_ms": p99 * 1e3, "wall_s": wall,
             "load_s": load_s, "churn_s": [c["wall_s"] for c in churn],
             "victims": [c["victims"] for c in churn],
@@ -6522,19 +6583,24 @@ def apiserver_child(conn) -> None:
     store = server.cluster
 
     def storm(which: str, n: int, seed: int = 0, blackout_at: int = -1,
-              blackout_s: float = 0.0) -> dict:
+              blackout_s: float = 0.0, fleets: int = 0) -> dict:
         if which == "diverse":
             pods = diverse_pods(n)
         else:
+            # with ``fleets``, pod i selects provisioner fleet-(i % fleets)
             sizes = random.Random(seed).choices([0.25, 0.5, 1], k=n)
-            pods = [make_pod(name=f"{which}-{i}", requests={"cpu": f"{c}"})
+            pods = [make_pod(name=f"{which}-{i}", requests={"cpu": f"{c}"},
+                             node_selector={"fleet": f"fleet-{i % fleets}"} if fleets else None)
                     for i, c in enumerate(sizes)]
         t0 = time.perf_counter()
+        blackout_t = None
         for i, p in enumerate(pods):
             watch.create(store, p)
             if i == blackout_at:
+                blackout_t = time.time()
                 rest.inner.blackout(blackout_s)
-        return {"names": [p.metadata.name for p in pods], "enqueue_s": time.perf_counter() - t0}
+        return {"names": [p.metadata.name for p in pods], "enqueue_s": time.perf_counter() - t0,
+                "blackout_t": blackout_t}
 
     def state(names) -> dict:
         with watch._mu:
@@ -7285,6 +7351,696 @@ def apiserver_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
     return out
 
 
+FLEET_LEASE_S = 2.0  # bench_fleet_storm's lease and renew (bench.py:1527-1536)
+FLEET_RENEW_S = 0.4
+FLEET_PROVISIONERS = 8
+FLEET_REPLICAS = 3
+FLEET_KILL_AFTER = 2000  # (a): pods created before the owner of fleet-0 is crashed
+FLEET_POOL_PODS = 400  # (b): bench_fleet_storm's storm and pool
+FLEET_POOL_SIZE = 2
+KUBE_SHARD_LEASE = "kube:kube-system/karpenter-shard"
+# (c): the shard Leases over the API server keep Options' default duration:
+# at a few seconds, ticks that a storm's load delays past it lose the
+# shards to each other again and again
+KUBE_SHARD_LEASE_S = 15.0
+KUBE_FLEET_RENEW_S = 2.0
+KUBE_FLEET_BLACKOUT_S = 20.0  # (c): longer than KUBE_SHARD_LEASE_S
+KUBE_FLEET_PROVISIONERS = 4
+KUBE_FLEET_REPLICAS = 2
+
+
+def metric_total(name: str) -> float:
+    """The sum of every sample named ``name`` in the port's registry, over
+    all label values."""
+    from karpenter_tpu_torch import metrics
+
+    return sum(s.value for fam in metrics.REGISTRY.collect() for s in fam.samples
+               if s.name == name)
+
+
+def fleet_provisioners(n: int, prefix: str = "fleet") -> list:
+    """``n`` ``solver: tpu`` provisioners ``<prefix>-i``, each requiring
+    ``fleet In [<prefix>-i]`` (bench_fleet_storm's)."""
+    from karpenter_tpu_torch.api.objects import NodeSelectorRequirement
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    return [make_provisioner(name=f"{prefix}-{i}", solver="tpu", requirements=[
+        NodeSelectorRequirement(key="fleet", operator="In", values=[f"{prefix}-{i}"])])
+        for i in range(n)]
+
+
+class ReplicaRounds:
+    """Every provisioning worker the fleet's replicas build while this is
+    entered, by replica: ``ProvisionerWorker.__init__`` is wrapped, and each
+    new worker of a replica added with ``add`` gets its batch window set to
+    ``idle_s`` and its ``scheduler.solve`` wrapped by ``record_rounds``
+    before it starts, so its warm-up is recorded too, and counted while in
+    flight. A worker belongs to the replica whose ``ShardManager`` its
+    ``fenced`` hook is bound to."""
+
+    def __init__(self, idle_s: float):
+        self.idle_s = idle_s
+        self.names = {}
+        self.rounds = {}
+        self.by_replica = {}
+        self.workers = []
+        self.in_flight = 0  # guarded-by: self._mu
+        self._mu = threading.Lock()
+        self._patch = None
+
+    def add(self, name: str, rt) -> None:
+        self.names[id(rt.ownership)] = name
+        self.rounds[name] = []
+
+    def __enter__(self):
+        from karpenter_tpu_torch.controllers.provisioning import ProvisionerWorker
+
+        init = ProvisionerWorker.__init__
+
+        def tracked(worker, *args, **kwargs):
+            init(worker, *args, **kwargs)
+            name = self.names.get(id(getattr(worker.fenced, "__self__", None)))
+            if name is not None:
+                worker.batcher.idle_duration = self.idle_s
+                record_rounds(worker, self.rounds[name])
+                solve = worker.scheduler.solve
+
+                def in_flight(*args, **kwargs):
+                    with self._mu:
+                        self.in_flight += 1
+                    try:
+                        return solve(*args, **kwargs)
+                    finally:
+                        with self._mu:
+                            self.in_flight -= 1
+
+                worker.scheduler.solve = in_flight
+                self.workers.append(worker)
+
+        self._patch = mock.patch.object(ProvisionerWorker, "__init__", tracked)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._patch.stop()
+
+    def settle(self, timeout: float = 600.0) -> None:
+        """Wait until every recorded worker's warm-up has ended and no round
+        is in flight (a worker torn down by a handback or a kill finishes
+        its warm-up, and its stop may give up on a round, on their own
+        threads): after it, the launch counters and the rounds agree."""
+        for w in list(self.workers):
+            if not w.warmed.wait(timeout=timeout):
+                raise AssertionError(f"fleet: {w.provisioner.name}'s warm-up never ended")
+        deadline = time.time() + timeout
+        while True:
+            with self._mu:
+                if not self.in_flight:
+                    return
+            if time.time() > deadline:
+                raise AssertionError(f"fleet: {self.in_flight} rounds still in flight")
+            time.sleep(0.02)
+
+    def launched(self, kernels: set, what: str) -> dict:
+        """Each replica's rounds named one of ``kernels``; returns the
+        dispatches per kernel over the whole fleet and keeps each replica's
+        rounds and launches in ``by_replica``."""
+        total = {}
+        for name, rounds in sorted(self.rounds.items()):
+            got = check_rounds(rounds, kernels, f"{what} {name}")
+            for k, n in got.items():
+                total[k] = total.get(k, 0) + n
+            self.by_replica[name] = {"rounds": len(rounds), "launches": got}
+        return total
+
+
+def owners_ready(fleet, names, workers: bool = True) -> bool:
+    """Every shard in ``names`` has exactly one live owner, and (with
+    ``workers``) that owner runs the shard's worker."""
+    for n in names:
+        own = [rt for rt in fleet.replicas.values() if rt.ownership.owns(n)]
+        if len(own) != 1 or (workers and n not in own[0].provisioning.workers):
+            return False
+    return True
+
+
+def bound_report(watch, names) -> dict:
+    """``watch`` (a BindWatch) over ``names``: the pods unbound, bound other
+    than once, the nodeName flips, the create->bind latencies and the wall
+    from the first create to the last bind."""
+    with watch._mu:
+        bound = [n for n in names if n in watch.bound_at]
+        wall = (max(watch.bound_at[n] for n in bound) - min(watch.created[n] for n in names)
+                if bound else float("nan"))
+        out = {"unbound": [n for n in names if n not in watch.bound_at],
+               "twice": {n: watch.binds.get(n, 0) for n in bound if watch.binds.get(n, 0) != 1},
+               "flips": [f for f in watch.flips if f[0] in set(names)], "wall": wall}
+    out["latencies"] = watch.latencies(names)
+    return out
+
+
+def rebalance_timer(survivors, orphaned, timeout: float) -> tuple:
+    """A thread that times how long after its start the ``survivors``
+    (runtimes) together own every shard in ``orphaned``. Returns (thread,
+    box): ``box[0]`` is the seconds, or None."""
+    box = [None]
+
+    def run():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            owned = set().union(*(rt.ownership.owned() for rt in survivors))
+            if orphaned <= owned:
+                box[0] = time.perf_counter() - t0
+                return
+            time.sleep(0.01)
+
+    thread = threading.Thread(target=run, daemon=True, name="rebalance-timer")
+    thread.start()
+    return thread, box
+
+
+def stop_fleet(fleet, rounds) -> None:
+    """Take a fleet down: every live replica's manager first, so a shard
+    that one replica's stop releases is not claimed by another (a new
+    worker and its warm-up) on the way down; then each runtime; then wait
+    for every recorded round to end."""
+    for rt in list(fleet.replicas.values()):
+        rt.manager.stop()
+    fleet.stop_all()
+    rounds.settle()
+
+
+def pct(lat, q: float) -> float:
+    return lat[min(len(lat) - 1, int(len(lat) * q))] if lat else float("nan")
+
+
+def fleet_storm(card: str, device: str, n_pods: int, n_types: int, counts, delta) -> dict:
+    """Phase 22 (a): three replicas of build_runtime on the card over one
+    cluster and one shard-lease file, eight solver: tpu provisioners, a
+    storm of ``n_pods`` (phase 15 (a)'s sizes and seed, each pod selecting
+    one provisioner round-robin), the owner of fleet-0 crashed after
+    FLEET_KILL_AFTER creates."""
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.main import build_runtime
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.testing import make_pod
+    from karpenter_tpu_torch.testing.chaos import ReplicaChaos
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    lease_dir = tempfile.mkdtemp(prefix="karpenter-fleet-")
+    cluster = Cluster()
+    fake = FakeCloudProvider(instance_types(n_types))
+    provider = cpmetrics.decorate(fake)
+    fleet = ReplicaChaos()
+    rounds = ReplicaRounds(idle_s=0.2)
+    watch = BindWatch(cluster)
+    provs = fleet_provisioners(FLEET_PROVISIONERS)
+    names = [p.metadata.name for p in provs]
+    pods = [f"fleet-storm-{i}" for i in range(n_pods)]
+    kill_after = min(FLEET_KILL_AFTER, n_pods // 5)
+    rebalances = metric("karpenter_fleet_shard_rebalances_total")
+    start = counts()
+    t_part = time.perf_counter()
+    with rounds:
+        try:
+            for i in range(FLEET_REPLICAS):
+                name = f"replica-{i}"
+                rt = build_runtime(Options(device=device,
+                                           shard_lease=os.path.join(lease_dir, "shards"),
+                                           shard_lease_duration=FLEET_LEASE_S),
+                                   cluster=cluster, cloud_provider=provider, shard_identity=name)
+                rt.ownership.renew_interval = FLEET_RENEW_S
+                # the replicas start together: each sees the others' membership
+                # on its first tick, so none claims the whole fleet first
+                rt.ownership.leases.heartbeat()
+                fleet.add(name, rt)
+                rounds.add(name, rt)
+            for rt in fleet.replicas.values():
+                rt.ownership.start()
+                rt.manager.start()
+            for p in provs:
+                cluster.create("provisioners", p)
+            wait_for(lambda: owners_ready(fleet, names), 120, "fleet (a): every shard owned")
+            rounds.settle()
+            ready_s = time.perf_counter() - t_part
+            before = {n: sorted(s) for n, s in fleet.owned_shards().items()}
+            rng = random.Random(5)
+            timer, victim, orphaned = None, None, frozenset()
+            t0 = time.perf_counter()
+            for i in range(n_pods):
+                if i == kill_after:
+                    victim, victim_rt = fleet.owner_named("fleet-0")
+                    orphaned = frozenset(victim_rt.ownership.owned())
+                    survivors = [rt for n, rt in fleet.replicas.items() if n != victim]
+                    timer, rebalance = rebalance_timer(survivors, orphaned, 60.0)
+                    t_kill = time.perf_counter()
+                    fleet.kill(victim)
+                    kill_s = time.perf_counter() - t_kill
+                watch.create(cluster, make_pod(
+                    name=pods[i], requests={"cpu": f"{rng.choice([0.25, 0.5, 1])}"},
+                    node_selector={"fleet": names[i % len(names)]}))
+            enqueue_s = time.perf_counter() - t0
+            if timer is not None:
+                timer.join(60)
+            watch.wait(pods, 600, set)
+            after = {n: sorted(s) for n, s in fleet.owned_shards().items()}
+        finally:
+            stop_fleet(fleet, rounds)
+            shutil.rmtree(lease_dir, ignore_errors=True)
+    forget_node_gauges({n.metadata.name for n in cluster.nodes()})
+    launches = delta(start)
+    rep = bound_report(watch, pods)
+    lat = rep["latencies"]
+    rebalanced = metric("karpenter_fleet_shard_rebalances_total") - rebalances
+    bar = 2 * FLEET_LEASE_S + 2.0
+    if rep["unbound"] or rep["twice"] or rep["flips"]:
+        raise AssertionError(f"fleet (a): {len(rep['unbound'])} pods unbound "
+                             f"({rep['unbound'][:5]}), bound other than once "
+                             f"{list(rep['twice'].items())[:5]}, nodeName flips "
+                             f"{rep['flips'][:5]}")
+    if rebalance[0] is None or rebalance[0] > bar:
+        raise AssertionError(f"fleet (a): {victim}'s shards {sorted(orphaned)} re-owned after "
+                             f"{rebalance[0]} s (bar {bar} s)")
+    if rebalanced < 1:
+        raise AssertionError("fleet (a): FLEET_REBALANCES did not move")
+    nodes = len(cluster.nodes())
+    if nodes != len(fake.create_calls):
+        raise AssertionError(f"fleet (a): {nodes} Nodes, {len(fake.create_calls)} cloud creates")
+    launched = rounds.launched({V1, V2}, "fleet (a)")
+    expect_launches("fleet a", launches, launched)
+    for name, r in sorted(rounds.by_replica.items()):
+        log(f"[fleet] (a) {name}: {r['rounds']} rounds (warm-ups included), launches "
+            f"{r['launches']}; shards before the kill {before.get(name)}, after "
+            f"{after.get(name, 'killed')}")
+    row = {
+        "pods": n_pods, "replicas": FLEET_REPLICAS, "provisioners": FLEET_PROVISIONERS,
+        "lease_s": FLEET_LEASE_S, "renew_s": FLEET_RENEW_S, "killed": victim,
+        "orphaned": sorted(orphaned), "rebalance_s": rebalance[0], "rebalance_bar_s": bar,
+        "rebalances": rebalanced, "kill_s": kill_s, "ready_s": ready_s,
+        "p50_ms": pct(lat, 0.5) * 1e3, "p99_ms": pct(lat, 0.99) * 1e3,
+        "pods_per_s": n_pods / rep["wall"], "wall_s": rep["wall"], "enqueue_s": enqueue_s,
+        "nodes": nodes, "by_replica": rounds.by_replica,
+        "shards_before": {n: len(s) for n, s in before.items()},
+        "shards_after": {n: len(s) for n, s in after.items()},
+        "part_s": time.perf_counter() - t_part, "launches": launches,
+    }
+    log(f"[fleet] (a) {FLEET_REPLICAS} replicas (build_runtime, device={device}, shard lease "
+        f"file {FLEET_LEASE_S:g} s, renew {FLEET_RENEW_S:g} s) over one cluster, "
+        f"{FLEET_PROVISIONERS} solver: tpu provisioners owned and warm in {ready_s:.3f} s; "
+        f"storm of {n_pods} pods (cpu 0.25/0.5/1, Random(5), round-robin fleet selectors), "
+        f"{victim} (owner of fleet-0, shards {sorted(orphaned)}) crashed after "
+        f"{kill_after} creates ({kill_s:.3f} s to stop it): its shards re-owned by the "
+        f"survivors in {rebalance[0]:.3f} s (bar {bar:g} s), FLEET_REBALANCES +{rebalanced:g}; "
+        f"every pod bound once, no nodeName flip; create->bind p50 {row['p50_ms']:.1f} ms, "
+        f"p99 {row['p99_ms']:.1f} ms, {row['pods_per_s']:.1f} bound pods/s, wall "
+        f"{rep['wall']:.3f} s (creates {enqueue_s:.3f} s); {nodes} Nodes = "
+        f"{len(fake.create_calls)} creates; launches {launches} = the rounds' dispatches; "
+        f"shards per replica before {row['shards_before']}, after {row['shards_after']}; "
+        f"card {card}")
+    return row
+
+
+def fleet_pool(card: str, device: str, n_pods: int, counts, delta) -> dict:
+    """Phase 22 (b): bench_fleet_storm with its parameters — three replicas
+    whose solves go to a SidecarChaos pool of two card sidecars under
+    KARPENTER_PACKER=device, eight provisioners, 400 pods; the sidecar
+    holding sessions and a replica are killed mid-storm."""
+    from karpenter_tpu_torch.cloudprovider.simulated import SimCloudAPI, SimulatedCloudProvider
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.main import build_runtime
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.testing import make_pod
+    from karpenter_tpu_torch.testing.chaos import ReplicaChaos, SidecarChaos
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    packer = os.environ.get("KARPENTER_PACKER")
+    os.environ["KARPENTER_PACKER"] = "device"
+    lease_dir = tempfile.mkdtemp(prefix="karpenter-fleet-pool-")
+    sidecars = SidecarChaos(n=FLEET_POOL_SIZE, device=device)
+    services = [srv.solver_service for srv in sidecars.servers.values()]
+    served_before = [dict(svc.served) for svc in services]
+    cluster = Cluster()
+    api = SimCloudAPI()
+    fleet = ReplicaChaos()
+    rounds = ReplicaRounds(idle_s=0.1)
+    watch = BindWatch(cluster)
+    provs = fleet_provisioners(FLEET_PROVISIONERS)
+    names = [p.metadata.name for p in provs]
+    pods = [f"pool-storm-{i}" for i in range(n_pods)]
+    failovers = metric_total("karpenter_solver_pool_failovers_total")
+    start = counts()
+    t_part = time.perf_counter()
+    killed_sidecar, rebalance = None, [None]
+    with rounds:
+        try:
+            for i in range(FLEET_REPLICAS):
+                name = f"replica-{i}"
+                # the controllers hold no card: their solves go to the pool
+                rt = build_runtime(Options(device="cpu",
+                                           shard_lease=os.path.join(lease_dir, "shards"),
+                                           shard_lease_duration=FLEET_LEASE_S,
+                                           solver_service_address=sidecars.address_spec),
+                                   cluster=cluster, cloud_provider=SimulatedCloudProvider(api=api),
+                                   shard_identity=name)
+                rt.ownership.renew_interval = FLEET_RENEW_S
+                rt.ownership.start()
+                rt.manager.start()
+                fleet.add(name, rt)
+                rounds.add(name, rt)
+            for p in provs:
+                cluster.create("provisioners", p)
+            wait_for(lambda: owners_ready(fleet, names), 60, "fleet (b): every shard owned")
+            before = {n: len(s) for n, s in fleet.owned_shards().items()}
+            for i in range(n_pods):
+                watch.create(cluster, make_pod(name=pods[i], requests={"cpu": "0.25"},
+                                               node_selector={"fleet": names[i % len(names)]}))
+            wait_for(lambda: any(s.session_count() for s in services), 60,
+                     "fleet (b): a catalog session on a sidecar")
+            killed_sidecar = sidecars.busiest()
+            sidecars.kill(killed_sidecar)
+            time.sleep(0.3)  # let the storm engage
+            victim, victim_rt = fleet.owner_named("fleet-0")
+            orphaned = frozenset(victim_rt.ownership.owned())
+            survivors = [rt for n, rt in fleet.replicas.items() if n != victim]
+            timer, rebalance = rebalance_timer(survivors, orphaned, FLEET_LEASE_S * 10)
+            fleet.kill(victim)
+            timer.join(FLEET_LEASE_S * 10 + 1)
+            watch.wait(pods, 240, set)
+            after = {n: len(s) for n, s in fleet.owned_shards().items()}
+        finally:
+            stop_fleet(fleet, rounds)
+            sidecars.stop_all()
+            shutil.rmtree(lease_dir, ignore_errors=True)
+            if packer is None:
+                os.environ.pop("KARPENTER_PACKER", None)
+            else:
+                os.environ["KARPENTER_PACKER"] = packer
+    forget_node_gauges({n.metadata.name for n in cluster.nodes()})
+    launches = delta(start)
+    served = served_delta(services, served_before)
+    rep = bound_report(watch, pods)
+    lat = rep["latencies"]
+    bound = n_pods - len(rep["unbound"])
+    failed_over = metric_total("karpenter_solver_pool_failovers_total") - failovers
+    row = {
+        "pods": n_pods, "provisioners": FLEET_PROVISIONERS, "replicas": FLEET_REPLICAS,
+        "pool_size": FLEET_POOL_SIZE, "lease_duration_s": FLEET_LEASE_S,
+        "chaos_provision_success_rate": bound / n_pods,
+        "aggregate_pods_per_sec": bound / rep["wall"] if lat else None,
+        "p99_time_to_bind_s": pct(lat, 0.99) if lat else None,
+        "p50_time_to_bind_s": pct(lat, 0.5) if lat else None,
+        "duplicate_launches": len(rep["flips"]), "rebalance_s": rebalance[0],
+        "rebalance_bar_s": 2 * FLEET_LEASE_S,
+        "rebalance_within_bar": rebalance[0] is not None and rebalance[0] <= 2 * FLEET_LEASE_S,
+        "shards_per_replica_before_kill": before, "shards_per_replica_after": after,
+        "pool_failovers_total": failed_over, "killed_sidecar": killed_sidecar,
+        "served": served, "launches": launches, "part_s": time.perf_counter() - t_part,
+    }
+    for name, rs in sorted(rounds.rounds.items()):
+        backends = sorted({r.get("backend") for r in rs if "error" not in r})
+        errors = [r for r in rs if "error" in r or r["backend"] != "sidecar"]
+        if errors:
+            raise AssertionError(f"fleet (b) {name}: rounds not served by the pool {errors[:3]}")
+        log(f"[fleet] (b) {name}: {len(rs)} rounds served by {backends}, dispatches "
+            f"{sum(r['dispatches'] for r in rs)}")
+    log(f"[fleet] (b) bench_fleet_storm's leg: {n_pods} pods, {FLEET_PROVISIONERS} "
+        f"provisioners, {FLEET_REPLICAS} replicas (device=cpu, KARPENTER_PACKER=device) over a "
+        f"pool of {FLEET_POOL_SIZE} card sidecars, lease {FLEET_LEASE_S:g} s, renew "
+        f"{FLEET_RENEW_S:g} s; sidecar {killed_sidecar} (the busiest) and the owner of fleet-0 "
+        f"killed mid-storm: success rate {row['chaos_provision_success_rate']:.4f}, duplicate "
+        f"launches {row['duplicate_launches']}, rebalance {rebalance[0]} s (bar "
+        f"{2 * FLEET_LEASE_S:g} s), pool failovers {failed_over:g}, time-to-bind p50 "
+        f"{row['p50_time_to_bind_s']} s, p99 {row['p99_time_to_bind_s']} s, "
+        f"{row['aggregate_pods_per_sec']} pods/s; shards per replica before {before}, after "
+        f"{after}; the sidecars served {served}, launches {launches}; card {card}")
+    if row["chaos_provision_success_rate"] != 1.0 or rep["twice"] or rep["flips"]:
+        raise AssertionError(f"fleet (b): success {row['chaos_provision_success_rate']}, "
+                             f"unbound {rep['unbound'][:5]}, flips {rep['flips'][:5]}")
+    if not row["rebalance_within_bar"] or failed_over < 1:
+        raise AssertionError(f"fleet (b): rebalance {rebalance[0]} s, failovers {failed_over}")
+    if row["p99_time_to_bind_s"] is None or not row["aggregate_pods_per_sec"]:
+        raise AssertionError("fleet (b): no time-to-bind")
+    if not set(served) <= {V1, V2} or not served:
+        raise AssertionError(f"fleet (b): the sidecars served {served}")
+    expect_launches("fleet b", launches, served)
+    return row
+
+
+class FenceGuard:
+    """One replica's cloud provider over a shared one: every create and
+    delete passes through and is counted, and one made while the replica's
+    ``fenced()`` answers True is recorded as a violation."""
+
+    def __init__(self, provider):
+        self._provider = provider
+        self.fenced = lambda: False
+        self.creates, self.deletes, self.violations = 0, 0, []
+
+    def create(self, request):
+        if self.fenced():
+            self.violations.append(("create", time.time()))
+        self.creates += 1
+        return self._provider.create(request)
+
+    def delete(self, node):
+        if self.fenced():
+            self.violations.append(("delete", node.metadata.name, time.time()))
+        self.deletes += 1
+        return self._provider.delete(node)
+
+    def __getattr__(self, name):
+        return getattr(self._provider, name)
+
+
+def fleet_kube(card: str, device: str, n_pods: int, n_types: int, counts, delta) -> dict:
+    """Phase 22 (c): ``kube:`` shard leases over the in-repo API server —
+    two replicas, each its own ApiCluster, four provisioners, a storm of
+    ``n_pods`` pods created in the server's store, and one blackout longer
+    than the shard Leases' duration."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.garbage_collection import GC_POLL_KEY
+    from karpenter_tpu_torch.fleet import DEFAULT_SHARD
+    from karpenter_tpu_torch.kube import serde
+    from karpenter_tpu_torch.main import build_runtime
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.testing.chaos import ReplicaChaos
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    server = ApiServerProcess()
+    fake = FakeCloudProvider(instance_types(n_types))
+    fleet = ReplicaChaos()
+    rounds = ReplicaRounds(idle_s=0.2)
+    guards = {}
+    provs = fleet_provisioners(KUBE_FLEET_PROVISIONERS)
+    names = [p.metadata.name for p in provs]
+    start = counts()
+    t_part = time.perf_counter()
+    samples = []
+    stop_probe = threading.Event()
+    t_storm = [None]
+
+    def progress() -> str:
+        """Each replica's view: the storm's pods bound in its cache, pods
+        pending in its workers, its rounds, shards and fence."""
+        out = []
+        for n, rt in sorted(fleet.replicas.items()):
+            bound = sum(1 for p in rt.cluster.pods()
+                        if p.metadata.name.startswith("kube-fleet-") and p.spec.node_name)
+            pending = sum(len(w._pending_keys) for w in rt.provisioning.list_workers())
+            out.append(f"{n}: bound {bound}, pending {pending}, rounds "
+                       f"{len(rounds.rounds[n])}, shards {sorted(rt.ownership.owned())}, "
+                       f"fenced {rt.ownership.fenced()}")
+        return "; ".join(out)
+
+    def probe():
+        last = time.perf_counter()
+        while not stop_probe.is_set():
+            samples.append((time.time(), {n: rt.ownership.fenced()
+                                          for n, rt in list(fleet.replicas.items())},
+                            metric("karpenter_fleet_fenced")))
+            if t_storm[0] is not None and time.perf_counter() - last >= 10.0:
+                last = time.perf_counter()
+                log(f"[fleet] (c) t={last - t_storm[0]:.1f} s: {progress()}")
+            stop_probe.wait(0.01)
+
+    prober = threading.Thread(target=probe, daemon=True, name="fence-probe")
+    with rounds:
+        try:
+            for i in range(KUBE_FLEET_REPLICAS):
+                name = f"replica-{i}"
+                guard = guards[name] = FenceGuard(fake)
+                rt = build_runtime(Options(device=device, kube_api_server=server.url,
+                                           shard_lease=KUBE_SHARD_LEASE,
+                                           shard_lease_duration=KUBE_SHARD_LEASE_S,
+                                           launch_journal=APISERVER_JOURNAL,
+                                           kube_client_qps=APISERVER_QPS,
+                                           kube_client_burst=APISERVER_BURST),
+                                   cloud_provider=guard, shard_identity=name)
+                guard.fenced = rt.ownership.fenced
+                fleet.add(name, rt)
+                rounds.add(name, rt)
+                rt.cluster.start()
+                if not rt.cluster.wait_for_sync(60):
+                    raise AssertionError(f"fleet (c): {name}'s informers never synced")
+                rt.ownership.renew_interval = KUBE_FLEET_RENEW_S
+                rt.ownership.leases.heartbeat()
+            for rt in fleet.replicas.values():
+                rt.ownership.start()
+                rt.manager.start()
+            for p in provs:
+                server.call("create", kind="provisioners", doc=serde.to_wire("provisioners", p))
+            wait_for(lambda: owners_ready(fleet, names), 120, "fleet (c): every shard owned")
+            rounds.settle()
+            before = {n: sorted(s) for n, s in fleet.owned_shards().items()}
+            prober.start()
+            server.call("chaos", seed=CHAOS_SEED)
+            t0 = t_storm[0] = time.perf_counter()
+            try:
+                created = server.call("storm", which="kube-fleet", n=n_pods, seed=CHAOS_SEED,
+                                      blackout_at=n_pods // 4, blackout_s=KUBE_FLEET_BLACKOUT_S,
+                                      fleets=len(names))
+                pod_names = created["names"]
+                left = server.call("wait", timeout=420, names=pod_names, limit=360)
+            finally:
+                injected = server.call("chaos")
+            wall = time.perf_counter() - t0
+            # every shard owned again, then the fence gone from both replicas
+            wait_for(lambda: owners_ready(fleet, names)
+                     and owners_ready(fleet, [DEFAULT_SHARD], workers=False), 60,
+                     "fleet (c): every shard re-owned after the blackout")
+            wait_for(lambda: not any(rt.ownership.fenced() for rt in fleet.replicas.values()),
+                     60, "fleet (c): the fence lifted")
+            time.sleep(0.1)
+            stop_probe.set()
+            prober.join(5)
+            after = {n: sorted(s) for n, s in fleet.owned_shards().items()}
+            st = server.call("state", names=pod_names)
+            # the launches the blackout failed after their cloud create left
+            # journal entries: each replica's collector settles its shards'
+            open_before_gc = server.call("journal_open", prefix="launch")
+            for rt in fleet.replicas.values():
+                rt.garbage_collection.replay_after = 0.0
+                rt.garbage_collection.reconcile(GC_POLL_KEY)
+            t_stop = time.perf_counter()
+            stop_fleet(fleet, rounds)
+            stop_s = time.perf_counter() - t_stop
+            open_after = server.call("journal_open", prefix="launch")
+        finally:
+            stop_probe.set()
+            stop_fleet(fleet, rounds)
+            server.stop()
+    launches = delta(start)
+    t_black = created["blackout_t"]
+    t_heal = t_black + KUBE_FLEET_BLACKOUT_S
+    fenced_at, lifted_at = {}, {}
+    for t, states, _ in samples:
+        for n, f in states.items():
+            if f and t_black <= t and n not in fenced_at:
+                fenced_at[n] = t - t_black
+            if not f and n in fenced_at and t >= t_heal and n not in lifted_at:
+                lifted_at[n] = t - t_heal
+    gauge_max = max((g for t, _, g in samples if t_black <= t <= t_heal + 30), default=0.0)
+    violations = {n: g.violations for n, g in guards.items() if g.violations}
+    twice = {n: k for n, k in st["binds"].items() if k != 1}
+    launched = rounds.launched({V1, V2}, "fleet (c)")
+    row = {
+        "pods": n_pods, "replicas": KUBE_FLEET_REPLICAS, "provisioners": KUBE_FLEET_PROVISIONERS,
+        "lease_s": KUBE_SHARD_LEASE_S, "blackout_s": KUBE_FLEET_BLACKOUT_S,
+        "fenced_after_s": fenced_at, "lifted_after_heal_s": lifted_at, "gauge_max": gauge_max,
+        "creates": {n: g.creates for n, g in guards.items()},
+        "deletes": {n: g.deletes for n, g in guards.items()}, "wall_s": wall,
+        "p50_ms": pct(st["latencies"], 0.5) * 1e3, "p99_ms": pct(st["latencies"], 0.99) * 1e3,
+        "journal_open_before_gc": open_before_gc, "journal_open_after_stop": open_after,
+        "stop_s": stop_s, "chaos": injected, "by_replica": rounds.by_replica,
+        "shards_before": before, "shards_after": after, "launches": launches,
+        "part_s": time.perf_counter() - t_part,
+    }
+    log(f"[fleet] (c) {KUBE_FLEET_REPLICAS} replicas over the in-repo API server (a process of "
+        f"its own), each its own ApiCluster, shard lease {KUBE_SHARD_LEASE} ({KUBE_SHARD_LEASE_S:g} "
+        f"s, renew {KUBE_FLEET_RENEW_S:g} s), launch journal {APISERVER_JOURNAL}, "
+        f"{KUBE_FLEET_PROVISIONERS} provisioners; storm of {n_pods} pods with a "
+        f"{KUBE_FLEET_BLACKOUT_S:g} s blackout after {n_pods // 4}: fenced after {fenced_at} s "
+        f"of it (karpenter_fleet_fenced max {gauge_max:g}), lifted {lifted_at} s after it "
+        f"ended; creates {row['creates']}, deletes {row['deletes']}, none while fenced; "
+        f"shards before {before}, after {after}; all bound in {wall:.3f} s (p50 "
+        f"{row['p50_ms']:.1f} ms, p99 {row['p99_ms']:.1f} ms), every pod bound once; "
+        f"journal entries open {open_before_gc} before the GC sweeps, {open_after} after "
+        f"stop ({stop_s:.3f} s); chaos {injected}; launches {launches}; card {card}")
+    for name, r in sorted(rounds.by_replica.items()):
+        log(f"[fleet] (c) {name}: {r['rounds']} rounds (warm-ups included), launches "
+            f"{r['launches']}")
+    if set(fenced_at) != set(guards) or gauge_max != 1.0:
+        raise AssertionError(f"fleet (c): fenced during the blackout {fenced_at}, gauge "
+                             f"{gauge_max}")
+    if violations:
+        raise AssertionError(f"fleet (c): cloud mutations while fenced {violations}")
+    if set(lifted_at) != set(guards):
+        raise AssertionError(f"fleet (c): the fence lifted for {lifted_at} only")
+    if left or twice or st["flips"]:
+        raise AssertionError(f"fleet (c): unbound {left[:5]}, binds {list(twice.items())[:5]}, "
+                             f"flips {st['flips'][:5]}")
+    if open_after:
+        raise AssertionError(f"fleet (c): {open_after} journal entries open after stop()")
+    expect_launches("fleet c", launches, launched)
+    return row
+
+
+def fleet_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS, n_types: int = 400,
+                pool_pods: int = FLEET_POOL_PODS, kube_pods: int = CHAOS_PODS) -> dict:
+    """Phase 22: the fleet on the card. (a) three replicas on the card and a
+    storm with a replica crashed, (b) bench_fleet_storm's pool leg, (c)
+    ``kube:`` shard leases over the API server through a blackout. Returns
+    the kernels line's ``fleet`` entries."""
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    out = {V1: {}, V2: {}, "summary": {}}
+    t_phase = time.perf_counter()
+
+    def counts() -> dict:
+        with pack_kernel.launch_count_lock:
+            return {name: m.launches for name, m in modules.items()}
+
+    def delta(start: dict) -> dict:
+        return {name: n - start[name] for name, n in counts().items()}
+
+    parts = (("a", lambda: fleet_storm(card, device, n_pods, n_types, counts, delta)),
+             ("b", lambda: fleet_pool(card, device, pool_pods, counts, delta)),
+             ("c", lambda: fleet_kube(card, device, kube_pods, n_types, counts, delta)))
+    # the phase runs under the GC policy a deployed replica applies once
+    # warm (utils/gcpolicy.py's freeze_after_warmup: the heap frozen, gen-0
+    # threshold 50,000). Without it the earlier phases' millions of objects
+    # make each full collection stop every thread for 0.3-3 s, over and
+    # over: a 2 s shard lease expires under such a pause, and in (c) they
+    # added up to 110 s. Each replica of a real fleet is a process of its
+    # own; here one runtime's stop restores gcpolicy for all, so the policy
+    # is applied outside gcpolicy and undone when the phase ends
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.freeze()
+    gc.set_threshold(50000, 20, 20)
+    out["summary"]["frozen_objects"] = gc.get_freeze_count()
+    log(f"[fleet] froze the earlier phases' heap: {gc.get_freeze_count()} objects; gen-0 "
+        f"threshold 50000")
+    try:
+        for label, run in parts:
+            row = run()
+            for name, n in row.pop("launches").items():
+                if n:
+                    out[name][f"launches_{label}"] = n
+            out["summary"][label] = row
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.unfreeze()
+    phase_s = time.perf_counter() - t_phase
+    out["summary"]["phase_s"] = phase_s
+    log(f"[fleet] phase 22 wall {phase_s:.3f} s; card {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7517,6 +8273,9 @@ def main() -> int:
     # -- 21. apiserver ----------------------------------------------------
     apiserver = apiserver_phase(card)
 
+    # -- 22. fleet --------------------------------------------------------
+    fleet = fleet_phase(card)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -7544,6 +8303,7 @@ def main() -> int:
         "telemetry": {**telemetry["pack_first_fit"], **telemetry["summary"]},
         "process": {**process["pack_first_fit"], **process["summary"]},
         "apiserver": {**apiserver["pack_first_fit"], **apiserver["summary"]},
+        "fleet": {**fleet["pack_first_fit"], **fleet["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -7574,6 +8334,7 @@ def main() -> int:
         "telemetry": {**telemetry["pack_first_fit_v2"], **telemetry["summary"]},
         "process": {**process["pack_first_fit_v2"], **process["summary"]},
         "apiserver": {**apiserver["pack_first_fit_v2"], **apiserver["summary"]},
+        "fleet": {**fleet["pack_first_fit_v2"], **fleet["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

@@ -264,7 +264,7 @@ class KubeLease:
 class KubeLeaseSet:
     """Keyed lease set over coordination.k8s.io/v1 Leases — the cluster-
     scoped counterpart of ``utils.lease.FileLeaseSet`` (same contract, so
-    the fleet's ``ShardManager``, not ported yet, drives either). Each
+    the fleet's ``ShardManager`` drives either). Each
     shard key maps to one Lease object (``<prefix>-shard-<slug>``); replica
     membership is its own Lease per replica (``<prefix>-member-<identity>``)
     that the holder heartbeats. Split-brain safety is the apiserver's

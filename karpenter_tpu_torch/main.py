@@ -14,8 +14,10 @@ round launches the hand-written kernels, and nothing falls back to the
 CPU. ``--kube-api-server`` runs the process over an API server
 (``ApiCluster``, informer caches started and synced before leadership), and
 a ``kube:<namespace>/<name>`` leader-election lease is a Lease object there.
-The shard leases are not ported: ``--shard-lease`` raises ValueError naming
-what is missing.
+``--shard-lease`` (a shared file, or ``kube:<namespace>/<prefix>`` Leases)
+runs the replica as one member of a sharded fleet: a ``fleet.ShardManager``
+claims the provisioner shards rendezvous hashing gives it, and every
+controller acts only for the shards it holds.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class Runtime:
     journal: object = None  # LaunchJournal when --launch-journal is set
     servers: list = None  # HTTP servers (metrics, health) when serving
     elector: object = None  # LeaderElector when a lease is configured
+    ownership: object = None  # fleet.ShardManager when shard leases are configured
     log_watcher: object = None  # LogLevelWatcher when a config file is set
     slo: object = None  # the SloEngine THIS runtime installed (obs/slo.py)
     profiler: object = None  # the SamplingProfiler THIS runtime installed
@@ -80,6 +83,11 @@ class Runtime:
             # cancel BEFORE restore: a freeze landing after restore() would
             # leak the frozen heap this stop exists to undo
             self._gc_freeze_cancel.set()
+        if self.ownership is not None:
+            # releases every shard lease (and fires on_lost per shard) so
+            # survivors rebalance immediately instead of waiting out the
+            # lease duration; a crash()-ed manager skips the release
+            self.ownership.stop()
         if self.brownout is not None:
             # stops the ladder AND fully reverses it: a stopped replica
             # leaves no degradation behind (resilience/brownout.py)
@@ -278,6 +286,7 @@ def build_runtime(
     start_workers: bool = True,
     allow_pod_affinity: bool = True,
     consolidation_enabled: Optional[bool] = None,
+    shard_identity: Optional[str] = None,
 ) -> Runtime:
     """Assemble (but do not start) the full controller process."""
     options = options or Options()
@@ -290,13 +299,26 @@ def build_runtime(
     # (reference: cmd/controller/main.go:81 → metrics/cloudprovider.go:66)
     cloud_provider = cpmetrics.decorate(cloud_provider)
 
-    # fleet sharding (docs/fleet.md) is not ported: this replica owns every
-    # provisioner, and every controller below runs with ownership=None
+    # fleet sharding (docs/fleet.md): this replica runs workers only for the
+    # provisioner shards whose lease it holds; the manager's claim/renew
+    # loop starts in run_controller_process (tests drive tick() inline).
+    # Shard keys come from the informer watch (WatchedShardKeys), not a
+    # per-tick provisioner LIST: the watch keeps the key universe current
+    # for free, and an added/deleted provisioner wakes the manager for an
+    # immediate tick instead of waiting out the renew interval.
+    ownership = None
     if options.shard_lease:
-        raise ValueError(
-            "--shard-lease needs fleet/ownership.py (ShardManager, "
-            "WatchedShardKeys, build_lease_set), which is not ported"
+        from karpenter_tpu_torch.fleet import ShardManager, WatchedShardKeys, build_lease_set
+
+        lease_set = build_lease_set(
+            options.shard_lease,
+            cluster=cluster,
+            identity=shard_identity,
+            duration=options.shard_lease_duration,
         )
+        shard_keys = WatchedShardKeys(cluster)
+        ownership = ShardManager(lease_set, keys_fn=shard_keys.keys)
+        shard_keys.on_change = ownership.request_tick
 
     # write-ahead launch journal (docs/launch-journal.md): records intent
     # before every cloud create; the GC controller replays what crashes
@@ -312,6 +334,7 @@ def build_runtime(
         start_workers=start_workers,
         default_solver=options.default_solver,
         solver_service_address=options.solver_service_address or None,
+        ownership=ownership,
         journal=journal,
         # pack-integrity knobs (docs/integrity.md): wire checksums on the
         # sidecar path + the native canary cross-check rate
@@ -343,9 +366,11 @@ def build_runtime(
     )
     termination = TerminationController(
         cluster, cloud_provider, start_queue=start_workers,
+        fenced=(ownership.fenced if ownership is not None else None),
     )
     interruption = InterruptionController(
         cluster, cloud_provider, provisioning=provisioning, termination=termination,
+        ownership=ownership,
     )
     node = NodeController(cluster, cloud_provider=cloud_provider)
     consolidation = ConsolidationController(
@@ -354,6 +379,7 @@ def build_runtime(
         enabled=consolidation_enabled,
         solver_service_address=options.solver_service_address or None,
         wave_size=options.consolidation_wave_size,
+        ownership=ownership,
         # disruption-safe waves (docs/consolidation.md): retirements run
         # through the interruption orchestrator's taint→replace→drain
         # ladder, every wave journals intent first so a crash mid-wave is
@@ -368,6 +394,7 @@ def build_runtime(
         cloud_provider,
         journal=journal,
         termination=termination,
+        ownership=ownership,
         gc_interval=options.gc_interval,
         grace_period=options.gc_grace_period,
         warm_pool_ttl=options.warm_pool_ttl,
@@ -382,6 +409,7 @@ def build_runtime(
             cloud_provider,
             provisioning,
             journal=journal,
+            ownership=ownership,
             warm_pool_ttl=options.warm_pool_ttl,
             max_nodes=options.warm_pool_max_nodes,
         )
@@ -425,6 +453,13 @@ def build_runtime(
     manager.register("metrics_node", metrics_node.reconcile, concurrency=2)
     manager.register("metrics_pod", metrics_pod.reconcile, concurrency=2)
 
+    if ownership is not None:
+        # a gained shard reconciles immediately (the worker must exist
+        # before the owner's selection loop can route pods to it); a lost
+        # shard stops its worker SYNCHRONOUSLY — the split-brain P0
+        ownership.on_acquired = lambda name: manager.enqueue("provisioning", name)
+        ownership.on_lost = provisioning.release_shard
+
     # watches
     cluster.watch(
         "provisioners", lambda e, o: manager.enqueue("provisioning", o.metadata.name)
@@ -456,6 +491,7 @@ def build_runtime(
         webhook=Webhook(cloud_provider, default_solver=options.default_solver),
         garbage_collection=garbage_collection,
         journal=journal,
+        ownership=ownership,
         brownout=brownout,
         warmpool=warmpool,
         consolidation=consolidation,
@@ -588,6 +624,14 @@ def run_controller_process(options: Optional[Options] = None, serve: bool = True
         runtime.elector.start()
         logger.info("waiting for leadership (%s)", spec)
         runtime.elector.wait_for_leadership()
+    if runtime.ownership is not None:
+        # unlike leader election there is nothing to wait for: the replica
+        # serves whatever shards it wins, starting with none
+        runtime.ownership.start()
+        logger.info(
+            "fleet sharding active (%s, identity %s)",
+            runtime.options.shard_lease, runtime.ownership.identity,
+        )
     runtime.manager.start()
     if serve:
         _serve_endpoints(runtime)

@@ -166,6 +166,22 @@ class CircuitBreaker:
         with self._mu:
             return self._retry_in() if self._state == OPEN else 0.0
 
+    # -- convenience -------------------------------------------------------
+    def call(self, fn: Callable, *args, **kwargs):
+        """``allow → fn → record``; raises :class:`BreakerOpen` without
+        calling ``fn`` when the circuit is open."""
+        if not self.allow():
+            with self._mu:
+                retry_in = self._retry_in()
+            raise BreakerOpen(self.dependency or "dependency", retry_in)
+        try:
+            result = fn(*args, **kwargs)
+        except Exception:
+            self.record_failure()
+            raise
+        self.record_success()
+        return result
+
 
 class BreakerBoard:
     """Lazily-created breakers keyed by dependency name, sharing one

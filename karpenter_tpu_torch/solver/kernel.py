@@ -17,6 +17,7 @@ runs for CPU tensors and what the CUDA kernel is held against on the card.
 ``pack_v2_reference`` is the same recurrence over the v2 kernel's inputs
 (per-core joined-frontier tables in place of the join table and
 frontiers), the plain version of ``pack_kernel_v2.pack_first_fit_v2``.
+``cheapest_fitting_type`` picks each packed node's cheapest surviving type.
 """
 
 from __future__ import annotations
@@ -193,6 +194,23 @@ def pack_v2_reference(
         node_req,
         torch.tensor(count, dtype=torch.int32, device=dev),
     )
+
+
+def cheapest_fitting_type(node_req, node_sig, sig_type_mask, usable) -> torch.Tensor:
+    """Post-pack, one shot: for every node, the index of the cheapest
+    instance type that survives its signature and fits its total —
+    ``node_req`` [N, R], ``node_sig`` [N], ``sig_type_mask`` [S, T] bool,
+    ``usable`` [T, R]. Types are price-sorted, so "cheapest" = first True.
+    Returns [N] i32 on the inputs' device, -1 for unopened nodes
+    (``node_sig`` < 0) and nodes no type fits. Plain torch ops: the
+    reference's is jitted XLA, not a Pallas kernel."""
+    mask = sig_type_mask[node_sig.clamp(min=0).long()]  # [N, T]
+    fits = (node_req[:, None, :] <= usable[None, :, :]).all(-1)  # [N, T]
+    ok = mask & fits
+    idx = torch.arange(ok.shape[-1], device=ok.device)
+    first = torch.where(ok, idx, ok.shape[-1]).min(dim=-1).values
+    has = ok.any(-1) & (node_sig >= 0)
+    return torch.where(has, first, -1).to(torch.int32)
 
 
 def fuse_result(result: PackResult) -> torch.Tensor:

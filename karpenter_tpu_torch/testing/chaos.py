@@ -17,7 +17,9 @@ with the methods in ``CHAOS_METHODS``) into a misbehaving dependency:
   fired.
 
 Anything else passes through unwrapped. ``SidecarChaos`` runs a few
-in-process sidecars with kill and restart controls. ``LaunchCrash`` and
+in-process sidecars with kill and restart controls; ``ReplicaChaos``
+crashes controller replicas of a sharded fleet without releasing their
+shard leases. ``LaunchCrash`` and
 ``LaunchCrashCluster`` simulate a replica dying between the launch path's
 writes (cloud create → Node object → bind). ``ArrivalPattern`` compiles a
 seeded diurnal + flash-crowd pod-arrival schedule (the forecast storm's
@@ -657,6 +659,49 @@ class SidecarChaos:
     def stop_all(self) -> None:
         for address in list(self.servers):
             self.kill(address)
+
+
+class ReplicaChaos:
+    """Controller-replica kill/restart over a shared cluster + lease set.
+
+    Replicas are ``main.Runtime`` objects (each with a ``fleet.ShardManager``).
+    ``kill`` is a CRASH: the shard manager dies without releasing its
+    leases, so survivors must wait out the lease duration and take the dead
+    replica's shards over — the rebalance-on-death path the acceptance
+    criteria time-bound to 2x the lease duration."""
+
+    def __init__(self):
+        self.replicas: Dict[str, object] = {}
+        self.killed: Dict[str, object] = {}
+
+    def add(self, name: str, runtime) -> None:
+        self.replicas[name] = runtime
+
+    def kill(self, name: str) -> None:
+        runtime = self.replicas.pop(name)
+        self.killed[name] = runtime
+        if runtime.ownership is not None:
+            runtime.ownership.crash()  # no lease release: a real SIGKILL
+        runtime.stop()
+
+    def owner_named(self, shard: str):
+        """(replica name, runtime) currently owning ``shard`` among the
+        LIVE replicas, or (None, None)."""
+        for name, runtime in self.replicas.items():
+            if runtime.ownership is not None and runtime.ownership.owns(shard):
+                return name, runtime
+        return None, None
+
+    def owned_shards(self) -> Dict[str, frozenset]:
+        return {
+            name: frozenset(rt.ownership.owned())
+            for name, rt in self.replicas.items()
+            if rt.ownership is not None
+        }
+
+    def stop_all(self) -> None:
+        for name in list(self.replicas):
+            self.replicas.pop(name).stop()
 
 
 class ArrivalPattern:

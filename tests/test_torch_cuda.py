@@ -1639,3 +1639,119 @@ def test_run_controller_process_binds_pods_on_card(tmp_path):
     finally:
         rt.stop()
     assert FileLease(lease, identity="probe").holder() is None
+
+
+def test_fleet_of_three_replicas_binds_a_storm_after_a_kill_on_card(tmp_path, monkeypatch):
+    """Three ``build_runtime`` replicas on ``cuda`` over one cluster and one
+    shard-lease file (2 s, renewed every 0.4 s) and four ``solver: tpu``
+    provisioners: the owner of ``fleet-0`` is crashed mid-storm, its shards
+    re-home, every pod binds once, and every round — the workers' warm-ups
+    included — is a ``pack_first_fit`` launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+    import time
+
+    from karpenter_tpu_torch.api.objects import NodeSelectorRequirement
+    from karpenter_tpu_torch.cloudprovider import metrics as cpmetrics
+    from karpenter_tpu_torch.controllers.provisioning import ProvisionerWorker
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.main import build_runtime
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.testing import make_pod, make_provisioner
+    from karpenter_tpu_torch.testing.chaos import ReplicaChaos
+
+    rounds, in_flight, mu = [], [0], threading.Lock()
+    solve = Scheduler.solve
+
+    def counted(self, *args, **kwargs):
+        with mu:
+            in_flight[0] += 1
+        try:
+            nodes = solve(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            rounds.append(self.last_stage_profile())
+            return nodes
+        finally:
+            with mu:
+                in_flight[0] -= 1
+
+    monkeypatch.setattr(Scheduler, "solve", counted)
+    workers = []
+    init = ProvisionerWorker.__init__
+
+    def tracked(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        workers.append(self)
+
+    monkeypatch.setattr(ProvisionerWorker, "__init__", tracked)
+
+    def wait(predicate, timeout):
+        deadline = time.time() + timeout
+        while time.time() < deadline and not predicate():
+            time.sleep(0.05)
+        return predicate()
+
+    cluster = Cluster()
+    fake = FakeCloudProvider(instance_types(50))
+    provider = cpmetrics.decorate(fake)
+    fleet = ReplicaChaos()
+    binds, lock = {}, threading.Lock()
+    bind = cluster.bind
+
+    def counting_bind(pod, node_name):
+        with lock:
+            binds[pod.key] = binds.get(pod.key, 0) + 1
+        bind(pod, node_name)
+
+    cluster.bind = counting_bind
+    names = [f"fleet-{i}" for i in range(4)]
+    before = pack_kernel.launches + pack_kernel_v2.launches
+    try:
+        for i in range(3):
+            rt = build_runtime(Options(shard_lease=str(tmp_path / "shards"),
+                                       shard_lease_duration=2.0),
+                               cluster=cluster, cloud_provider=provider,
+                               shard_identity=f"replica-{i}")
+            rt.ownership.renew_interval = 0.4
+            rt.ownership.leases.heartbeat()
+            fleet.add(f"replica-{i}", rt)
+        for rt in fleet.replicas.values():
+            rt.ownership.start()
+            rt.manager.start()
+        for name in names:
+            cluster.create("provisioners", make_provisioner(
+                name=name, solver="tpu", requirements=[NodeSelectorRequirement(
+                    key="fleet", operator="In", values=[name])]))
+        assert wait(lambda: all(
+            (rt := fleet.owner_named(n)[1]) is not None and n in rt.provisioning.workers
+            for n in names), 60)
+        pods = [make_pod(name=f"ha-{i}", requests={"cpu": "0.25"},
+                         node_selector={"fleet": names[i % 4]}) for i in range(64)]
+        for p in pods[:16]:
+            cluster.create("pods", p)
+        victim, victim_rt = fleet.owner_named(names[0])
+        orphaned = frozenset(victim_rt.ownership.owned())
+        fleet.kill(victim)
+        for p in pods[16:]:
+            cluster.create("pods", p)
+        assert wait(lambda: orphaned <= set().union(
+            *(rt.ownership.owned() for rt in fleet.replicas.values())), 2 * 2.0 + 2.0)
+        assert wait(lambda: all(p.spec.node_name for p in pods), 120)
+    finally:
+        # the managers first: a shard one replica's stop releases is then
+        # not claimed by another on its way down
+        for rt in fleet.replicas.values():
+            rt.manager.stop()
+        fleet.stop_all()
+    # a torn-down worker's warm-up, and a round its stop gave up on, end on
+    # their own threads
+    assert all(w.warmed.wait(timeout=600) for w in workers)
+    assert wait(lambda: in_flight[0] == 0, 120)
+    assert all(binds.get(p.key) == 1 for p in pods)
+    assert len(cluster.nodes()) == len(fake.create_calls)
+    assert {r["packer_backend"] for r in rounds} == {"pack_first_fit"}
+    assert pack_kernel.launches + pack_kernel_v2.launches - before == sum(
+        r["pack_dispatches"] for r in rounds)

@@ -75,7 +75,11 @@ def view(e, worker=None):
     if worker is not None:
         served = worker.scheduler.last_stage_profile().get("packer_backend") is not None
     return {
-        "nodes": [wire_doc(M, "nodes", n) for n in sorted(nodes.values(), key=lambda n: n.metadata.name)],
+        # by creation order (fake-node-<n> by n): a plain name sort puts
+        # fake-node-10 before fake-node-9, so it would depend on how many
+        # nodes the process's fake cloud made before the case
+        "nodes": [wire_doc(M, "nodes", n) for n in sorted(
+            nodes.values(), key=lambda n: (len(n.metadata.name), n.metadata.name))],
         "pods": [wire_doc(M, "pods", p) for p in e.pods], "events": events(M, cluster), "plan": plan,
         "evicted_unready": e.ic.evicted_unready, "notices": e.ic.notices_handled,
         "lead_times": len(e.ic.lead_times), "creates": len(e.provider.create_calls),

@@ -9,7 +9,8 @@ fenced guards of the worker, the terminator and the garbage collector.
 
 Mirrors ``tests/test_apiserver.py`` (``TestKubeLeaderElection``) and
 ``tests/test_partition.py`` (``TestLeaseFencing``, ``TestFencedGuards``;
-the two cases that need the fleet's ``ShardManager`` wait for its port).
+the two cases that need the fleet's ``ShardManager`` are in
+``tests/test_torch_fleet.py``).
 Each case runs on both packages and compares exactly.
 """
 

@@ -10,9 +10,10 @@ and the ``_freeze_gc_when_warm`` cases of ``tests/test_gcpolicy.py``. Each
 case runs on both packages (the port's runtimes with ``device="cpu"``) and
 compares exactly under ``torch_parity.canon``. The port's own cases: the
 ``--device`` option and its threading into every controller that solves,
-the three settings the port refuses until its apiserver client lands
-(``--kube-api-server``, ``--shard-lease``, a ``kube:`` leader lease), the
-webhook over HTTPS from given cert files, and two electors on one lease.
+the three settings the port refused until its apiserver client and its
+fleet landed (``--kube-api-server``, ``--shard-lease``, a ``kube:`` leader
+lease), the webhook over HTTPS from given cert files, and two electors on
+one lease.
 """
 
 import gc
@@ -208,9 +209,33 @@ def test_kube_api_server_is_refused(monkeypatch):
 
 
 def test_shard_lease_is_refused(tmp_path):
-    M = proc(PORT)
-    with pytest.raises(ValueError, match="fleet/ownership.py"):
-        M.main.build_runtime(M.options.Options(device="cpu", shard_lease=str(tmp_path / "s")))
+    """``--shard-lease`` was refused until the fleet was ported; now
+    ``build_runtime`` builds a ``ShardManager`` under the given identity,
+    hands it to every controller (the terminator gets its fence), wires
+    its hooks, and its first tick owns a created provisioner; ``stop``
+    releases the shard."""
+    def run(M):
+        lease = M.lease.FileLeaseSet(str(tmp_path / f"s-{M.pkg}"), identity="probe")
+        rt = M.main.build_runtime(
+            options(M, shard_lease=str(tmp_path / f"s-{M.pkg}"), shard_lease_duration=30.0),
+            cluster=M.Cluster(), start_workers=False, shard_identity="replica-0")
+        try:
+            own = rt.ownership
+            wired = (type(own).__name__, own.identity, own.leases.duration,
+                     rt.provisioning.ownership is own, rt.interruption.ownership is own,
+                     rt.consolidation.ownership is own, rt.garbage_collection.ownership is own,
+                     rt.termination.fenced == own.fenced,
+                     own.on_lost == rt.provisioning.release_shard)
+            rt.cluster.create("provisioners", M.f.make_provisioner(name="p1"))
+            own.tick()
+            owned = sorted(own.owned())
+            held = lease.holder("p1")
+        finally:
+            rt.stop()
+        return wired, owned, held, lease.holder("p1"), sorted(lease.members())
+
+    assert both(run) == (("ShardManager", "replica-0", 30.0, True, True, True, True, True, True),
+                         ["__unassigned__", "p1"], "replica-0", None, [])
 
 
 def test_kube_leader_election_lease_is_refused():
