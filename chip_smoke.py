@@ -509,6 +509,24 @@ Phases (any failure exits non-zero; nothing is swallowed):
              fenced replica, the fence lifted after it, every shard owned
              again, every pod bound once, and no journal entry open after
              the collectors' sweep and stop(). The phase's wall is printed;
+23. mesh   — (after phase 22) the solver mesh (parallel/sharding.py's
+             SolverMesh, graft_entry.py). (a) dryrun_multichip(8): with
+             fewer than 8 cards a virtual data 4 x model 2 mesh of the cards
+             present; its v1 leg (8 batches of 2,048 pods, S=129, n_max 512)
+             and v2 leg (8 batches of 512 pods over tradeoff(16), S=65,
+             F=16) must each launch their kernel exactly 4 times (once per
+             data shard) and equal, for all 8 batches (five outputs and the
+             cheapest types), sharded_multi_solve on the CPU and on a 1 x 1
+             card mesh. (b) BASELINE config 4 as bench_multi_provisioner
+             builds it (8 provisioners x diverse_pods(1250, Random(100+b)) x
+             instance_types(400), sort_pods_ffd, Topology.inject with
+             Random(b), n_max max(256, P // 4)) through meshes 1 x 1, 8 x 1,
+             4 x 1 and 2 x 2 of the card, and its team-mix twin
+             (instance_types_tradeoff(400), 64 teams, v2) through 1 x 1,
+             4 x 1 and 2 x 2: each equal to the cpu result, one launch per
+             data shard, and timed (host clock, mean of 3, synchronized).
+             (c) with more than one card, (a) over the real cards. The
+             phase's wall is printed;
 10. kernels — one JSON line listing every kernel of the port, with its
              launches on the main paths (phases 3 and 8 for pack_first_fit,
              6 and 8 for pack_first_fit_v2), on the unfused route (phase 9)
@@ -529,8 +547,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
              launches by part and what (a)-(e) measured, ``process``:
              phase 20's launches by part and what (a)-(c) measured, and
              ``apiserver``: phase 21's launches by part and what (a)-(e)
-             measured, and ``fleet``: phase 22's launches by part and what
-             (a)-(c) measured.
+             measured, ``fleet``: phase 22's launches by part and what
+             (a)-(c) measured, and ``mesh``: phase 23's launches by part and
+             each mesh's time.
 
 Every phase runs the default KARPENTER_PACKER (unset) unless it names a
 value: on the card that is the device path, routed by shape. The
@@ -1018,18 +1037,6 @@ def synthetic_v2(P: int, S: int, F: int, R: int, C: int, seed: int, n_hosts: int
     return pack_kernel_v2.v2_args(*synthetic_args(P, S, F, R, C, seed, n_hosts, device))
 
 
-def multi_stack(batches, catalog):
-    """Stack batches that share their encoded shapes (asserted) for
-    sharded_multi_solve: (arrays, type masks, usable, prices)."""
-    shapes = {tuple(np.asarray(a).shape for a in b.pack_args()) for b in batches}
-    if len(shapes) != 1:
-        raise AssertionError(f"batches of one stack encode to different shapes: {shapes}")
-    arrays = tuple(np.stack([np.asarray(b.pack_args()[i]) for b in batches]) for i in range(10))
-    mask = np.stack([b.type_mask_matrix() for b in batches])
-    prices = np.array(sorted(it.effective_price() for it in catalog), np.float32)
-    return arrays, mask, batches[0].usable, prices
-
-
 def diverse_phases(dev, card: str) -> tuple:
     """Phases 5-7: the v2 kernel against its plain version, the diverse main
     path, the multi-solve. Returns pack_first_fit_v2's kernels-line numbers
@@ -1037,6 +1044,7 @@ def diverse_phases(dev, card: str) -> tuple:
     import torch
 
     from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.graft_entry import stack_batches
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.parallel.sharding import sharded_multi_solve
     from karpenter_tpu_torch.scheduling.scheduler import Scheduler
@@ -1171,7 +1179,8 @@ def diverse_phases(dev, card: str) -> tuple:
     for want, (cat, pod_sets) in stacks.items():
         t0 = time.perf_counter()
         batches = [encode_batch(cat, ps, topo_seed=b) for b, ps in enumerate(pod_sets)]
-        arrays, mask, usable, prices = multi_stack(batches, cat)
+        arrays, mask, usable, prices = stack_batches(
+            batches, sorted(cat, key=lambda it: it.effective_price()))
         encode_s = time.perf_counter() - t0
         B, Pm = arrays[6].shape[:2]
         n_max = max(256, Pm // 4)
@@ -2690,9 +2699,16 @@ class KernelClock:
 
 
 def metric(name: str, labels=None) -> float:
+    """The sample ``name`` with exactly ``labels`` in the port's registry,
+    0.0 where there is none. It collects only the collector that owns the
+    name: a whole-registry scan costs time in proportion to every series
+    (karpenter_pods_state keeps one per pod of every earlier phase's
+    cluster), and a probe that polls it every 10 ms holds the GIL."""
     from karpenter_tpu_torch import metrics
 
-    return metrics.REGISTRY.get_sample_value(name, labels or {}) or 0.0
+    labels = labels or {}
+    return next((s.value for fam in metrics.REGISTRY.restricted_registry([name]).collect()
+                 for s in fam.samples if s.name == name and s.labels == labels), 0.0)
 
 
 def check_tree(tree: dict, prof: dict, what: str) -> float:
@@ -3426,17 +3442,25 @@ def wire_controllers(cluster, provider, device: str, start_workers: bool, journa
     return manager, provisioning, counter
 
 
-def record_rounds(worker, rounds: list) -> None:
+def record_rounds(worker, rounds: list) -> threading.Lock:
     """Wrap the worker's scheduler.solve: each round appends its batch
     size, the nodes it planned, what served it (packer_backend, pack_route,
     pack_dispatches), its SCHEDULING_DURATION observation and its host
     wall time, and the batch's pods that no node holds (``unplaced``); a
-    round that raises appends its error and re-raises."""
+    round that raises appends its error and re-raises. Returns the lock
+    each round holds from its solve to its append: read the launch
+    counters and ``rounds`` together under it, and no round in flight
+    counts in one and not the other."""
     sched = worker.scheduler
     solve = sched.solve
     labels = {"provisioner": worker.provisioner.name}
+    lock = threading.Lock()
 
     def wrapped(provisioner, instance_types, pods):
+        with lock:
+            return record(provisioner, instance_types, pods)
+
+    def record(provisioner, instance_types, pods):
         before = metric("karpenter_allocation_controller_scheduling_duration_seconds_sum", labels)
         t0 = time.perf_counter()
         try:
@@ -3461,6 +3485,7 @@ def record_rounds(worker, rounds: list) -> None:
         return nodes
 
     sched.solve = wrapped
+    return lock
 
 
 def check_rounds(rounds: list, kernels: set, what: str) -> dict:
@@ -5679,12 +5704,19 @@ def telemetry_two_process(card: str, device: str, n_pods: int, n_types: int, del
         coll = tc.TelemetryCollector(
             [tc.FileTelemetryBackend(tdir, identity="controller")], flush_interval=1.0,
             extra_trees=lambda: obs.exporter().snapshot(limit=None, newest_first=False))
+        def pack_under_wire(tree) -> bool:
+            # the child flushes each of its trees when it ends, so one flush
+            # can carry an earlier tree of this trace without the pack
+            return any(c["name"] == "sidecar.pack" and c.get("stitched")
+                       for s in tc._walk(tree) if s["name"] == "solver.wire"
+                       for c in s["children"])
+
         solve, t0 = None, time.perf_counter()
         while solve is None and time.perf_counter() - t0 < 30.0:
             coll.refresh()
             roots, _ = coll.stitched()
-            solve = next((t for t in roots if t["name"] == "solver.solve" and any(
-                s.get("stitched") for s in tc._walk(t))), None)
+            solve = next((t for t in roots if t["name"] == "solver.solve"
+                          and pack_under_wire(t)), None)
             if solve is None:
                 time.sleep(0.25)
         stitch_s = time.perf_counter() - t0
@@ -6918,8 +6950,8 @@ def apiserver_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
         warm_launches = delta(start)
         expect_launches("apiserver a, warm-up", warm_launches,
                         {warm["packer_backend"]: warm.get("pack_dispatches", 0)})
-        rounds = []
-        record_rounds(worker, rounds)
+        live = []
+        round_lock = record_rounds(worker, live)
         requests_before, kube_before = server.call("requests"), kube_counters()
         storm_start = counts()
         t0 = time.perf_counter()
@@ -6927,7 +6959,11 @@ def apiserver_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
         names = created["names"]
         stuck = server.call("wait", timeout=660, names=names, limit=600)
         wall = time.perf_counter() - t0
-        storm_launches = delta(storm_start)
+        # the stuck pods' retry rounds go on: a round in flight now counts
+        # in neither the launches nor the rounds
+        with round_lock:
+            storm_launches = delta(storm_start)
+            rounds = list(live)
         seated = [n for n in names if n not in set(stuck)]
         st = server.call("state", names=names)
         twice = {n: k for n, k in st["binds"].items() if k > 1 or (k == 0 and n in seated)}
@@ -6993,10 +7029,11 @@ def apiserver_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
 
         probe = threading.Thread(target=probe_fence, daemon=True)
         probe.start()
-        rounds.clear()
         creates_before = len(provider.create_calls)
         requests_before, kube_before = server.call("requests"), kube_counters()
-        start = counts()
+        with round_lock:
+            live.clear()
+            start = counts()
         # the two next PATCHes answer 503 (the round's lastScaleTime and the
         # counter's status patches are PATCHes): the mutate class retries
         server.call("chaos", throttle_rate=CHAOS_THROTTLE, retry_after=0.05, seed=CHAOS_SEED,
@@ -7017,7 +7054,7 @@ def apiserver_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
                     f"{rt.manager.healthz()}, fenced or not leading at {len(fenced)} probes; "
                     f"{len(missing)} unbound, the first: "
                     f"{stuck_report(rt, server, missing)}; rounds (batch, nodes, unplaced) "
-                    f"{[(r['pods'], r.get('nodes'), r.get('unplaced')) for r in rounds]}; "
+                    f"{[(r['pods'], r.get('nodes'), r.get('unplaced')) for r in live]}; "
                     f"PodUnschedulable events "
                     f"{server.call('unschedulable_reasons', names=names)}") from None
         finally:
@@ -7025,7 +7062,9 @@ def apiserver_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS,
             stop_probe.set()
             probe.join(5)
         wall_c = time.perf_counter() - t0
-        chaos_launches = delta(start)
+        with round_lock:
+            chaos_launches = delta(start)
+            rounds = list(live)
         launched = check_rounds(rounds, {V1, V2}, "apiserver (c)")
         expect_launches("apiserver c", chaos_launches, launched)
         st = server.call("state", names=names)
@@ -7374,8 +7413,8 @@ def metric_total(name: str) -> float:
     all label values."""
     from karpenter_tpu_torch import metrics
 
-    return sum(s.value for fam in metrics.REGISTRY.collect() for s in fam.samples
-               if s.name == name)
+    return sum(s.value for fam in metrics.REGISTRY.restricted_registry([name]).collect()
+               for s in fam.samples if s.name == name)
 
 
 def fleet_provisioners(n: int, prefix: str = "fleet") -> list:
@@ -7819,6 +7858,7 @@ def fleet_kube(card: str, device: str, n_pods: int, n_types: int, counts, delta)
     two replicas, each its own ApiCluster, four provisioners, a storm of
     ``n_pods`` pods created in the server's store, and one blackout longer
     than the shard Leases' duration."""
+    from karpenter_tpu_torch import metrics
     from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
     from karpenter_tpu_torch.controllers.garbage_collection import GC_POLL_KEY
     from karpenter_tpu_torch.fleet import DEFAULT_SHARD
@@ -7894,6 +7934,11 @@ def fleet_kube(card: str, device: str, n_pods: int, n_types: int, counts, delta)
             wait_for(lambda: owners_ready(fleet, names), 120, "fleet (c): every shard owned")
             rounds.settle()
             before = {n: sorted(s) for n, s in fleet.owned_shards().items()}
+            # what the probe would pay per sample scanning the whole registry
+            series = metric_total("karpenter_pods_state")
+            t_scan = time.perf_counter()
+            metrics.REGISTRY.get_sample_value("karpenter_fleet_fenced", {})
+            scan_ms = (time.perf_counter() - t_scan) * 1e3
             prober.start()
             server.call("chaos", seed=CHAOS_SEED)
             t0 = t_storm[0] = time.perf_counter()
@@ -7955,7 +8000,8 @@ def fleet_kube(card: str, device: str, n_pods: int, n_types: int, counts, delta)
         "journal_open_before_gc": open_before_gc, "journal_open_after_stop": open_after,
         "stop_s": stop_s, "chaos": injected, "by_replica": rounds.by_replica,
         "shards_before": before, "shards_after": after, "launches": launches,
-        "part_s": time.perf_counter() - t_part,
+        "part_s": time.perf_counter() - t_part, "probe_samples": len(samples),
+        "pods_state_series": series, "registry_scan_ms": scan_ms,
     }
     log(f"[fleet] (c) {KUBE_FLEET_REPLICAS} replicas over the in-repo API server (a process of "
         f"its own), each its own ApiCluster, shard lease {KUBE_SHARD_LEASE} ({KUBE_SHARD_LEASE_S:g} "
@@ -7967,7 +8013,10 @@ def fleet_kube(card: str, device: str, n_pods: int, n_types: int, counts, delta)
         f"shards before {before}, after {after}; all bound in {wall:.3f} s (p50 "
         f"{row['p50_ms']:.1f} ms, p99 {row['p99_ms']:.1f} ms), every pod bound once; "
         f"journal entries open {open_before_gc} before the GC sweeps, {open_after} after "
-        f"stop ({stop_s:.3f} s); chaos {injected}; launches {launches}; card {card}")
+        f"stop ({stop_s:.3f} s); chaos {injected}; launches {launches}; fence probe "
+        f"{len(samples)} samples ({len(samples) / wall:.1f}/s; a whole-registry scan over "
+        f"{series:g} karpenter_pods_state series took {scan_ms:.1f} ms, the probe reads one "
+        f"collector); card {card}")
     for name, r in sorted(rounds.by_replica.items()):
         log(f"[fleet] (c) {name}: {r['rounds']} rounds (warm-ups included), launches "
             f"{r['launches']}")
@@ -8040,6 +8089,169 @@ def fleet_phase(card: str, device: str = "cuda", n_pods: int = STORM_PODS, n_typ
     log(f"[fleet] phase 22 wall {phase_s:.3f} s; card {card}")
     return out
 
+
+def config4_stack(catalog, pod_sets) -> tuple:
+    """BASELINE config 4's stack as ``bench_multi_provisioner``
+    (``bench.py:3994-4036``) builds it, through the port: per provisioner
+    ``prov-b`` its pods sorted by ``sort_pods_ffd``, topology injected by
+    ``Topology(Cluster(), rng=Random(b)).inject``, encoded without a plan.
+    Returns (arrays, masks, usable, prices)."""
+    from karpenter_tpu_torch.cloudprovider.requirements import catalog_requirements
+    from karpenter_tpu_torch.graft_entry import stack_batches
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.ffd import daemon_overhead, sort_pods_ffd
+    from karpenter_tpu_torch.scheduling.topology import Topology
+    from karpenter_tpu_torch.solver import encode as enc
+    from karpenter_tpu_torch.testing import make_provisioner
+
+    catalog = sorted(catalog, key=lambda it: it.effective_price())
+    batches = []
+    for b, pods in enumerate(pod_sets):
+        c = make_provisioner(name=f"prov-{b}").spec.constraints
+        c.requirements = c.requirements.merge(catalog_requirements(catalog))
+        pods = sort_pods_ffd(pods)
+        cc = c.clone()
+        Topology(Cluster(), rng=random.Random(b)).inject(cc, pods)
+        batches.append(enc.encode(cc, catalog, pods, daemon_overhead(Cluster(), cc)))
+    return stack_batches(batches, catalog)
+
+
+def mesh_phase(card: str, device: str = "cuda", n_pods: int = 1250, n_types: int = 400) -> dict:
+    """Phase 23: the solver mesh on the card. (a) the dry run over a data 4
+    x model 2 mesh (virtual on one card), (b) BASELINE config 4 and its
+    team-mix twin through meshes of the card, (c) with more than one card,
+    (a) over the real cards. Every solve equals the cpu result and launches
+    its kernel once per data shard. Returns the kernels line's ``mesh``
+    entries."""
+    import torch
+
+    from karpenter_tpu_torch import graft_entry
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types, instance_types_tradeoff
+    from karpenter_tpu_torch.parallel import make_solver_mesh, sharded_multi_solve
+    from karpenter_tpu_torch.solver import pack_kernel, pack_kernel_v2
+    from karpenter_tpu_torch.solver.backend import kernel_name
+    from karpenter_tpu_torch.testing import diverse_pods
+
+    V1, V2 = "pack_first_fit", "pack_first_fit_v2"
+    modules = {V1: pack_kernel, V2: pack_kernel_v2}
+    kernel_of = {"v1": V1, "v2": V2}
+    out = {V1: {}, V2: {}, "summary": {}}
+    t_phase = time.perf_counter()
+
+    def sync() -> None:
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def counts() -> dict:
+        with pack_kernel.launch_count_lock:
+            return {name: m.launches for name, m in modules.items()}
+
+    def expect(what: str, launched: dict, kernel: str, n: int) -> None:
+        want = {V1: 0, V2: 0, kernel: n}
+        if launched != want:
+            raise AssertionError(f"[mesh] {what}: launches {launched}, expected {want}")
+
+    def add(label: str, launched: dict) -> None:
+        for name, n in launched.items():
+            if n:
+                out[name][f"launches_{label}"] = out[name].get(f"launches_{label}", 0) + n
+
+    def same(what: str, ref, got) -> None:
+        compare(ref[0], got[0])
+        if not torch.equal(ref[1], got[1].cpu()):
+            raise AssertionError(f"[mesh] {what}: cheapest types differ from the cpu result")
+
+    def solve(mesh, stack, n_max):
+        before = counts()
+        got = sharded_multi_solve(mesh, *stack, n_max=n_max)
+        sync()
+        return got, {k: n - before[k] for k, n in counts().items()}
+
+    def dry_run(n_devices: int, label: str) -> dict:
+        t0 = time.perf_counter()
+        devices = None if device != "cpu" else ["cpu"] * n_devices
+        dry = graft_entry.dryrun_multichip(n_devices, devices=devices)
+        summary = dry["summary"]
+        data = summary["mesh"]["data"]
+        for leg, kernel in kernel_of.items():
+            L = dry["legs"][leg]
+            if L["route"]["route"] != kernel_name(leg, torch.device(device)):
+                raise AssertionError(f"[mesh] ({label}) {leg} leg routed {L['route']}")
+            expect(f"({label}) {leg} leg", L["launches"], kernel, data)
+            add(label, L["launches"])
+            cpu = sharded_multi_solve("cpu", *L["stack"], n_max=L["n_max"])
+            same(f"({label}) {leg} leg", cpu, (L["result"], L["cheapest"]))
+            one, _ = solve(device, L["stack"], L["n_max"])
+            same(f"({label}) {leg} leg on a 1 x 1 mesh", cpu, one)
+        log(f"[mesh] ({label}) dryrun_multichip({n_devices}): mesh {summary['mesh']}, B="
+            f"{summary['B']}, v1 leg S={summary['S']} nodes={summary['nodes_per_batch']}, v2 leg "
+            f"S={summary['f_gt1']['S']} F={summary['f_gt1']['F']} scheduled "
+            f"{summary['f_gt1']['scheduled']}; {data} launches per leg; every batch's five "
+            f"outputs and cheapest types == cpu and == the 1 x 1 mesh; timing_s "
+            f"{summary['timing_s']}, v2 leg {summary['f_gt1']['solve_s']} s; wall "
+            f"{time.perf_counter() - t0:.3f} s; card {card}")
+        return {"mesh": summary["mesh"], "B": summary["B"], "timing_s": summary["timing_s"],
+                "v2_solve_s": summary["f_gt1"]["solve_s"],
+                "nodes_per_batch": summary["nodes_per_batch"],
+                "wall_s": time.perf_counter() - t0}
+
+    # -- (a) the dry run: a virtual data 4 x model 2 mesh on one card -------
+    out["summary"]["a"] = dry_run(8, "a")
+    if out["summary"]["a"]["mesh"] != {"data": 4, "model": 2}:
+        raise AssertionError(f"[mesh] (a) mesh {out['summary']['a']['mesh']}")
+
+    # -- (b) BASELINE config 4 and its team-mix twin through card meshes ----
+    legs = {
+        "v1": (instance_types(n_types),
+               [diverse_pods(n_pods, random.Random(100 + b)) for b in range(8)],
+               ((1, 1), (8, 1), (4, 1), (2, 2))),
+        "v2": (instance_types_tradeoff(n_types), [team_pods(n_pods, 100 + b) for b in range(8)],
+               ((1, 1), (4, 1), (2, 2))),
+    }
+    for kind, (catalog, pod_sets, shapes) in legs.items():
+        t0 = time.perf_counter()
+        stack = config4_stack(catalog, pod_sets)
+        encode_s = time.perf_counter() - t0
+        B, P = stack[0][6].shape[:2]
+        n_max = max(256, P // 4)
+        t0 = time.perf_counter()
+        cpu = sharded_multi_solve("cpu", *stack, n_max=n_max)
+        cpu_s = time.perf_counter() - t0
+        times = {}
+        for data, model in shapes:
+            mesh = make_solver_mesh(data * model, model, devices=[device] * (data * model))
+            got, launched = solve(mesh, stack, n_max)
+            if got[2]["route"] != kernel_name(kind, torch.device(device)):
+                raise AssertionError(f"[mesh] (b) {kind} {data} x {model}: route {got[2]}")
+            expect(f"(b) {kind} {data} x {model}", launched, kernel_of[kind], data)
+            add("b", launched)
+            same(f"(b) {kind} {data} x {model}", cpu, got)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                sharded_multi_solve(mesh, *stack, n_max=n_max)
+            sync()
+            times[f"{data}x{model}"] = (time.perf_counter() - t0) * 1e3 / 3
+        report = got[2]
+        log(f"[mesh] (b) {kind}: B={B} P={P} S={report['S']} F={report['F']} n_max={n_max} "
+            f"pod_req C-contiguous={stack[0][6].flags.c_contiguous} route={report['route']} "
+            f"nodes={cpu[0].n_nodes.tolist()}; every mesh == cpu (cpu {cpu_s:.2f} s); "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+            + f" (host clock, mean of 3, synchronized; one launch per data shard; stack "
+              f"encoded in {encode_s:.2f} s); card {card}")
+        out["summary"][f"b_{kind}"] = {"ms": times, "B": int(B), "P": int(P),
+                                       "n_max": n_max, "encode_s": encode_s}
+
+    # -- (c) the real cards ---------------------------------------------------
+    cards = torch.cuda.device_count() if device != "cpu" else 1
+    if cards > 1:
+        out["summary"]["c"] = dry_run(cards, "c")
+    else:
+        log(f"[mesh] (c) one card present: the dry run over real cards needs two or more; "
+            f"card {card}")
+    phase_s = time.perf_counter() - t_phase
+    out["summary"]["phase_s"] = phase_s
+    log(f"[mesh] phase 23 wall {phase_s:.3f} s; card {card}")
+    return out
 
 def main() -> int:
     import torch
@@ -8276,6 +8488,9 @@ def main() -> int:
     # -- 22. fleet --------------------------------------------------------
     fleet = fleet_phase(card)
 
+    # -- 23. mesh ---------------------------------------------------------
+    mesh = mesh_phase(card)
+
     # -- 10. kernels ------------------------------------------------------
     def sidecar_launches(name):
         return {k.replace("launches_", ""): v
@@ -8291,6 +8506,7 @@ def main() -> int:
         "launches_by_path": {"main": main_launches, "resident": resident["pack_first_fit"],
                              "route": route["pack_first_fit"]["launches_route"],
                              "obs": observed["pack_first_fit"]["launches_obs"],
+                             "mesh": sum(mesh["pack_first_fit"].values()),
                              **sidecar_launches("pack_first_fit")},
         **{k: v for k, v in route["pack_first_fit"].items() if k != "launches_route"},
         "degrade": degrade["pack_first_fit"],
@@ -8304,6 +8520,7 @@ def main() -> int:
         "process": {**process["pack_first_fit"], **process["summary"]},
         "apiserver": {**apiserver["pack_first_fit"], **apiserver["summary"]},
         "fleet": {**fleet["pack_first_fit"], **fleet["summary"]},
+        "mesh": {**mesh["pack_first_fit"], **mesh["summary"]},
         "max_abs_err": worst,
         "ms": ms_512,
         "plain_ms": plain_ms,
@@ -8322,6 +8539,7 @@ def main() -> int:
         "launches_by_path": {"diverse": v2["launches"], "resident": resident["pack_first_fit_v2"],
                              "route": route["pack_first_fit_v2"]["launches_route"],
                              "obs": observed["pack_first_fit_v2"]["launches_obs"],
+                             "mesh": sum(mesh["pack_first_fit_v2"].values()),
                              **sidecar_launches("pack_first_fit_v2")},
         **{k: v for k, v in route["pack_first_fit_v2"].items() if k != "launches_route"},
         "degrade": degrade["pack_first_fit_v2"],
@@ -8335,6 +8553,7 @@ def main() -> int:
         "process": {**process["pack_first_fit_v2"], **process["summary"]},
         "apiserver": {**apiserver["pack_first_fit_v2"], **apiserver["summary"]},
         "fleet": {**fleet["pack_first_fit_v2"], **fleet["summary"]},
+        "mesh": {**mesh["pack_first_fit_v2"], **mesh["summary"]},
         "library_ms": None,
         "parity": "bit-exact",
     }]

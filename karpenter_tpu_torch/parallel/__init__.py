@@ -1,2 +1,8 @@
-"""Many packing problems in one launch: the multi-solve on one card
+"""The multi-solve over a ``data × model`` mesh of devices
 (``sharding.sharded_multi_solve``)."""
+
+from karpenter_tpu_torch.parallel.sharding import (  # noqa: F401
+    SolverMesh,
+    make_solver_mesh,
+    sharded_multi_solve,
+)

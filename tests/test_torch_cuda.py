@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the CUDA kernels against their plain
 versions, and the port's cuda paths (single solve on both routes,
-multi-solve) against its cpu paths, and the degrade ladder on the card,
+multi-solve, a virtual solver mesh of one card and, with two cards, a mesh
+across both) against its cpu paths, and the degrade ladder on the card,
 which raises where a cpu scheduler serves its FFD floor (both kernels
 failing, the canary over a full-width kernel result, a NaN in the fetched
 buffer); the sidecar on the card, its coalesced stream groups (one launch
@@ -205,6 +206,65 @@ def test_multi_solve_cuda_matches_cpu(cuda, tradeoff, kernel):
     assert module.launches == before + 1 and route["route"] == kernel
     assert_same(ref, out)
     np.testing.assert_array_equal(ref_cheapest.numpy(), cheapest.cpu().numpy())
+
+
+def mesh_stack(tradeoff):
+    """The dry run's two stacks at a test's size: 8 batches of the port's
+    ``graft_entry._example_batch`` (a transposed ``pod_req``)."""
+    from karpenter_tpu_torch import graft_entry
+
+    kw = (dict(n_pods=256, n_types=16, k_labels=64, tradeoff=True) if tradeoff
+          else dict(n_pods=256, n_types=32, k_labels=16))
+    batches = [graft_entry._example_batch(seed=100 + b, **kw) for b in range(8)]
+    return graft_entry.stack_batches([b for b, _ in batches], batches[0][1])
+
+
+@pytest.mark.parametrize("tradeoff,kernel", [(False, "pack_first_fit"), (True, "pack_first_fit_v2")])
+def test_virtual_mesh_on_one_card_matches_cpu(cuda, tradeoff, kernel):
+    """A data 4 × model 2 mesh of one card: one launch per data shard, each
+    on its own stream, equal to the same mesh of CPU devices."""
+    from karpenter_tpu_torch.parallel import make_solver_mesh, sharded_multi_solve
+
+    stack = mesh_stack(tradeoff)
+    ref, ref_cheapest, _ = sharded_multi_solve(
+        make_solver_mesh(8, 2, devices=["cpu"] * 8), *stack, n_max=128)
+    module = pack_kernel_v2 if tradeoff else pack_kernel
+    before = module.launches
+    out, cheapest, route = sharded_multi_solve(
+        make_solver_mesh(8, 2, devices=[cuda] * 8), *stack, n_max=128)
+    torch.cuda.synchronize()
+    assert module.launches == before + 4 and route["route"] == kernel
+    assert_same(ref, out)
+    np.testing.assert_array_equal(ref_cheapest.numpy(), cheapest.cpu().numpy())
+
+
+def test_launches_on_the_tensors_card(cuda):
+    """A kernel launched on the second card while the thread's current device
+    is the first runs on the second card's stream; a mesh whose second data
+    shard sits on the second card equals the cpu mesh. Needs two cards: one
+    card cannot show it."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from karpenter_tpu_torch.parallel import make_solver_mesh, sharded_multi_solve
+
+    f = synth_fields(P=1024, S=20, F=4, R=3, C=8, n_hosts=12, seed=4)
+    cpu = carry.tensors_from_reference(f, "cpu")["pack_args"]
+    second = carry.tensors_from_reference(f, "cuda:1")["pack_args"]
+    with torch.cuda.device(0):
+        out = pack_kernel.pack_first_fit(*second, n_max=256)
+        torch.cuda.synchronize(1)
+    assert out.assignment.device == torch.device("cuda:1")
+    assert_same(pack_reference(*cpu, n_max=256), out)
+    for tradeoff in (False, True):
+        stack = mesh_stack(tradeoff)
+        ref, ref_cheapest, _ = sharded_multi_solve(
+            make_solver_mesh(4, 2, devices=["cpu"] * 4), *stack, n_max=128)
+        out, cheapest, _ = sharded_multi_solve(
+            make_solver_mesh(4, 2, devices=["cuda:0", "cuda:1", "cuda:1", "cuda:0"]), *stack,
+            n_max=128)
+        torch.cuda.synchronize()
+        assert_same(ref, out)
+        np.testing.assert_array_equal(ref_cheapest.numpy(), cheapest.cpu().numpy())
 
 
 # -- the redesigned kernels' edges: lanes per slot, one barrier per pod -----
