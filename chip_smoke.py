@@ -168,10 +168,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
              exporter: a warm-up and 5 traced knob-off rounds of the
              headline and of the team mix; each round launches its kernel
              once (its wrapper timed by CUDA events), equals the
-             device="cpu" plan, exports one solver.solve tree with the six
-             stage spans as children, each host stage within 1 ms of
-             last_stage_profile() (pack_begin + pack_fetch within 1 ms of
-             pack_fetch_s); a tracer hook asks the kernel's end event, as
+             device="cpu" plan, exports one solver.solve tree with the seven
+             stage spans as children, each host stage (and pack_begin)
+             within 1 ms of last_stage_profile() (pack_begin + pack_fetch
+             within 1 ms of pack_fetch_s); a tracer hook asks the kernel's end event, as
              solve.pack_begin and solve.pack_fetch close, whether it is
              done: every fetch closes with it done, and in at least one
              round of each batch the begin closes with it running (a
@@ -2641,14 +2641,16 @@ def stream_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict,
 
 
 OBS_STAGES = ("solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
-              "solve.pack_fetch", "solve.decode")
+              "solve.pack_fetch", "solve.decode", "solve.validate")
 # each host stage span and the profile key (full, or served from resident
 # state) its prof clock writes
 OBS_STAGE_KEYS = {
     "solve.sort": ("sort_s", "sort_delta_s"),
     "solve.inject": ("inject_s", "inject_delta_s"),
     "solve.encode": ("encode_s", "encode_delta_s"),
+    "solve.pack_begin": ("pack_begin_s",),
     "solve.decode": ("decode_s", "decode_delta_s"),
+    "solve.validate": ("validate_s", "validate_delta_s"),
 }
 # the flight-recorder panels the scheduler registers
 OBS_PANELS = ("router_ema", "pack_breakers_open", "remote_breaker", "session_cache", "integrity")
@@ -2713,7 +2715,7 @@ def metric(name: str, labels=None) -> float:
 
 def check_tree(tree: dict, prof: dict, what: str) -> float:
     """One exported solve tree against the round's profile: a solver.solve
-    root with the six stage spans as children, each host stage within 1 ms
+    root with the seven stage spans as children, each host stage within 1 ms
     of its prof key, and pack_begin + pack_fetch within 1 ms of
     pack_fetch_s. Returns the largest disagreement (ms)."""
     if tree["name"] != "solver.solve":
@@ -2786,7 +2788,10 @@ def profiled_device_work(run) -> dict:
     start = min(e.time_range.start for e in events if e.name == mark and e.device_type != cuda)
     tally = {"kernels": 0, "memcpy_dtoh": 0, "memcpy_htod": 0, "other": 0}
     for e in events:
-        if e.device_type != cuda or e.name == mark or e.time_range.start < start:
+        # a span's record_function range shows on the device's timeline as
+        # an annotation over the work it launched: not device work
+        if (e.device_type != cuda or e.name == mark or e.time_range.start < start
+                or getattr(e, "is_user_annotation", False)):
             continue
         n = e.name.lower()
         if "memcpy" in n and "dtoh" in n:
@@ -2968,7 +2973,7 @@ def obs_phase(dev, card: str, classes: dict, catalogs: dict, batches: dict) -> d
                 out[name]["stage_span_max_diff_ms"] = worst
                 log(f"[obs] (a) {cls}: 5 traced rounds, each one launch, one solver.solve tree "
                     f"with "
-                    f"the six stage spans, stage spans within {worst:.4f} ms of the profile; "
+                    f"the seven stage spans, stage spans within {worst:.4f} ms of the profile; "
                     f"(b) metric deltas {moved}; card {card}")
         obs.tracer().remove_hook(clock)
 

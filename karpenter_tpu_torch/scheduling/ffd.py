@@ -90,17 +90,18 @@ def daemon_overhead(cluster: Cluster, constraints: Constraints) -> Dict[str, flo
     return total
 
 
-def sort_pods_ffd_with_statics(pods: Sequence[Pod]):
+def sort_pods_ffd_with_statics(pods: Sequence[Pod], prof: Optional[Dict] = None):
     """FFD sort returning (sorted pods, their statics in the same order) so
-    callers share one statics pass across sort -> inject -> encode."""
+    callers share one statics pass across sort -> inject -> encode. A
+    solve's ``prof`` times the statics pass (``statics.statics_pass``)."""
     import numpy as np
 
-    from karpenter_tpu_torch.scheduling.statics import statics
+    from karpenter_tpu_torch.scheduling.statics import statics_pass
 
     import operator
 
     n = len(pods)
-    sts = [statics(p) for p in pods]
+    sts = statics_pass(pods, prof)
     if n < 256:
         order = sorted(range(n), key=lambda i: (-sts[i].cpu, -sts[i].mem))
     else:

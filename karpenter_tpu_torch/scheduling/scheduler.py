@@ -89,8 +89,14 @@ class Scheduler:
         ``solver: tpu`` solve (else the latest of any thread; never one
         still in flight) (sort /
         inject / encode / pack_fetch / decode / validate seconds, each stage
-        served from resident state under its ``*_delta_s`` key;
-        pack_dispatches; packer_backend, what served — ``sidecar`` for a
+        served from resident state under its ``*_delta_s`` key, each the
+        clock of its ``solve.*`` span; inside sort, statics_s and
+        statics_built, the per-pod statics pass and the pods it built
+        statics for, absent when the resident sort was reused; inside
+        pack_fetch_s, pack_begin_s, the begin up to the launch, which
+        waits on the card once: the kernel wrapper's bounds check
+        (``pack.check``) reads the uploaded ids' range back before the
+        launch; pack_dispatches; packer_backend, what served — ``sidecar`` for a
         pack the solver sidecar served (with wire_ser_s, wire_deser_s,
         solver_address and solver_transport), on a cpu scheduler
         ``ffd-degraded`` when the FFD floor did, absent when the signature

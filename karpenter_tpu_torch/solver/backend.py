@@ -512,18 +512,22 @@ class TorchScheduler:
     def _solve(self, constraints, instance_types, pods, prof: Dict[str, float]):
         # stage spans mirror the prof dict: each prof clock runs INSIDE its
         # span, so the exported tree agrees with completed_profile() to
-        # within the span enter/exit slivers. Nothing inside a span waits
-        # on the card: solve.pack_begin only enqueues, and solve.pack_fetch
-        # holds the one synchronize and device-to-host copy
+        # within the span enter/exit slivers (solve.statics / statics_s
+        # inside solve.sort, solve.pack_begin / pack_begin_s, solve.validate
+        # / validate_s). solve.pack_begin does not only enqueue: the kernel
+        # wrapper's bounds check (its pack.check span) blocks on the card
+        # before the launch, reading the uploaded ids' range back;
+        # solve.pack_fetch holds the wait for the device-to-host copy
+        # (pack.wait)
         tr = obs.tracer()
         resident = self._resident
         with tr.span("solve.sort"):
             t0 = time.perf_counter()
             constraints = constraints.clone()
             if resident is not None:
-                pods, sts, sort_hit = resident.sort(pods)
+                pods, sts, sort_hit = resident.sort(pods, prof)
             else:
-                pods, sts = sort_pods_ffd_with_statics(pods)
+                pods, sts = sort_pods_ffd_with_statics(pods, prof)
                 sort_hit = False
             instance_types = sorted(instance_types, key=lambda it: it.effective_price())
             prof["sort_delta_s" if sort_hit else "sort_s"] = time.perf_counter() - t0
@@ -619,6 +623,7 @@ class TorchScheduler:
                 t0 = time.perf_counter()
                 finish = self._pack(batch, prof)
                 begin_s = time.perf_counter() - t0
+                prof["pack_begin_s"] = begin_s
         except (OverloadedError, DeadlineExceededError) as e:
             return self._fail(e, prof, degrade, f"accelerated pack shed ({e})",
                               reason=_shed_reason(e))
@@ -690,22 +695,25 @@ class TorchScheduler:
         # when THAT plan passed this guard (the memo is only armed on a
         # pass, and is keyed to the decode memo generation), the verdict is
         # a pure function of inputs proved unchanged — skip the re-check
-        t0 = time.perf_counter()
-        vmemo = self._validate_memo
-        if (
-            dec_hit
-            and vmemo is not None
-            and vmemo[0] is self._dec_memo
-            and vmemo[1] is pods
-            and vmemo[2] == daemon
-        ):
-            violation = None
-            prof["validate_delta_s"] = time.perf_counter() - t0
-        else:
-            violation = self._validate_pack(nodes, pods, daemon)
-            if violation is None:
-                self._validate_memo = (self._dec_memo, pods, dict(daemon))
-            prof["validate_s"] = time.perf_counter() - t0
+        with tr.span("solve.validate") as val_sp:
+            t0 = time.perf_counter()
+            vmemo = self._validate_memo
+            memo_hit = (
+                dec_hit
+                and vmemo is not None
+                and vmemo[0] is self._dec_memo
+                and vmemo[1] is pods
+                and vmemo[2] == daemon
+            )
+            if memo_hit:
+                violation = None
+                prof["validate_delta_s"] = time.perf_counter() - t0
+            else:
+                violation = self._validate_pack(nodes, pods, daemon)
+                if violation is None:
+                    self._validate_memo = (self._dec_memo, pods, dict(daemon))
+                prof["validate_s"] = time.perf_counter() - t0
+            val_sp.set_attribute("memo_hit", memo_hit)
         if violation:
             # a correctness failure: its source is quarantined at once
             self._quarantine_source("invalid_pack", violation, batch, address=address)
@@ -1115,7 +1123,8 @@ class TorchScheduler:
 
         def local_args():
             if args_box[0] is None:
-                args_box[0] = self._device_args(batch)
+                with obs.tracer().child_span("pack.upload"):
+                    args_box[0] = self._device_args(batch)
             return args_box[0]
 
         def dispatch(n_max: int, route: Optional[str]):
@@ -1329,37 +1338,43 @@ class TorchScheduler:
         blocks until its buffer is on the host and splits it. ``record``
         gates the invariants lookup's session hit rate."""
         dev = self.device
-        if self._pod_residency is not None and not probe:
-            # a no-churn round reuses the resident upload by batch identity
-            # (the saturation retry's second call too), a small-churn round
-            # patches it in place on the device
-            pod_side = self._pod_residency.get(batch)
-        else:
-            tab, open_by_core, bhh = fused.pack_pod_table(batch)
-            uniq = fused.pad_uniq_req(batch.uniq_req)
-            pod_side = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
-                for a in (tab, open_by_core, bhh, uniq)
-            )
-        if route == "v2":
-            F, R = batch.frontiers.shape[1], batch.frontiers.shape[2]
-            buf = fused.fused_solve_v2(
-                *pod_side, *self._invariants.get_v2(batch, record=record),
-                n_max=n_max, F=F, R=R,
-            )
-        else:
-            buf = fused.fused_solve(
-                *pod_side, *self._invariants.get(batch, record=record), n_max=n_max
-            )
+        tr = obs.tracer()
+        from_residency = self._pod_residency is not None and not probe
+        with tr.child_span("pack.pod_table"):
+            if from_residency:
+                # a no-churn round reuses the resident upload by batch
+                # identity (the saturation retry's second call too), a
+                # small-churn round patches it in place on the device
+                pod_side = self._pod_residency.get(batch)
+            else:
+                tab, open_by_core, bhh = fused.pack_pod_table(batch)
+                host = (tab, open_by_core, bhh, fused.pad_uniq_req(batch.uniq_req))
+        if not from_residency:
+            with tr.child_span("pack.upload"):
+                pod_side = tuple(
+                    torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
+                    for a in host
+                )
+        get = self._invariants.get_v2 if route == "v2" else self._invariants.get
+        invariants = get(batch, record=record)
+        with tr.child_span("pack.launch", {"n_max": n_max}):
+            if route == "v2":
+                F, R = batch.frontiers.shape[1], batch.frontiers.shape[2]
+                buf = fused.fused_solve_v2(*pod_side, *invariants, n_max=n_max, F=F, R=R)
+            else:
+                buf = fused.fused_solve(*pod_side, *invariants, n_max=n_max)
+            wait = self._to_host(buf)
         prof["packer_backend"] = kernel_name(route, dev)
         prof["pack_route"] = "fused"
-        wait = self._to_host(buf)
 
         def fetch():
-            return fused.split_fused(
-                wait(), len(batch.pod_valid), n_max,
-                batch.usable.shape[1], batch.usable.shape[0],
-            )
+            with tr.child_span("pack.wait"):
+                out = wait()
+            with tr.child_span("pack.split"):
+                return fused.split_fused(
+                    out, len(batch.pod_valid), n_max,
+                    batch.usable.shape[1], batch.usable.shape[0],
+                )
 
         return fetch
 
@@ -1375,14 +1390,24 @@ class TorchScheduler:
         ``fetch()`` → ``(PackResult, None)``: the result flattened into one
         buffer on the device, one transfer (nothing to transfer for a native
         result, already host arrays)."""
-        served, result = pack_unfused(*args, n_max=n_max, packer=packer)
+        tr = obs.tracer()
+        with tr.child_span("pack.launch", {"n_max": n_max}):
+            served, result = pack_unfused(*args, n_max=n_max, packer=packer)
+            if served != "native":
+                wait = self._to_host(kernel.fuse_result(result))
         prof["packer_backend"] = served
         prof["pack_route"] = "unfused"
         if served == "native":
             return lambda: (result, None)
-        wait = self._to_host(kernel.fuse_result(result))
         R = args[6].shape[1]
-        return lambda: (kernel.split_result(wait(), p, n_max, R), None)
+
+        def fetch():
+            with tr.child_span("pack.wait"):
+                out = wait()
+            with tr.child_span("pack.split"):
+                return kernel.split_result(out, p, n_max, R), None
+
+        return fetch
 
     def _to_host(self, buf: torch.Tensor):
         """Queue ``buf``'s copy to the host and return ``wait()`` → numpy:

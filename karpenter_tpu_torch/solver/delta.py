@@ -138,7 +138,9 @@ class ResidentEncoder:
 
     # -- sort ----------------------------------------------------------------
 
-    def sort(self, pods: Sequence[Pod]) -> Tuple[List[Pod], list, bool]:
+    def sort(
+        self, pods: Sequence[Pod], prof: Optional[Dict] = None
+    ) -> Tuple[List[Pod], list, bool]:
         """``sort_pods_ffd_with_statics`` with a resident fast path: when
         the input's pod identities match the previous round's, the cached
         sorted output is returned without re-sorting. Bit-exact either way:
@@ -151,14 +153,14 @@ class ResidentEncoder:
         go through materialize/restore, which swaps the identical original
         dict back — so an unchanged pod object proves an unchanged spec.
         Running the per-pod statics pass on every hit would re-prove that
-        at O(n) Python cost."""
-        from karpenter_tpu_torch.scheduling.statics import statics
+        at O(n) Python cost. ``prof`` as ``sort_pods_ffd_with_statics``'s."""
+        from karpenter_tpu_torch.scheduling.statics import statics_pass
 
         n = len(pods)
         key = list(map(id, pods))
         if key == self._sort_key:
             return self._sorted_pods, self._sorted_sts, True
-        sts = [statics(p) for p in pods]
+        sts = statics_pass(pods, prof)
         if n < 256:
             order = sorted(range(n), key=lambda i: (-sts[i].cpu, -sts[i].mem))
             spods = [pods[i] for i in order]

@@ -35,6 +35,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.solver import pack_kernel_v2, session_stats
 from karpenter_tpu_torch.solver.kernel import PackResult
 from karpenter_tpu_torch.solver.pack_kernel import pack_first_fit
@@ -150,19 +151,7 @@ class DeviceInvariants:
         ``record=False`` keeps the lookup out of the session-residency hit
         rate (``session_stats``): shadow probes and saturation re-dispatches
         are not solves."""
-        arrays = self._arrays(batch)
-        key = self._digest(arrays)
-        with self._lock:
-            hit = self._cache.get(key)
-        if record:
-            session_stats.record(hit is not None)
-        if hit is None:
-            session_stats.record_upload()  # a real transfer, whoever asked
-            hit = tuple(torch.tensor(a, device=self.device) for a in arrays)
-        with self._lock:
-            self._cache[key] = hit
-            self._touch_locked(key)
-        return hit
+        return self._lookup(self._cache, batch, record, self._upload)
 
     def get_v2(self, batch, record: bool = True) -> tuple:
         """(front_j, compat_j, jvals, frontiers, daemon, mask, usable,
@@ -170,25 +159,36 @@ class DeviceInvariants:
         the signature-major copy of the limits the kernel walks, computed
         once per closure under the same digest as ``get``. ``record`` as in
         :meth:`get`."""
-        arrays = self._arrays(batch)
-        key = self._digest(arrays)
-        with self._lock:
-            hit = self._cache_v2.get(key)
-        if record:
-            session_stats.record(hit is not None)
-        if hit is None:
-            session_stats.record_upload()  # a real transfer, whoever asked
-            join, frontiers = arrays[0], arrays[1]
-            front_j, compat_j, jvals, _ = pack_kernel_v2._precompute(join, frontiers)
-            hit = tuple(
-                torch.tensor(a, device=self.device)
-                for a in (front_j, compat_j, jvals) + arrays[1:]
-            )
-            hit += (pack_kernel_v2.signature_major(hit[0]),)
-        with self._lock:
-            self._cache_v2[key] = hit
-            self._touch_locked(key)
-        return hit
+        return self._lookup(self._cache_v2, batch, record, self._upload_v2)
+
+    def _upload(self, arrays) -> tuple:
+        return tuple(torch.tensor(a, device=self.device) for a in arrays)
+
+    def _upload_v2(self, arrays) -> tuple:
+        join, frontiers = arrays[0], arrays[1]
+        front_j, compat_j, jvals, _ = pack_kernel_v2._precompute(join, frontiers)
+        hit = self._upload((front_j, compat_j, jvals) + arrays[1:])
+        return hit + (pack_kernel_v2.signature_major(hit[0]),)
+
+    def _lookup(self, cache: dict, batch, record: bool, upload) -> tuple:
+        """The digest of the batch's invariants, then ``cache``'s entry or
+        ``upload(arrays)`` on a miss, under the ``pack.invariants`` span
+        (attribute ``hit``)."""
+        with obs.tracer().child_span("pack.invariants") as sp:
+            arrays = self._arrays(batch)
+            key = self._digest(arrays)
+            with self._lock:
+                hit = cache.get(key)
+            sp.set_attribute("hit", hit is not None)
+            if record:
+                session_stats.record(hit is not None)
+            if hit is None:
+                session_stats.record_upload()  # a real transfer, whoever asked
+                hit = upload(arrays)
+            with self._lock:
+                cache[key] = hit
+                self._touch_locked(key)
+            return hit
 
 
 class PodResidency:

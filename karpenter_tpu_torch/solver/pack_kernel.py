@@ -52,6 +52,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_reference
 
 logger = logging.getLogger("karpenter.solver")
@@ -340,10 +341,13 @@ def pack_first_fit(*args, n_max: int, plan: Optional[LaunchPlan] = None) -> Pack
     """``kernel.pack``'s contract over torch tensors: ``args`` in
     ``EncodedBatch.pack_args()`` order, each optionally with a shared
     leading batch axis, and ``n_max`` node slots per problem. Open
-    signatures and joined ids must be below S and cores below C (checked).
+    signatures and joined ids must be below S and cores below C (checked
+    under the ``pack.check`` span, which reads their range back from the
+    card before the launch).
     ``plan`` overrides ``launch_plan(F, R, n_max)`` on the card."""
     global launches
-    dev, batch = _check(args, n_max)
+    with obs.tracer().child_span("pack.check"):
+        dev, batch = _check(args, n_max)
     if dev.type == "cpu":
         return per_problem(pack_reference, args, batch, n_max=n_max)
     P, R = args[6].shape[-2:]

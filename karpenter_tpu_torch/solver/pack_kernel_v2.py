@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.solver import pack_kernel
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_v2_reference
 
@@ -253,13 +254,15 @@ def pack_first_fit_v2(
     compat_j [C, 8, S_pad] f32, jvals [C, 8, S_pad] f32, open_fits [1, P]
     i32, daemon [R, 1] f32)``, each optionally with a shared leading batch
     axis. Signature ids in ``pod_scal`` and ``jvals`` must be below S_pad
-    and cores below C (checked). On the card the kernel walks ``front_s``,
+    and cores below C (checked under the ``pack.check`` span, which reads
+    their range back from the card before the launch). On the card the kernel walks ``front_s``,
     which must be ``signature_major(front_j)`` (its shape is checked, not
     its content); without it the call makes that copy. ``plan`` overrides
     ``pack_kernel.launch_plan(F, R, n_max)``. Returns ``kernel.pack``'s
     PackResult with ``n_max`` node slots."""
     global launches
-    dev, batch = _check(args, n_max, F, R)
+    with obs.tracer().child_span("pack.check"):
+        dev, batch = _check(args, n_max, F, R)
     if front_s is not None:
         _check_front_s(args[2], front_s)
     if dev.type == "cpu":

@@ -34,7 +34,8 @@ from karpenter_tpu_torch.solver import carry, fused, pack_kernel, pack_kernel_v2
 from karpenter_tpu_torch.solver.backend import kernel_name
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_reference, pack_v2_reference
 from torch_parity import (  # noqa: F401
-    encode_scenario, fields, fresh_router, scenario, synth_fields, team_mix, with_v2_tables,
+    encode_scenario, fields, fresh_router, port_spans_sit, scenario, strip_port_only,
+    synth_fields, team_mix, with_v2_tables,
 )
 
 pytestmark = pytest.mark.cuda
@@ -991,16 +992,57 @@ def test_traced_round_on_card_launches_once_and_agrees_with_the_profile(
     prof = sched.last_stage_profile()
     assert prof["packer_backend"] == kernel
     (tree,) = fresh_obs.exporter().trees()
-    stages = {c["name"]: c["duration_ms"] for c in tree["children"]}
+    stages = {c["name"]: c["duration_ms"] for c in strip_port_only(tree)["children"]}
     assert list(stages) == ["solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
                             "solve.pack_fetch", "solve.decode"]
+    port_spans_sit(tree)
+    stages["solve.statics"] = tree["children"][0]["children"][0]["duration_ms"]
+    stages["solve.validate"] = tree["children"][6]["duration_ms"]
     for span, key in [("solve.sort", "sort_s"), ("solve.inject", "inject_s"),
-                      ("solve.encode", "encode_s"), ("solve.decode", "decode_s")]:
+                      ("solve.encode", "encode_s"), ("solve.decode", "decode_s"),
+                      ("solve.statics", "statics_s"), ("solve.validate", "validate_s"),
+                      ("solve.pack_begin", "pack_begin_s")]:
         assert abs(stages[span] - prof[key] * 1e3) < 1.0
     assert abs(stages["solve.pack_begin"] + stages["solve.pack_fetch"]
                - prof["pack_fetch_s"] * 1e3) < 1.0
     ctx = sched.last_decision_context()
     assert ctx["route"] == kernel and isinstance(ctx["assignment"], np.ndarray)
+
+
+def test_span_mirror_on_card_adds_no_device_operation(cuda, fresh_obs):
+    """Under ``torch.profiler`` with the card's activity each span of a
+    solve is one host event of its name, and no device event counted as an
+    operation (a kernel or a copy, not an annotation) carries a span's
+    name: the mirror adds nothing to the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+
+    prov, catalog, pods = scenario("karpenter_tpu_torch", "diverse", 700, 42, 50)
+    sched = Scheduler(Cluster(), rng=random.Random(1))
+    sched.solve(prov, catalog, pods)
+    fresh_obs.exporter().clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sched.solve(prov, catalog, pods)
+        torch.cuda.synchronize()
+    (tree,) = fresh_obs.exporter().trees()
+    names = []
+
+    def walk(span):
+        names.append(span["name"])
+        for c in span["children"]:
+            walk(c)
+
+    walk(tree)
+    events = prof.events()
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    host = [e.name for e in events if e.name in names and e.device_type == cpu]
+    assert sorted(host) == sorted(names)
+    device = [e.name for e in events
+              if e.device_type == dev and not getattr(e, "is_user_annotation", False)]
+    assert any("pack_first_fit_kernel" in n for n in device)
+    assert not set(device) & set(names)
 
 
 def test_session_open_on_card_sets_the_hbm_gauges(cuda):

@@ -32,7 +32,10 @@ import karpenter_tpu.obs as J_OBS
 import karpenter_tpu_torch.obs as T_OBS
 from karpenter_tpu import metrics as J_METRICS
 from karpenter_tpu_torch import metrics as T_METRICS
-from torch_parity import fresh_router, mods, packer, pinned, scenario  # noqa: F401
+from torch_parity import (  # noqa: F401
+    PORT_ONLY_SPANS, STAGES, fresh_router, mods, packer, pinned, port_spans_sit, scenario,
+    strip_port_only,
+)
 
 JAX, PORT = "karpenter_tpu", "karpenter_tpu_torch"
 OBS = {JAX: J_OBS, PORT: T_OBS}
@@ -560,17 +563,19 @@ def _traced_rounds(pkg, name="diverse", n_pods=160, n_types=16, rounds=2, route=
     return sched, OBS[pkg].exporter().trees()
 
 
-STAGES = ("solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
-          "solve.pack_fetch", "solve.decode")
-
-
 @pytest.mark.parametrize("name", ["diverse", "teams"])
 def test_solve_span_trees_match_the_reference(name):
+    """The port's trees without ``PORT_ONLY_SPANS`` are the reference's;
+    the port's own spans sit where ``port_spans_sit`` says."""
+    port_trees = []
+
     def run(pkg):
         _, trees = _traced_rounds(pkg, name, n_pods=160, n_types=16)
+        if pkg == PORT:
+            port_trees.extend(trees)
         out = []
         for t in trees:
-            s = shape(t)
+            s = shape(strip_port_only(t))
             root_values = {k: v for k, v in t["attrs"].items()}
             out.append((s, root_values))
         return out
@@ -580,18 +585,38 @@ def test_solve_span_trees_match_the_reference(name):
     (root, _, _, children), values = trees[0]
     assert root == "solver.solve" and tuple(c[0] for c in children) == STAGES
     assert values["solver"] == "tpu" and values["pods"] == 160
+    for t in port_trees:
+        port_spans_sit(t)
 
 
 def test_resident_span_trees_match_the_reference():
-    same(lambda pkg: [shape(t) for t in _traced_rounds(pkg, solver_delta=True, rounds=3)[1]])
+    port_trees = []
+
+    def run(pkg):
+        trees = _traced_rounds(pkg, solver_delta=True, rounds=3)[1]
+        if pkg == PORT:
+            port_trees.extend(trees)
+        return [shape(strip_port_only(t)) for t in trees]
+
+    same(run)
+    for t in port_trees:
+        port_spans_sit(t)
+    # the resident rounds reuse the sort, the pod table and the verdict
+    sort, begin, validate = (port_trees[-1]["children"][i] for i in (0, 3, 6))
+    assert sort["children"] == [] and validate["attrs"] == {"memo_hit": True}
+    assert [c["name"] for c in begin["children"]] == [
+        "pack.pod_table", "pack.invariants", "pack.launch"]
 
 
 def test_stage_spans_agree_with_profile_within_1ms():
     sched, trees = _traced_rounds(PORT, rounds=1)
     prof = sched.last_stage_profile()
     stages = {c["name"]: c["duration_ms"] for c in trees[0]["children"]}
+    stages["solve.statics"] = trees[0]["children"][0]["children"][0]["duration_ms"]
     for span_name, key in [("solve.sort", "sort_s"), ("solve.inject", "inject_s"),
-                           ("solve.encode", "encode_s"), ("solve.decode", "decode_s")]:
+                           ("solve.encode", "encode_s"), ("solve.decode", "decode_s"),
+                           ("solve.statics", "statics_s"), ("solve.validate", "validate_s"),
+                           ("solve.pack_begin", "pack_begin_s")]:
         assert abs(stages[span_name] - prof[key] * 1e3) < 1.0, (span_name, stages, prof)
     packed = stages["solve.pack_begin"] + stages["solve.pack_fetch"]
     assert abs(packed - prof["pack_fetch_s"] * 1e3) < 1.0
@@ -601,7 +626,8 @@ def test_stage_spans_agree_with_profile_within_1ms():
 def test_stage_spans_agree_under_the_two_thread_pipeline():
     """Two threads share one scheduler: the fetch, decode and validate of
     one round run off the solve lock while the other encodes. Each tree
-    stays whole (six stage children under its own root, no orphan roots)."""
+    stays whole (six stage children under its own root without
+    ``PORT_ONLY_SPANS``, no orphan roots, the port's own spans in place)."""
     prov, catalog, pods = scenario(PORT, "diverse", 160, 42, 16)
     sched = _scheduler(PORT)
     with pinned(PORT):
@@ -624,7 +650,167 @@ def test_stage_spans_agree_under_the_two_thread_pipeline():
     assert len(trees) == 6
     for t in trees:
         assert t["name"] == "solver.solve"
-        assert tuple(c["name"] for c in t["children"]) == STAGES
+        assert tuple(c["name"] for c in strip_port_only(t)["children"]) == STAGES
+        port_spans_sit(t)
+
+
+def _statics_spans(trees) -> list:
+    return [c for t in trees for c in t["children"][0]["children"]]
+
+
+def test_statics_built_counts_new_pod_objects_once():
+    """``solve.statics.built`` (and ``statics_built``) is the number of pods
+    whose statics the pass built: every pod of a list of new objects, none
+    when the same objects are solved again, and none after another thread
+    built them first (the selection controller's prewarm)."""
+    from karpenter_tpu_torch.scheduling.statics import statics
+
+    prov, catalog, pods = scenario(PORT, "diverse", 160, 42, 16)
+    prewarmed = scenario(PORT, "diverse", 160, 43, 16)[2]
+    sched = _scheduler(PORT)
+    built = []
+    with pinned(PORT):
+        for batch in (pods, pods, prewarmed):
+            if batch is prewarmed:
+                warm = threading.Thread(target=lambda: [statics(p) for p in prewarmed])
+                warm.start()
+                warm.join()
+            sched.solve(prov, catalog, batch)
+            built.append(sched.last_stage_profile()["statics_built"])
+    assert built == [160, 0, 0]
+    spans = _statics_spans(T_OBS.exporter().trees())
+    assert [(s["attrs"]["pods"], s["attrs"]["built"]) for s in spans] == [
+        (160, 160), (160, 0), (160, 0)]
+
+
+def test_statics_built_is_per_thread_under_many_workers():
+    """More workers than cores share one scheduler, each solving lists of
+    new pod objects at once with a short switch interval: each round's
+    ``built`` is its own pods alone."""
+    import sys
+
+    n_workers, N = 9, 300
+    prov, catalog, _ = scenario(PORT, "diverse", N, 42, 16)
+    batches = {i: [scenario(PORT, "diverse", N + i, 50 + 11 * r + i, 16)[2]
+                   for r in range(2)] for i in range(n_workers)}
+    sched = _scheduler(PORT)
+    start = threading.Barrier(n_workers)
+    built = {i: [] for i in range(n_workers)}
+
+    def worker(i):
+        start.wait()
+        for pods in batches[i]:
+            sched.solve(prov, catalog, pods)
+            built[i].append(sched.last_stage_profile()["statics_built"])
+
+    interval = sys.getswitchinterval()
+    with pinned(PORT):
+        sched.solve(prov, catalog, scenario(PORT, "diverse", N, 41, 16)[2])
+        T_OBS.exporter().clear()
+        sys.setswitchinterval(1e-5)
+        try:
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(n_workers)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+                assert not t.is_alive()
+        finally:
+            sys.setswitchinterval(interval)
+    assert built == {i: [N + i] * 2 for i in range(n_workers)}
+    assert sorted((s["attrs"]["pods"], s["attrs"]["built"])
+                  for s in _statics_spans(T_OBS.exporter().trees())) == sorted(
+        (N + i, N + i) for i in range(n_workers) for _ in range(2))
+
+
+@pytest.mark.parametrize("solver_delta", [False, True])
+def test_new_stage_keys_lie_inside_their_stages(solver_delta):
+    """``statics_s`` is part of ``sort_s`` and ``pack_begin_s`` part of
+    ``pack_fetch_s`` (the begin and the wait), in every round, full or
+    resident; a resident sort hit runs no statics pass."""
+    prov, catalog, pods = scenario(PORT, "diverse", 160, 42, 16)
+    sched = _scheduler(PORT, solver_delta=solver_delta)
+    profs = []
+    with pinned(PORT):
+        for r in range(4):
+            batch = pods if r % 2 else scenario(PORT, "diverse", 160, 60 + r, 16)[2]
+            sched.solve(prov, catalog, batch)
+            profs.append(sched.last_stage_profile())
+    for prof in profs:
+        assert prof["pack_begin_s"] <= prof["pack_fetch_s"], prof
+        if "sort_s" in prof:
+            assert prof["statics_s"] <= prof["sort_s"], prof
+        else:
+            assert solver_delta and "statics_s" not in prof, prof
+
+
+def test_a_saturation_redispatch_opens_the_wrapper_spans_again(monkeypatch):
+    """A first table too small for the batch: the full-table re-dispatch
+    runs under ``solve.pack_fetch``, its ``pack.launch`` at ``n_max`` = P."""
+    from karpenter_tpu_torch.solver import backend
+
+    monkeypatch.setattr(backend, "N_MAX_FIRST", 8)
+    sched, trees = _traced_rounds(PORT, rounds=1)
+    (tree,) = trees
+    port_spans_sit(tree)
+    fetch = tree["children"][4]
+    launches = [c["attrs"]["n_max"] for c in tree["children"][3]["children"] + fetch["children"]
+                if c["name"] == "pack.launch"]
+    assert launches == [8, 256]  # the full table: P, 160 pods padded to 256
+    assert sched.last_stage_profile()["pack_dispatches"] == 2
+
+
+def _span_parents(tree, parent=None, out=None) -> list:
+    out = [] if out is None else out
+    out.append((tree["name"], parent))
+    for c in tree["children"]:
+        _span_parents(c, tree["name"], out)
+    return out
+
+
+def test_spans_mirror_into_the_profilers_trace():
+    """Under ``torch.profiler`` (CPU activity) every span of a solve is one
+    CPU event of its name, nested as the span tree is; with no profiler
+    recording no ``record_function`` range is entered."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from karpenter_tpu_torch.obs import trace
+
+    prov, catalog, pods = scenario(PORT, "diverse", 160, 42, 16)
+    sched = _scheduler(PORT)
+    entered = []
+    real = trace.record_function
+
+    def counted(name):
+        entered.append(name)
+        return real(name)
+
+    with pinned(PORT):
+        sched.solve(prov, catalog, pods)
+        T_OBS.exporter().clear()
+        trace.record_function = counted
+        try:
+            sched.solve(prov, catalog, pods)
+            assert entered == []
+            T_OBS.exporter().clear()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                sched.solve(prov, catalog, pods)
+        finally:
+            trace.record_function = real
+    (tree,) = T_OBS.exporter().trees()
+    want = _span_parents(tree)
+    names = {name for name, _ in want}
+    assert sorted(entered) == sorted(name for name, _ in want)
+    events = [e for e in prof.events() if e.name in names]
+
+    def span_parent(e):
+        p = e.cpu_parent
+        while p is not None and p.name not in names:
+            p = p.cpu_parent
+        return p.name if p is not None else None
+
+    assert sorted((e.name, span_parent(e)) for e in events) == sorted(want)
+    assert names >= PORT_ONLY_SPANS
 
 
 def test_router_attributes_on_the_dispatch_span():
@@ -671,16 +857,33 @@ def _samples(registry) -> dict:
 def test_same_rounds_move_every_family_alike(solver_delta):
     """Both packages on the same rung (``scan``: the unfused plain pack;
     the JAX package has no fused route on a CPU host), the same rounds:
-    every counter, gauge and histogram count moves by the same amount."""
+    every counter, gauge and histogram count moves by the same amount, the
+    port's span counts less its ``PORT_ONLY_SPANS``."""
+    def port_only(tree) -> int:
+        return (tree["name"] in PORT_ONLY_SPANS) + sum(map(port_only, tree["children"]))
+
     def run(pkg):
-        before = _samples(METRICS[pkg].REGISTRY)
-        _traced_rounds(pkg, rounds=3, solver_delta=solver_delta, route="scan")
-        after = _samples(METRICS[pkg].REGISTRY)
-        return {
+        finished = []
+
+        def hook(sp):
+            if sp.name in PORT_ONLY_SPANS:
+                finished.append(sp.name)
+
+        OBS[pkg].tracer().add_hook(hook)
+        try:
+            before = _samples(METRICS[pkg].REGISTRY)
+            _, trees = _traced_rounds(pkg, rounds=3, solver_delta=solver_delta, route="scan")
+            after = _samples(METRICS[pkg].REGISTRY)
+        finally:
+            OBS[pkg].tracer().remove_hook(hook)
+        deltas = {
             k: after[k] - before.get(k, 0.0)
             for k in after
             if after[k] != before.get(k, 0.0)
         }
+        deltas[("karpenter_trace_spans_total", ())] -= len(finished)
+        deltas[("karpenter_trace_ring_spans", ())] -= sum(map(port_only, trees))
+        return deltas
 
     deltas = same(run)
     if solver_delta:

@@ -47,6 +47,81 @@ def pinned(pkg: str):
     return packer(PINNED_PACKER[pkg])
 
 
+# the spans of a solve that only the port opens: the statics pass, validate
+# and the kernel wrapper's stages. A port tree is compared with the
+# reference's without them (``strip_port_only``); ``port_spans_sit`` holds
+# where they sit
+PORT_ONLY_SPANS = frozenset({
+    "solve.statics", "solve.validate", "pack.pod_table", "pack.upload",
+    "pack.invariants", "pack.check", "pack.launch", "pack.wait", "pack.split",
+})
+STAGES = ("solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
+          "solve.pack_fetch", "solve.decode")
+# each new span's attribute keys
+PORT_SPAN_ATTRS = {"solve.statics": ("built", "pods"), "solve.validate": ("memo_hit",),
+                   "pack.invariants": ("hit",), "pack.launch": ("n_max",)}
+
+
+def strip_port_only(tree: dict) -> dict:
+    """A span tree (``to_dict`` form) without ``PORT_ONLY_SPANS`` and their
+    subtrees."""
+    return {**tree, "children": [strip_port_only(c) for c in tree["children"]
+                                 if c["name"] not in PORT_ONLY_SPANS]}
+
+
+def _names(span: dict) -> list:
+    return [c["name"] for c in span["children"]]
+
+
+def _dispatch(spans: list) -> list:
+    """One fused or unfused dispatch's spans at the head of ``spans`` (the
+    pod side, the invariants, the launch with its check), checked; returns
+    the rest."""
+    names = [s["name"] for s in spans]
+    head = 1 if names[:1] == ["pack.upload"] else 0  # the unfused ladder's upload
+    if not head and names[:1] == ["pack.pod_table"]:
+        head = 2 if names[1:2] == ["pack.upload"] else 1  # no upload: PodResidency
+        assert names[head] == "pack.invariants", names
+        head += 1
+    launch = spans[head]
+    assert launch["name"] == "pack.launch" and _names(launch) in (["pack.check"], []), names
+    return spans[head + 1:]
+
+
+def port_spans_sit(tree: dict) -> None:
+    """The port's new spans where it opens them in one ``solver.solve`` tree
+    of an in-process solve: ``solve.statics`` under ``solve.sort`` (absent
+    when the resident sort hits); ``solve.validate`` after
+    ``solve.decode``; under ``solve.pack_begin`` one dispatch (``pack.pod_table``,
+    ``pack.upload``, ``pack.invariants``, ``pack.launch`` holding the
+    wrapper's ``pack.check``); under ``solve.pack_fetch`` ``pack.wait`` and
+    ``pack.split``, then each saturation re-dispatch with its own wait and
+    split, its ``pack.launch`` at the full table. Each carries its
+    attribute keys (``PORT_SPAN_ATTRS``)."""
+    stages = {c["name"]: c for c in tree["children"]}
+    assert tuple(stages) == STAGES + ("solve.validate",), list(stages)
+    assert _names(stages["solve.sort"]) in (["solve.statics"], [])
+    assert _names(stages["solve.validate"]) == []
+    assert _dispatch(stages["solve.pack_begin"]["children"]) == []
+    rest = stages["solve.pack_fetch"]["children"]
+    while rest:
+        assert [s["name"] for s in rest[:2]] == ["pack.wait", "pack.split"], _names(
+            stages["solve.pack_fetch"])
+        rest = rest[2:]
+        if rest:
+            rest = _dispatch(rest)
+            assert rest, "a re-dispatch without its wait"
+
+    def walk(span):
+        keys = PORT_SPAN_ATTRS.get(span["name"])
+        if span["name"] in PORT_ONLY_SPANS:
+            assert tuple(sorted(span["attrs"])) == (keys or ()), span
+        for c in span["children"]:
+            walk(c)
+
+    walk(tree)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     """Run the JAX package's v2 Pallas kernel in interpret mode for one
