@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from karpenter_tpu_torch.api import labels as lbl
 from karpenter_tpu_torch.api.objects import Pod
+from karpenter_tpu_torch.scheduling import statics_native
 from karpenter_tpu_torch.utils import pod as podutil
 from karpenter_tpu_torch.utils import resources as res
 
@@ -238,19 +239,36 @@ def _build(pod: Pod) -> PodStatics:
             bool(st.host_ports),
         )
         code = _topo_classes.get(ckey)
-        if code is None:
-            with _topo_lock:
-                code = _topo_classes.get(ckey)
-                if code is None:
-                    if len(_topo_classes) >= _TOPO_CLASS_MAX:
-                        code = -1  # registry full: per-pod discovery path
-                    else:
-                        code = len(_topo_classes) + 1
-                        _topo_classes[ckey] = code
-        st.topo_code = code
+        st.topo_code = _topo_code(ckey) if code is None else code
     else:
         st.topo_code = 0
     return st
+
+
+def _topo_code(ckey: Tuple) -> int:
+    """The topology class's code, assigned under the registry's lock on
+    its first sight (the native pass calls this on a registry miss)."""
+    with _topo_lock:
+        code = _topo_classes.get(ckey)
+        if code is None:
+            if len(_topo_classes) >= _TOPO_CLASS_MAX:
+                code = -1  # registry full: per-pod discovery path
+            else:
+                code = len(_topo_classes) + 1
+                _topo_classes[ckey] = code
+    return code
+
+
+# what the native pass reads: the Python build it falls back to, the shared
+# tables with the code that fills them on a miss, and the label and
+# resource constants ``_build`` folds with (the tables are never rebound)
+NATIVE_CTX = (
+    PodStatics, _build, _intern, _merge_interns, _req_interns, _topo_classes,
+    _topo_code, lbl.NORMALIZED_LABELS, lbl.IGNORED_LABELS, NARROWED_KEYS,
+    SUPPORTED_AFFINITY_KEYS, lbl.HOSTNAME, res.AXIS_INDEX, res.CPU, res.MEMORY,
+    res.PODS, podutil.WILDCARD_HOST_IP,
+)
+statics_native.start()  # the compile overlaps the rest of the process's start
 
 
 def statics(pod: Pod) -> PodStatics:
@@ -272,7 +290,10 @@ def statics(pod: Pod) -> PodStatics:
         if st.sel_raw == tuple(spec.node_selector.items()):
             st.sel_ref = spec.node_selector
             return st
-    st = _build(pod)
+    native = statics_native.module()
+    st = native.build(pod, NATIVE_CTX) if native is not None else None
+    if st is None:
+        st = _build(pod)
     _built.n += 1
     try:
         pod._solve_statics = st
@@ -282,32 +303,45 @@ def statics(pod: Pod) -> PodStatics:
 
 
 class _Built(threading.local):
-    n = 0  # the ``_build`` calls ``statics`` made on this thread
+    n = 0  # the builds ``statics`` made on this thread
 
 
 _built = _Built()
 
 
+def _pass(pods: Sequence[Pod]) -> Tuple[list, int, int]:
+    """``([statics(p) for p in pods], built, native)``: the pods whose
+    statics this call built, and those of them the native pass built (the
+    whole pass runs in native code once the extension is loaded)."""
+    native = statics_native.module()
+    if native is not None:
+        return native.statics_pass(pods, NATIVE_CTX)
+    b0 = _built.n
+    sts = [statics(p) for p in pods]
+    return sts, _built.n - b0, 0
+
+
 def statics_pass(pods: Sequence[Pod], prof: Optional[Dict] = None) -> list:
     """``[statics(p) for p in pods]``, the one per-pod statics pass of a
     solve. With ``prof`` (a solve's stage profile) it runs under the
-    ``solve.statics`` span, whose clock writes ``statics_s`` and
-    ``statics_built``: the pods this pass built statics for, counted on the
-    calling thread alone (another thread's builds, a prewarm's or a second
-    worker's, are not this pass's)."""
+    ``solve.statics`` span, whose clock writes ``statics_s``,
+    ``statics_built`` (the pods this pass built statics for, counted on the
+    calling thread alone: another thread's builds, a prewarm's or a second
+    worker's, are not this pass's) and ``statics_native`` (those of them
+    the native pass built; the span's ``native``)."""
     if prof is None:
-        return [statics(p) for p in pods]
+        return _pass(pods)[0]
     from karpenter_tpu_torch import obs
 
     with obs.tracer().span("solve.statics") as sp:
         t0 = time.perf_counter()
-        b0 = _built.n
-        sts = [statics(p) for p in pods]
-        built = _built.n - b0
+        sts, built, native = _pass(pods)
         prof["statics_s"] = time.perf_counter() - t0
         prof["statics_built"] = built
+        prof["statics_native"] = native
         sp.set_attribute("pods", len(pods))
         sp.set_attribute("built", built)
+        sp.set_attribute("native", native)
     return sts
 
 

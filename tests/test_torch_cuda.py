@@ -13,7 +13,8 @@ spans, the decision replay blob through the kernel ladder); a notice's
 replacement round and an adopted crash on the card; the warm-hit steal
 over the simulated cloud before a card round; the profiler's samples of a
 card round's fetch under ``solve.pack_fetch``, and the sidecar's entry
-point with its telemetry flags on the card; the GKE provider's ``tpu``-solver
+point with its telemetry flags on the card; a fresh 10,000-pod round whose
+statics the native pass built; the GKE provider's ``tpu``-solver
 cases (chip requests on their own axis) and ``run_controller_process``
 binding pods on the card. Every comparison is exact.
 
@@ -1009,6 +1010,23 @@ def test_traced_round_on_card_launches_once_and_agrees_with_the_profile(
     assert ctx["route"] == kernel and isinstance(ctx["assignment"], np.ndarray)
 
 
+def test_fresh_round_on_card_builds_every_statics_natively(cuda):
+    """A round of 10,000 new pod objects of the benchmark's mix through a
+    card scheduler: the native statics pass built every pod's statics."""
+    from karpenter_tpu_torch.kube.client import Cluster
+    from karpenter_tpu_torch.scheduling import statics_native
+    from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from torch_parity import mix7, portbench
+
+    assert statics_native.module(wait=300) is not None
+    prov, catalog, pods = mix7(10000, 4_422_000_004)
+    sched = Scheduler(Cluster(), rng=random.Random(1), solver_delta=False)
+    sched.solve(prov, catalog, portbench("adapter").fresh(pods, 1))
+    prof = sched.last_stage_profile()
+    assert prof["packer_backend"] == "pack_first_fit"
+    assert prof["statics_native"] == prof["statics_built"] == 10000
+
+
 def test_span_mirror_on_card_adds_no_device_operation(cuda, fresh_obs):
     """Under ``torch.profiler`` with the card's activity each span of a
     solve is one host event of its name, and no device event counted as an
@@ -1564,7 +1582,8 @@ def test_warm_steal_then_remainder_on_card_equals_the_cpu_worker(cuda, sizes, st
 def test_profiler_folds_card_fetch_samples_under_pack_fetch(cuda, fresh_obs):
     """While a card round waits for its kernel (the fetch's synchronize
     releases the GIL), the sampler runs and charges the solving thread's
-    samples to its innermost open span, solve.pack_fetch."""
+    samples to its innermost open span: ``pack.wait``, which holds the
+    synchronize inside solve.pack_fetch."""
     from karpenter_tpu_torch.kube.client import Cluster
     from karpenter_tpu_torch.scheduling.scheduler import Scheduler
 
@@ -1577,7 +1596,7 @@ def test_profiler_folds_card_fetch_samples_under_pack_fetch(cuda, fresh_obs):
         assert sched.last_stage_profile()["packer_backend"] == "pack_first_fit"
     fresh_obs.shutdown_profiler(prof)
     spans = prof.snapshot()["span_samples"]
-    assert spans.get("solve.pack_fetch", 0) >= 1, spans
+    assert spans.get("pack.wait", 0) >= 1, spans
     assert sum(spans.values()) <= prof.samples
 
 

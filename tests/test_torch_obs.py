@@ -662,13 +662,17 @@ def test_statics_built_counts_new_pod_objects_once():
     """``solve.statics.built`` (and ``statics_built``) is the number of pods
     whose statics the pass built: every pod of a list of new objects, none
     when the same objects are solved again, and none after another thread
-    built them first (the selection controller's prewarm)."""
+    built them first (the selection controller's prewarm). ``native`` (and
+    ``statics_native``) counts those the native pass built: all of them
+    once the extension is loaded, none without it."""
+    from karpenter_tpu_torch.scheduling import statics_native
     from karpenter_tpu_torch.scheduling.statics import statics
 
+    loaded = statics_native.module(wait=300) is not None
     prov, catalog, pods = scenario(PORT, "diverse", 160, 42, 16)
     prewarmed = scenario(PORT, "diverse", 160, 43, 16)[2]
     sched = _scheduler(PORT)
-    built = []
+    built, native = [], []
     with pinned(PORT):
         for batch in (pods, pods, prewarmed):
             if batch is prewarmed:
@@ -677,10 +681,12 @@ def test_statics_built_counts_new_pod_objects_once():
                 warm.join()
             sched.solve(prov, catalog, batch)
             built.append(sched.last_stage_profile()["statics_built"])
+            native.append(sched.last_stage_profile()["statics_native"])
     assert built == [160, 0, 0]
+    assert native == [160 * loaded, 0, 0]
     spans = _statics_spans(T_OBS.exporter().trees())
-    assert [(s["attrs"]["pods"], s["attrs"]["built"]) for s in spans] == [
-        (160, 160), (160, 0), (160, 0)]
+    assert [(s["attrs"]["pods"], s["attrs"]["built"], s["attrs"]["native"])
+            for s in spans] == [(160, 160, 160 * loaded), (160, 0, 0), (160, 0, 0)]
 
 
 def test_statics_built_is_per_thread_under_many_workers():
@@ -689,6 +695,9 @@ def test_statics_built_is_per_thread_under_many_workers():
     ``built`` is its own pods alone."""
     import sys
 
+    from karpenter_tpu_torch.scheduling import statics_native
+
+    loaded = statics_native.module(wait=300) is not None
     n_workers, N = 9, 300
     prov, catalog, _ = scenario(PORT, "diverse", N, 42, 16)
     batches = {i: [scenario(PORT, "diverse", N + i, 50 + 11 * r + i, 16)[2]
@@ -718,9 +727,9 @@ def test_statics_built_is_per_thread_under_many_workers():
         finally:
             sys.setswitchinterval(interval)
     assert built == {i: [N + i] * 2 for i in range(n_workers)}
-    assert sorted((s["attrs"]["pods"], s["attrs"]["built"])
+    assert sorted((s["attrs"]["pods"], s["attrs"]["built"], s["attrs"]["native"])
                   for s in _statics_spans(T_OBS.exporter().trees())) == sorted(
-        (N + i, N + i) for i in range(n_workers) for _ in range(2))
+        (N + i, N + i, (N + i) * loaded) for i in range(n_workers) for _ in range(2))
 
 
 @pytest.mark.parametrize("solver_delta", [False, True])

@@ -58,7 +58,7 @@ PORT_ONLY_SPANS = frozenset({
 STAGES = ("solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
           "solve.pack_fetch", "solve.decode")
 # each new span's attribute keys
-PORT_SPAN_ATTRS = {"solve.statics": ("built", "pods"), "solve.validate": ("memo_hit",),
+PORT_SPAN_ATTRS = {"solve.statics": ("built", "native", "pods"), "solve.validate": ("memo_hit",),
                    "pack.invariants": ("hit",), "pack.launch": ("n_max",)}
 
 
@@ -264,6 +264,36 @@ def scenario(pkg: str, name: str, n_pods: int = 0, seed: int = 42, n_types: int 
         ]
         return f.make_provisioner(solver="tpu"), catalog, pods
     raise ValueError(name)
+
+
+def portbench(name: str):
+    """A module of the port's benchmark harness (``portbench/<name>.py``:
+    ``generate``, ``adapter``), loaded by path under a name of its own, so
+    the harness's top-level names never shadow another module."""
+    import importlib.util
+    import sys
+
+    key = f"portbench_{name}"
+    if key not in sys.modules:
+        path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "portbench", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(key, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules[key] = module
+    return sys.modules[key]
+
+
+def mix7(n_pods: int, seed: int, n_types: int = 400):
+    """(provisioner, catalog, template pods) of the benchmark's cell
+    configuration: the upstream 1/7 pod mix (all seven kinds) and its
+    linear catalog, through the harness's generator and adapter.
+    ``portbench('adapter').fresh(templates, tag)`` gives a round's new pod
+    objects."""
+    generate, adapter = portbench("generate"), portbench("adapter")
+    records = generate.mix7(n_pods, generate.stream(seed, "fresh", 0))
+    catalog = adapter.instance_types(generate.catalog({"kind": "linear", "types": n_types}))
+    return adapter.provisioner(), catalog, adapter.pods(records)
 
 
 def team_mix(pkg: str, n_pods: int, seed: int = 9, n_types: int = 16, k_teams: int = 64):
