@@ -7,7 +7,14 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 from karpenter_tpu_torch.api import labels as lbl
-from karpenter_tpu_torch.api.objects import LabelSelector, ObjectMeta, Pod, PodAffinityTerm, PodSpec
+from karpenter_tpu_torch.api.objects import (
+    LabelSelector,
+    NodeSelectorRequirement,
+    ObjectMeta,
+    Pod,
+    PodAffinityTerm,
+    PodSpec,
+)
 from karpenter_tpu_torch.cloudprovider.fake import new_instance_type
 from karpenter_tpu_torch.cloudprovider.types import Offering
 from karpenter_tpu_torch.testing.factories import (
@@ -39,6 +46,11 @@ def pod(rec: Dict):
             topology_key=_TERM_KEYS[kind],
         )
         kw["pod_anti_requirements" if kind.startswith("anti") else "pod_requirements"] = [term]
+    if rec.get("node_selector"):
+        kw["node_selector"] = dict(rec["node_selector"])
+    if rec.get("node_affinity"):
+        kw["node_requirements"] = [NodeSelectorRequirement(key, op, list(values))
+                                   for key, op, values in rec["node_affinity"]]
     return make_pod(labels=rec["labels"], requests=requests, **kw)
 
 

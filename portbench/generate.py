@@ -1,15 +1,28 @@
-"""The one traffic generator: plain pod records from a seed.
+"""The one traffic generator: plain pod and catalog records from a seed.
 
-A configuration (``configs/<name>.json``) says which pods a round holds
-(``pods.mix`` and ``pods.count``); a traffic mix (``traffic/<name>.json``)
-says how rounds follow each other. Both are data; this module is the only
-code that reads them. Records are plain dicts, so the reference
+A configuration (``configs/<name>.json``) names its catalog
+(``catalog.kind``, with the rest of ``catalog`` as the catalog's spec) and
+its pod mix (``pods.mix`` and ``pods.count``); a traffic mix
+(``traffic/<name>.json``) says how rounds follow each other. Each catalog
+kind is a file ``catalogs/<kind>.py`` with ``records(spec)`` and
+``small(spec)`` (the spec the CPU tests run), each pod mix a file
+``mixes/<mix>.py`` with ``records(count, rng)``, found by name on
+``SEARCH`` as the harness finds a metric's reader. Each imports only
+the standard library. Records are plain dicts, so the reference
 (``reference/``) and the adapter to the program (``adapter.py``) read the
 same inputs.
 
-A record: ``kind`` (one of ``MIX7_KINDS``), ``labels``, ``cpu_m``
-(millicores), ``mem_mi`` (MiB) and ``sel`` (the label value a term or a
-spread selects, or None).
+A pod record: ``kind`` (a topology kind of ``MIX7_KINDS`` other than
+``generic``, or any other name for a pod without one), ``labels``,
+``cpu_m`` (millicores), ``mem_mi`` (MiB) and ``sel`` (the label value a
+term or a spread selects, or None); and, for a pod with node requirements,
+either or both of ``node_selector`` (``{label: value}``) and
+``node_affinity`` (``[[key, "In" | "NotIn", [values]], ...]``, one
+required term), over the zone, capacity type, arch, OS and instance type.
+
+A catalog record: ``name``, ``res`` and ``overhead`` (millicores, bytes,
+pods), ``price``, ``offerings`` (``(capacity type, zone)`` pairs),
+``arch`` and ``os`` (a set).
 
 Random streams are seeded with strings (``random.Random`` hashes a string
 seed with SHA-512), so any whole number works as ``--seed`` and the draws do
@@ -18,109 +31,60 @@ not depend on the interpreter's hash seed.
 
 from __future__ import annotations
 
+import importlib.util
 import random
+import sys
+from pathlib import Path
 from typing import Dict, List
 
-# the upstream benchmark's pools (scheduling_benchmark_test.go:159-216)
-LABEL_VALUES = ["a", "b", "c", "d", "e", "f", "g"]
-MEM_MI = [100, 256, 512, 1024, 2048, 4096]
-CPU_M = [100, 250, 500, 1000, 1500]
-
-MIX7_KINDS = (
-    "generic", "zone_spread", "host_spread",
-    "aff_host", "aff_zone", "anti_host", "anti_zone",
-)
-
-
-MI = 2 ** 20
-GI = 2 ** 30
-# the fake catalog's defaults (fake/instancetype.go:32-76): 100m cpu and
-# 10Mi memory reserved; spot in zones 1-2, on-demand in zones 1-3
-OVERHEAD = (100, 10 * MI, 0)
-OFFERINGS = (
-    ("spot", "test-zone-1"), ("spot", "test-zone-2"),
-    ("on-demand", "test-zone-1"), ("on-demand", "test-zone-2"), ("on-demand", "test-zone-3"),
-)
-OPERATING_SYSTEMS = ("darwin", "linux", "windows")
+HERE = Path(__file__).resolve().parent
+# the directories searched, in order, for catalogs/<kind>.py and mixes/<mix>.py
+SEARCH: List[Path] = [HERE]
 # a fresh round draws each position from one of this many batches
 POOL_BATCHES = 4
+
+_loaded: Dict[Path, object] = {}
+
+
+def module(kind: str, name: str):
+    """``<kind>/<name>.py`` (``kind`` is ``catalogs`` or ``mixes``), the
+    first found on ``SEARCH``, loaded once under a name of its own."""
+    tried = [root / kind / f"{name}.py" for root in SEARCH]
+    for path in tried:
+        if path in _loaded:
+            return _loaded[path]
+        if path.is_file():
+            key = f"portbench_{kind}_{name}"
+            spec = importlib.util.spec_from_file_location(key, path)
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[key] = mod
+            spec.loader.exec_module(mod)
+            _loaded[path] = mod
+            return mod
+    raise ValueError(f"no {kind}/{name}.py: looked for {', '.join(map(str, tried))}")
 
 
 def stream(seed: int, name: str, index: int = 0) -> random.Random:
     return random.Random(f"portbench:{seed}:{name}:{index}")
 
 
-def _record(kind):
-    return {"kind": kind, "labels": {}, "cpu_m": None, "mem_mi": 0, "sel": None}
-
-
-def mix7(count: int, rng: random.Random) -> List[Dict]:
-    """The upstream benchmark's pod mix: a seventh each of generic, zone
-    spread, hostname spread, hostname and zone pod affinity, hostname and
-    zone anti-affinity; the remainder generic. The draws follow the
-    upstream generator's order: own label, cpu, memory, then the term's
-    selector (a spread selects the pod's own label)."""
-    def labels():
-        return {"my-label": rng.choice(LABEL_VALUES)}
-
-    def sized(rec):
-        rec["cpu_m"] = rng.choice(CPU_M)
-        rec["mem_mi"] = rng.choice(MEM_MI)
-        return rec
-
-    out: List[Dict] = []
-    seventh = count // 7
-    for _ in range(seventh):
-        rec = _record("generic")
-        rec["labels"] = labels()
-        out.append(sized(rec))
-    for kind in ("zone_spread", "host_spread"):
-        for _ in range(seventh):
-            rec = _record(kind)
-            rec["labels"] = labels()
-            rec["sel"] = rec["labels"]["my-label"]
-            out.append(sized(rec))
-    for kind in ("aff_host", "aff_zone", "anti_host", "anti_zone"):
-        for _ in range(seventh):
-            rec = _record(kind)
-            rec["labels"] = labels()
-            sized(rec)
-            rec["sel"] = rng.choice(LABEL_VALUES)
-            out.append(rec)
-    while len(out) < count:
-        rec = _record("generic")
-        rec["labels"] = labels()
-        out.append(sized(rec))
-    return out
-
-
 def catalog(spec: Dict) -> List[Dict]:
-    """The upstream fake catalog (``fake/instancetype.go:117-130``): type i
-    has i + 1 cpus, 2 (i + 1) GiB and 10 (i + 1) pods, with integer
-    resources (millicores, bytes, pods) and the upstream fake price: 0.1 a
-    cpu plus 0.1 a GB of memory."""
-    if spec["kind"] != "linear":
-        raise ValueError(f"unknown catalog kind {spec['kind']!r}")
-    out = []
-    for i in range(spec["types"]):
-        cpu, mem_gi, n_pods = i + 1, (i + 1) * 2, (i + 1) * 10
-        out.append({
-            "name": f"fake-it-{i}",
-            "res": (cpu * 1000, mem_gi * GI, n_pods),
-            "price": 0.1 * float(cpu) + 0.1 * float(mem_gi * GI) / 1e9,
-            "overhead": OVERHEAD,
-            "offerings": OFFERINGS,
-            "arch": "amd64",
-            "os": frozenset(OPERATING_SYSTEMS),
-        })
-    return out
+    """The catalog records of ``spec`` (a configuration's ``catalog``)."""
+    return module("catalogs", spec["kind"]).records(spec)
 
 
 def pods(config: Dict, count: int, rng: random.Random) -> List[Dict]:
-    spec = config["pods"]
-    if spec["mix"] == "mix7":
-        return mix7(count, rng)
-    raise ValueError(f"unknown pod mix {spec['mix']!r}")
+    """``count`` pod records of the configuration's mix."""
+    return module("mixes", config["pods"]["mix"]).records(count, rng)
+
+
+# the names the built-in catalog and mix had here before they moved to
+# files of their own
+_linear, _mix7 = module("catalogs", "linear"), module("mixes", "mix7")
+MI, GI = _linear.MI, _linear.GI
+OVERHEAD, OFFERINGS, OPERATING_SYSTEMS = _linear.OVERHEAD, _linear.OFFERINGS, _linear.OPERATING_SYSTEMS
+LABEL_VALUES, MEM_MI, CPU_M, MIX7_KINDS = _mix7.LABEL_VALUES, _mix7.MEM_MI, _mix7.CPU_M, _mix7.MIX7_KINDS
+mix7 = _mix7.records
 
 
 class Fresh:

@@ -2,7 +2,8 @@
 the check against the reference, and the result line.
 
 A cell is ``workloads/<name>.json``; it names a configuration
-(``configs/<name>.json``) and a traffic mix (``traffic/<name>.json``).
+(``configs/<name>.json``, which names its catalog and pod mix, found by
+``generate``) and a traffic mix (``traffic/<name>.json``).
 Per-layer metrics are ``metrics/<name>.py`` files, found by the names
 ``BENCHMARK.json`` lists for the cell; each has ``read(ctx)`` and may
 have ``prepare(ctx)`` and ``finish(ctx)``, called around the traced
@@ -35,7 +36,7 @@ HERE = Path(__file__).resolve().parent
 # top-level module names a run may not hold once its window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "karpenter_tpu")
 # what serves a round on the CPU, where each card kernel has its plain twin
-CPU_TWIN = {"pack_first_fit": "pack_reference"}
+CPU_TWIN = {"pack_first_fit": "pack_reference", "pack_first_fit_v2": "pack_v2_reference"}
 OUTSIDE = "harness (no span open)"
 STRETCH = "portbench.stretch"  # the traced stretch's mark in the profiler's trace
 PROFILED_ROUNDS = 12  # rounds under torch.profiler in a --trace 1 run

@@ -25,6 +25,19 @@ the program documents for spread and pod (anti-)affinity:
   hostnames from a pool the spread groups share, dealt round-robin when no
   member is pinned to a hostname, else by fewest members.
 
+A pod's own node requirements (a record's ``node_selector`` and
+``node_affinity``, on the five keys ``base_requirements`` layers from the
+catalog) narrow it as requirements.go:78-110 layers them: for each key, the
+catalog's values, ∩ each ``In`` set, − each ``NotIn`` set. The pod must keep
+a value of each such set on an open node it joins (requirements.go:175-191),
+and a node it opens starts from them; a pod whose set is empty, or that no
+type admits, is unschedulable. A batch that holds pods with node
+requirements beside pods of a topology kind raises ``ValueError``: the
+program narrows spread domains by a pod's own requirements
+(``scheduling/topology.py:969``) and reads a batch pod's own zone when it
+seeds zone affinity, which the reference does not model; no public mix asks
+for the combination yet.
+
 The upstream iterates a map of zones, so spread ties depend on that order.
 The program registers the zones from a Python set of the sorted zone names;
 the reference iterates a set built the same way in the same process, which
@@ -69,6 +82,10 @@ def base_requirements(types: Sequence[Dict]) -> Dict[str, frozenset]:
     }
 
 
+# the keys a pod's node requirements may name: those base_requirements layers
+NODE_KEYS = (ZONE, CAPACITY_TYPE, ARCH, OS, INSTANCE_TYPE)
+
+
 # -- pods ----------------------------------------------------------------------
 
 # (anti, topology key) of each term kind
@@ -85,6 +102,33 @@ def requests(rec: Dict) -> Tuple[int, int, int]:
 
 def selector_matches(sel: str, rec: Dict) -> bool:
     return rec["labels"].get("my-label") == sel
+
+
+def has_node_requirements(rec: Dict) -> bool:
+    return bool(rec.get("node_selector") or rec.get("node_affinity"))
+
+
+def node_requirements(rec: Dict, base: Dict[str, frozenset]) -> Dict[str, frozenset]:
+    """The pod's allowed set for each key its node requirements name: the
+    catalog's values (``base``), ∩ each ``In`` set (a selector's value is
+    one), − each ``NotIn`` set."""
+    terms = [(k, "In", [v]) for k, v in (rec.get("node_selector") or {}).items()]
+    terms += [tuple(t) for t in rec.get("node_affinity") or ()]
+    own: Dict[str, frozenset] = {}
+    for key, op, values in terms:
+        if key not in NODE_KEYS:
+            raise ValueError(f"a node requirement on {key!r}: the reference takes only "
+                             f"{', '.join(NODE_KEYS)}")
+        allowed = own.get(key, base[key])
+        if op == "In":
+            allowed = allowed & frozenset(values)
+        elif op == "NotIn":
+            allowed = allowed - frozenset(values)
+        else:
+            raise ValueError(f"a node requirement with the operator {op!r}: the reference "
+                             "takes only In and NotIn")
+        own[key] = allowed
+    return own
 
 
 def ffd_order(recs: Sequence[Dict]) -> List[int]:
@@ -331,6 +375,17 @@ def solve(records: Sequence[Dict], catalog: Sequence[Dict], precision: str = "ex
     base = base_requirements(types)
     order = ffd_order(records)
     batch = [records[i] for i in order]
+    own_reqs = [node_requirements(rec, base) for rec in batch]
+    topo = sorted({rec["kind"] for rec in batch if rec["kind"] in _TERMS or rec["kind"] in _SPREADS})
+    pinned = [rec for rec in batch if has_node_requirements(rec)]
+    for rec in pinned:
+        if rec["kind"] in topo:
+            raise ValueError(f"a pod with node requirements and the topology kind "
+                             f"{rec['kind']!r}: the reference leaves the combination out")
+    if pinned and topo:
+        raise ValueError(f"a batch with pods that have node requirements beside pods of the "
+                         f"topology kinds {', '.join(topo)}: the reference leaves the "
+                         "combination out")
     plan = topology(batch, base[ZONE])
     if plan.hostnames:
         base = dict(base, **{HOSTNAME: frozenset(plan.hostnames)})
@@ -368,7 +423,7 @@ def solve(records: Sequence[Dict], catalog: Sequence[Dict], precision: str = "ex
     unschedulable: List[int] = []
     zero = held((0, 0, 0))
     for p, rec in enumerate(batch):
-        own = {}
+        own = dict(own_reqs[p])
         for key, d in plan.dec.get(p, {}).items():
             own[key] = frozenset({d})
         req = held(requests(rec))

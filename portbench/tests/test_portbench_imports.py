@@ -26,10 +26,11 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 RUN_SMALL = """
-import copy, harness
+import copy, generate, harness
 cell = copy.deepcopy(harness.load_cell("mix7-10k-fresh"))
 cell["config"]["pods"]["count"] = 300
-cell["config"]["catalog"]["types"] = 20
+spec = cell["config"]["catalog"]
+cell["config"]["catalog"] = generate.module("catalogs", spec["kind"]).small(spec)
 result = harness.run("mix7-10k-fresh", 5, 0.5, False, 0.0, device="cpu", cell_def=cell)
 assert result["correct"], result
 """
@@ -48,8 +49,17 @@ def test_a_run_loads_no_jax_and_no_jax_package():
     assert not top & FORBIDDEN
 
 
+GENERATE = """
+from reference import scheduler
+import check, generate
+records = generate.pods({"pods": {"mix": "mix7"}}, 70, generate.stream(1, "x"))
+scheduler.solve(records, generate.catalog({"kind": "linear", "types": 20}))
+"""
+
+
 def test_the_reference_loads_nothing_of_the_program():
-    top = loaded("from reference import scheduler\nimport check, generate")
+    # nor do the catalog and the mix it reads
+    top = loaded(GENERATE)
     assert not top & (FORBIDDEN | {"karpenter_tpu_torch", "torch"})
 
 
@@ -69,6 +79,9 @@ def test_no_source_imports_jax_the_jax_package_or_the_old_benches(path):
     assert not names & (FORBIDDEN | NOT_READ)
     if path.parent.name == "reference":
         assert names <= {"__future__", "math", "struct", "typing"}
+    if path.parent.name in ("catalogs", "mixes"):
+        # loaded by path, also where portbench/ is not on sys.path
+        assert names <= set(sys.stdlib_module_names)
 
 
 def test_without_a_card_a_run_fails_and_prints_no_result():
