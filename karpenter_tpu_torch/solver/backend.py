@@ -604,6 +604,9 @@ class TorchScheduler:
             prof["encode_delta_s" if enc_kind != "full" else "encode_s"] = (
                 time.perf_counter() - t0
             )
+            # the closure's size, as the encode.closure span has it
+            prof["closure_signatures"] = len(batch.signatures)
+            prof["closure_cores"] = len(batch.cores)
 
         # the shape class's pack breaker: while open, no pack is attempted.
         # A closed (or half-open-probing) breaker sees the pack's outcome.
@@ -687,7 +690,7 @@ class TorchScheduler:
 
         with tr.span("solve.decode"):
             t0 = time.perf_counter()
-            nodes = self._decode(batch, result, typemask, constraints, instance_types)
+            nodes = self._decode(batch, result, typemask, constraints, instance_types, prof)
             dec_hit = getattr(self._dec_tl, "hit", False)
             prof["decode_delta_s" if dec_hit else "decode_s"] = time.perf_counter() - t0
 
@@ -1118,6 +1121,7 @@ class TorchScheduler:
         route0 = self._device_route(batch, packer)
         n_max0 = min(p, N_MAX_FIRST) if route0 else max(256, p // 4)
         prof["pack_dispatches"] = 0
+        prof["pack_redispatch_s"] = 0.0
         args_box: list = [None]
         rec_box: list = [not probe]  # consumed by the first dispatch
 
@@ -1144,11 +1148,11 @@ class TorchScheduler:
 
         fetch0, taken0 = dispatch(n_max0, route0)
 
-        def finish():
-            n_max, fetch, taken = n_max0, fetch0, taken0
+        def settle(n_max: int, fetch, taken):
+            """One table size's fetch → ``(result, typemask)``."""
             while True:
                 try:
-                    result, typemask = fetch()
+                    return fetch()
                 except Exception:
                     if taken is None:
                         raise
@@ -1162,15 +1166,24 @@ class TorchScheduler:
                         batch, local_args, p, n_max, prof, packer, False
                     )
                     taken = None
-                    continue
-                saturated = int(result.n_nodes) == n_max and bool(
-                    (np.asarray(result.assignment)[: batch.n_pods] < 0).any()
-                )
-                if not saturated or n_max >= p:
-                    return result, typemask
-                n_max = p
-                # re-derive the route for the full-table retry
-                fetch, taken = dispatch(n_max, self._device_route(batch, packer))
+
+        def finish():
+            result, typemask = settle(n_max0, fetch0, taken0)
+            n_first = int(result.n_nodes)
+            saturated = n_first == n_max0 and bool(
+                (np.asarray(result.assignment)[: batch.n_pods] < 0).any()
+            )
+            if not saturated or n_max0 >= p:
+                return result, typemask
+            # the full-table retry, its route re-derived
+            with obs.tracer().child_span("pack.redispatch", {
+                "n_max_first": n_max0, "n_max": p, "n_nodes_first": n_first,
+            }):
+                t0 = time.perf_counter()
+                fetch, taken = dispatch(p, self._device_route(batch, packer))
+                out = settle(p, fetch, taken)
+                prof["pack_redispatch_s"] = time.perf_counter() - t0
+            return out
 
         return finish
 
@@ -1464,7 +1477,11 @@ class TorchScheduler:
         typemask,  # [N, T] bool from the fused solve, or None
         constraints: Constraints,
         instance_types: Sequence[InstanceType],
+        prof: Dict[str, float],
     ) -> List[VirtualNode]:
+        """The plan's nodes. The ``decode.options`` span's clock writes
+        ``decode_options_s`` (the surviving-type rows, their dedup and each
+        distinct options list)."""
         assignment, node_sig, node_host, node_req, n_nodes_arr = result
         assignment = assignment[: batch.n_pods]
         n_nodes = int(np.asarray(n_nodes_arr).reshape(-1)[0])
@@ -1519,26 +1536,32 @@ class TorchScheduler:
                 self._scales_memo.clear()
             self._scales_memo[id(axis_names)] = (axis_names, scales)
         live_idx = np.asarray(live, np.int64)
-        # surviving types for ALL nodes: the fused solve computed the
-        # [N, T] mask on the device; otherwise one batched host comparison
-        # (signature-compatible and fits the node total)
-        if typemask is not None:
-            ok_all = typemask[live_idx]
-        else:
-            totals = np.asarray(node_req)[live_idx]  # [L, R]
-            fit_all = np.all(batch.usable[None, :, :] >= totals[:, None, :], axis=-1)  # [L, T]
-            mask_all = batch.type_mask_matrix()[np.asarray(node_sig)[live_idx]]  # [L, T]
-            ok_all = fit_all & mask_all
-        types_arr = np.array(instance_types, dtype=object)
-        # most nodes share identical surviving-type masks: build each
-        # distinct list once and share it (VirtualNode.add REPLACES
-        # instance_type_options, never mutates it)
-        _, uniq_row, row_of = np.unique(
-            np.packbits(ok_all, axis=1), axis=0,
-            return_index=True, return_inverse=True,
-        )
-        uniq_lists = [list(types_arr[ok_all[int(r)]]) for r in uniq_row]
-        row_of_l = row_of.reshape(-1).tolist()
+        with obs.tracer().child_span("decode.options") as opt_sp:
+            t0 = time.perf_counter()
+            # surviving types for ALL nodes: the fused solve computed the
+            # [N, T] mask on the device; otherwise one batched host
+            # comparison (signature-compatible and fits the node total)
+            if typemask is not None:
+                ok_all = typemask[live_idx]
+            else:
+                totals = np.asarray(node_req)[live_idx]  # [L, R]
+                fit_all = np.all(batch.usable[None, :, :] >= totals[:, None, :], axis=-1)
+                mask_all = batch.type_mask_matrix()[np.asarray(node_sig)[live_idx]]  # [L, T]
+                ok_all = fit_all & mask_all
+            types_arr = np.array(instance_types, dtype=object)
+            # most nodes share identical surviving-type masks: build each
+            # distinct list once and share it (VirtualNode.add REPLACES
+            # instance_type_options, never mutates it)
+            _, uniq_row, row_of = np.unique(
+                np.packbits(ok_all, axis=1), axis=0,
+                return_index=True, return_inverse=True,
+            )
+            uniq_lists = [list(types_arr[ok_all[int(r)]]) for r in uniq_row]
+            row_of_l = row_of.reshape(-1).tolist()
+            prof["decode_options_s"] = time.perf_counter() - t0
+            opt_sp.set_attribute("nodes", len(live))
+            opt_sp.set_attribute("types", len(instance_types))
+            opt_sp.set_attribute("distinct", len(uniq_lists))
 
         totals_live = np.asarray(node_req)[live_idx]  # [L, R]
         totals_l = totals_live.tolist()

@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.api import labels as lbl
 from karpenter_tpu_torch.api.objects import Pod
 from karpenter_tpu_torch.api.provisioner import Constraints
@@ -417,48 +418,10 @@ def encode(
     )
 
 
-def finish_encode(
-    table: SignatureTable,
-    usable: np.ndarray,
-    axes: Sequence[str],
-    daemon: Dict[str, float],
-    pods: Sequence[Pod],
-    pod_core: np.ndarray,
-    pod_host: np.ndarray,
-    pod_host_in_base: np.ndarray,
-    pod_open_host: np.ndarray,
-    pod_req_id_core: np.ndarray,
-    cores: List[Core],
-    hostnames: List[str],
-    uniq_vecs: List[np.ndarray],
-    base_has_hostname: bool,
-) -> EncodedBatch:
-    """The shared tail of ``encode``: batch-local vocab arrays → signature
-    closure → axis trim → pod padding → EncodedBatch. ``delta.py``'s
-    resident path reconstructs the vocab arrays from cached per-pod rows and
-    calls this directly, so a delta-built batch is bit-exact against a full
-    re-encode by construction — both run the identical closure/trim/pad
-    code on identical inputs."""
-    n = len(pods)
-    R = usable.shape[1]
-    # final row = zeros, backing the padding pods
-    uniq_req = np.vstack(uniq_vecs + [np.zeros(R, np.float32)]).astype(np.float32)
-    pod_req = uniq_req[pod_req_id_core]
-
-    # signature closure over THIS batch's cores, scoped to the reachable
-    # set and re-indexed densely: a cached table accumulates signatures and
-    # joins from earlier batches, and emitting arrays sized (or indexed) by
-    # the accumulated closure would both crash on foreign cores and grow
-    # the kernel input without bound.
-    #
-    # The closure is a pure function of (table base+catalog, cores
-    # vocabulary) and the table accumulates monotonically, so consecutive
-    # batches with the same core vocabulary — the steady state — reuse the
-    # memoized (signatures, join_table, frontiers, open sigs) instead of
-    # re-sweeping S×C joins (the encode hot spot at high diversity:
-    # S=C=201 is 40k join lookups per solve). Memoized ON the table: the
-    # EncodeCache key already pins base constraints, catalog, and axes.
-    cores_key = tuple(cores)
+def _closure(table: SignatureTable, cores: List[Core], cores_key: tuple, R: int):
+    """``((signatures, join_table, frontiers, open_sig_by_core), memo_hit)``:
+    the signature closure over ``cores``, from the table's memo or swept
+    and memoized (``finish_encode`` says why)."""
     closure_memo = table._closure_memo
     hit = closure_memo.get(cores_key)
     if hit is not None:
@@ -509,6 +472,58 @@ def finish_encode(
         closure_memo[cores_key] = (signatures, join_table, frontiers, open_sig_by_core)
         while len(closure_memo) > CLOSURE_MEMO_MAX:
             closure_memo.popitem(last=False)
+    return (signatures, join_table, frontiers, open_sig_by_core), hit is not None
+
+
+def finish_encode(
+    table: SignatureTable,
+    usable: np.ndarray,
+    axes: Sequence[str],
+    daemon: Dict[str, float],
+    pods: Sequence[Pod],
+    pod_core: np.ndarray,
+    pod_host: np.ndarray,
+    pod_host_in_base: np.ndarray,
+    pod_open_host: np.ndarray,
+    pod_req_id_core: np.ndarray,
+    cores: List[Core],
+    hostnames: List[str],
+    uniq_vecs: List[np.ndarray],
+    base_has_hostname: bool,
+) -> EncodedBatch:
+    """The shared tail of ``encode``: batch-local vocab arrays → signature
+    closure → axis trim → pod padding → EncodedBatch. ``delta.py``'s
+    resident path reconstructs the vocab arrays from cached per-pod rows and
+    calls this directly, so a delta-built batch is bit-exact against a full
+    re-encode by construction — both run the identical closure/trim/pad
+    code on identical inputs."""
+    n = len(pods)
+    R = usable.shape[1]
+    # final row = zeros, backing the padding pods
+    uniq_req = np.vstack(uniq_vecs + [np.zeros(R, np.float32)]).astype(np.float32)
+    pod_req = uniq_req[pod_req_id_core]
+
+    # signature closure over THIS batch's cores, scoped to the reachable
+    # set and re-indexed densely: a cached table accumulates signatures and
+    # joins from earlier batches, and emitting arrays sized (or indexed) by
+    # the accumulated closure would both crash on foreign cores and grow
+    # the kernel input without bound.
+    #
+    # The closure is a pure function of (table base+catalog, cores
+    # vocabulary) and the table accumulates monotonically, so consecutive
+    # batches with the same core vocabulary — the steady state — reuse the
+    # memoized (signatures, join_table, frontiers, open sigs) instead of
+    # re-sweeping S×C joins (the encode hot spot at high diversity:
+    # S=C=201 is 40k join lookups per solve). Memoized ON the table: the
+    # EncodeCache key already pins base constraints, catalog, and axes.
+    cores_key = tuple(cores)
+    with obs.tracer().child_span("encode.closure") as closure_sp:
+        (signatures, join_table, frontiers, open_sig_by_core), memo_hit = _closure(
+            table, cores, cores_key, R
+        )
+        closure_sp.set_attribute("signatures", len(signatures))
+        closure_sp.set_attribute("cores", len(cores))
+        closure_sp.set_attribute("memo_hit", memo_hit)
 
     daemon_vec = res.to_scaled_vector(daemon, axes)
 

@@ -47,19 +47,24 @@ def pinned(pkg: str):
     return packer(PINNED_PACKER[pkg])
 
 
-# the spans of a solve that only the port opens: the statics pass, validate
-# and the kernel wrapper's stages. A port tree is compared with the
+# the spans of a solve that only the port opens: the statics pass, validate,
+# the kernel wrapper's stages, a saturated table's re-dispatch, decode's
+# options lists and encode's closure. A port tree is compared with the
 # reference's without them (``strip_port_only``); ``port_spans_sit`` holds
 # where they sit
 PORT_ONLY_SPANS = frozenset({
     "solve.statics", "solve.validate", "pack.pod_table", "pack.upload",
     "pack.invariants", "pack.check", "pack.launch", "pack.wait", "pack.split",
+    "pack.redispatch", "decode.options", "encode.closure",
 })
 STAGES = ("solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
           "solve.pack_fetch", "solve.decode")
 # each new span's attribute keys
 PORT_SPAN_ATTRS = {"solve.statics": ("built", "native", "pods"), "solve.validate": ("memo_hit",),
-                   "pack.invariants": ("hit",), "pack.launch": ("n_max",)}
+                   "pack.invariants": ("hit",), "pack.launch": ("n_max",),
+                   "pack.redispatch": ("n_max", "n_max_first", "n_nodes_first"),
+                   "decode.options": ("distinct", "nodes", "types"),
+                   "encode.closure": ("cores", "memo_hit", "signatures")}
 
 
 def strip_port_only(tree: dict) -> dict:
@@ -91,26 +96,30 @@ def _dispatch(spans: list) -> list:
 def port_spans_sit(tree: dict) -> None:
     """The port's new spans where it opens them in one ``solver.solve`` tree
     of an in-process solve: ``solve.statics`` under ``solve.sort`` (absent
-    when the resident sort hits); ``solve.validate`` after
-    ``solve.decode``; under ``solve.pack_begin`` one dispatch (``pack.pod_table``,
-    ``pack.upload``, ``pack.invariants``, ``pack.launch`` holding the
-    wrapper's ``pack.check``); under ``solve.pack_fetch`` ``pack.wait`` and
-    ``pack.split``, then each saturation re-dispatch with its own wait and
-    split, its ``pack.launch`` at the full table. Each carries its
-    attribute keys (``PORT_SPAN_ATTRS``)."""
+    when the resident sort hits); ``encode.closure`` under ``solve.encode``
+    (absent when the resident encode reuses the batch); ``decode.options``
+    under ``solve.decode`` (absent when the decode memo hits or no node
+    opened); ``solve.validate`` after ``solve.decode``; under
+    ``solve.pack_begin`` one dispatch (``pack.pod_table``, ``pack.upload``,
+    ``pack.invariants``, ``pack.launch`` holding the wrapper's
+    ``pack.check``); under ``solve.pack_fetch`` ``pack.wait`` and
+    ``pack.split``, then a saturated table's ``pack.redispatch`` holding the
+    full-table dispatch, its ``pack.launch`` at P, and its own wait and
+    split. Each carries its attribute keys (``PORT_SPAN_ATTRS``)."""
     stages = {c["name"]: c for c in tree["children"]}
     assert tuple(stages) == STAGES + ("solve.validate",), list(stages)
     assert _names(stages["solve.sort"]) in (["solve.statics"], [])
+    assert _names(stages["solve.encode"]) in (["encode.closure"], [])
+    assert _names(stages["solve.decode"]) in (["decode.options"], [])
     assert _names(stages["solve.validate"]) == []
     assert _dispatch(stages["solve.pack_begin"]["children"]) == []
-    rest = stages["solve.pack_fetch"]["children"]
-    while rest:
-        assert [s["name"] for s in rest[:2]] == ["pack.wait", "pack.split"], _names(
-            stages["solve.pack_fetch"])
-        rest = rest[2:]
-        if rest:
-            rest = _dispatch(rest)
-            assert rest, "a re-dispatch without its wait"
+    fetch = stages["solve.pack_fetch"]["children"]
+    assert _names(stages["solve.pack_fetch"]) in (
+        ["pack.wait", "pack.split"], ["pack.wait", "pack.split", "pack.redispatch"]), _names(
+        stages["solve.pack_fetch"])
+    for redispatch in fetch[2:]:
+        rest = _dispatch(redispatch["children"])
+        assert [s["name"] for s in rest] == ["pack.wait", "pack.split"], _names(redispatch)
 
     def walk(span):
         keys = PORT_SPAN_ATTRS.get(span["name"])
