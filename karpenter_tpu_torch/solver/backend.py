@@ -1348,8 +1348,10 @@ class TorchScheduler:
         probe: bool = False, record: bool = True,
     ):
         """Launch one fused solve on ``route`` and return ``fetch()``, which
-        blocks until its buffer is on the host and splits it. ``record``
-        gates the invariants lookup's session hit rate."""
+        blocks until its buffer is on the host and splits it into the
+        ``PackResult`` and the live rows' ``[n_nodes, T]`` typemask (the
+        ``pack.split`` span's ``rows`` of its ``n_max``). ``record`` gates
+        the invariants lookup's session hit rate."""
         dev = self.device
         tr = obs.tracer()
         from_residency = self._pod_residency is not None and not probe
@@ -1383,11 +1385,13 @@ class TorchScheduler:
         def fetch():
             with tr.child_span("pack.wait"):
                 out = wait()
-            with tr.child_span("pack.split"):
-                return fused.split_fused(
+            with tr.child_span("pack.split", {"n_max": n_max}) as split_sp:
+                result, typemask = fused.split_fused(
                     out, len(batch.pod_valid), n_max,
                     batch.usable.shape[1], batch.usable.shape[0],
                 )
+                split_sp.set_attribute("rows", typemask.shape[0])
+                return result, typemask
 
         return fetch
 
@@ -1474,7 +1478,7 @@ class TorchScheduler:
         self,
         batch: enc.EncodedBatch,
         result,
-        typemask,  # [N, T] bool from the fused solve, or None
+        typemask,  # [n_nodes, T] bool from the fused solve (live rows), or None
         constraints: Constraints,
         instance_types: Sequence[InstanceType],
         prof: Dict[str, float],
@@ -1539,8 +1543,9 @@ class TorchScheduler:
         with obs.tracer().child_span("decode.options") as opt_sp:
             t0 = time.perf_counter()
             # surviving types for ALL nodes: the fused solve computed the
-            # [N, T] mask on the device; otherwise one batched host
-            # comparison (signature-compatible and fits the node total)
+            # mask on the device (its live rows, so live_idx < n_nodes
+            # indexes it); otherwise one batched host comparison
+            # (signature-compatible and fits the node total)
             if typemask is not None:
                 ok_all = typemask[live_idx]
             else:

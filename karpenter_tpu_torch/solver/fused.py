@@ -407,7 +407,11 @@ def fused_solve_v2(
 
 def split_fused(buf, p: int, n: int, r: int, t: int):
     """Host-side inverse of ``fused_solve``'s flat buffer. Returns
-    (PackResult, typemask[N, T] bool) over numpy arrays."""
+    (PackResult, typemask[n_live, T] bool) over numpy arrays: the mask
+    covers only the live rows, ``n_live`` = the buffer's ``n_nodes``
+    clamped to ``[0, n]`` (rows past it are empty by the kernel contract
+    and decode never reads them). ``PackResult.n_nodes`` stays the raw
+    value, so a corrupt count is ``integrity.screen_result``'s to refuse."""
     buf = np.asarray(buf)
     t32 = (t + 31) // 32
     o = 0
@@ -417,9 +421,10 @@ def split_fused(buf, p: int, n: int, r: int, t: int):
     node_req = buf[o : o + n * r].view(np.float32).reshape(n, r); o += n * r
     typebits = buf[o : o + n * t32].view(np.uint32).reshape(n, t32); o += n * t32
     n_nodes = buf[o]
-    shifts = np.arange(32, dtype=np.uint32)
-    bits = (typebits[:, :, None] >> shifts[None, None, :]) & 1
-    typemask = bits.reshape(n, t32 * 32)[:, :t].astype(bool)
+    n_live = min(max(int(n_nodes), 0), n)
+    # column j is bit j % 32 of word j // 32 on any host byte order
+    words = typebits[:n_live].astype("<u4", copy=False).view(np.uint8)
+    typemask = np.unpackbits(words, axis=1, count=t, bitorder="little").view(bool)
     return (
         PackResult(assignment, node_sig, node_host, node_req, n_nodes),
         typemask,

@@ -125,6 +125,20 @@ def test_a_saturated_first_table_redispatches_under_its_span(monkeypatch, catalo
     assert prof["pack_redispatch_s"] <= prof["pack_fetch_s"]
 
 
+def test_each_split_unpacks_only_its_tables_live_rows(monkeypatch, catalog):
+    """The saturated first table's split unpacks all its rows, the full
+    table's only the plan's nodes, and the plan is the unpatched one."""
+    pods = pinned_pods(N_PODS, 8)
+    want, _, _, _, _ = solve(catalog, pods)
+    monkeypatch.setattr(backend, "N_MAX_FIRST", SMALL_TABLE)
+    got, prof, batch, tree, _ = solve(catalog, pods)
+    assert got == want and prof["pack_dispatches"] == 2
+    assert [s["attrs"] for s in spans(tree, "pack.split")] == [
+        {"rows": SMALL_TABLE, "n_max": SMALL_TABLE},
+        {"rows": len(got), "n_max": len(batch.pod_valid)},
+    ]
+
+
 def test_decode_options_counts_the_plans_nodes_over_the_whole_catalog(catalog):
     plan, prof, _, tree, _ = solve(catalog, pinned_pods(N_PODS, 9))
     port_spans_sit(tree)

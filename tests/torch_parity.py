@@ -62,6 +62,7 @@ STAGES = ("solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
 # each new span's attribute keys
 PORT_SPAN_ATTRS = {"solve.statics": ("built", "native", "pods"), "solve.validate": ("memo_hit",),
                    "pack.invariants": ("hit",), "pack.launch": ("n_max",),
+                   "pack.split": ("n_max", "rows"),
                    "pack.redispatch": ("n_max", "n_max_first", "n_nodes_first"),
                    "decode.options": ("distinct", "nodes", "types"),
                    "encode.closure": ("cores", "memo_hit", "signatures")}
