@@ -583,9 +583,7 @@ from unittest import mock
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor f32 rate
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+from portbench import roofline
 
 KERNEL_SOURCE = "karpenter_tpu_torch/solver/csrc/pack_first_fit.cu"
 REPLACES = "karpenter_tpu/solver/pallas_kernel.py:51"  # _pack_kernel (pallas_call at :197)
@@ -777,131 +775,11 @@ def sweep(name: str, args, n_max: int, shape, ref, iters: int, card: str,
         + ", ".join(parts) + f"; CUDA events, mean of {iters}; card {card}")
 
 
-def bound(n_bytes: int, ops: int):
-    """(bound_ms, bound_by): the bytes over HBM bandwidth against the
-    operations over the f32 rate, whichever takes longer."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def walk(le):
-    """A first-fit frontier walk over ``le`` [k, F, R] (does total r fit
-    row f?) for k nodes: the compares each needs (each row until its first
-    failing axis, rows until the first that fits), the rows each reads, and
-    whether a row fits."""
-    k, F, R = le.shape
-    row_fit = le.all(2)
-    fits = row_fit.any(1)
-    rows = np.where(fits, row_fit.argmax(1) + 1, F)
-    per_row = np.where(row_fit, R, (~le).argmax(2) + 1)
-    return (per_row * (np.arange(F)[None, :] < rows[:, None])).sum(1), rows, fits
-
-
-def replay_work(pods, assignment, joins, limits, shape):
-    """Replay the first-fit recurrence along a kernel's own assignment and
-    count the work this run's data needs. Per valid pod: one joinability
-    compare per open node, one hostname compare per joining node when the
-    pod pins a hostname, and, for the nodes that join and admit it up to
-    the first that fits, R adds and the frontier walk; R adds when it opens
-    a node. ``joins(core, sigs)`` gives (joinable, joined id) and
-    ``limits(core, sigs, ids)`` the [k, F, R] limits. Returns (ops, compat,
-    rows, jv): which (core, sig) joinabilities were read, how many frontier
-    rows each (core, sig) column had read, and which joined ids were read.
-    Raises where the replay's first fit is not the kernel's."""
-    valid, open_sig, core, host, hib, open_host, req, daemon = pods
-    n_cap, C, S = shape
-    R = req.shape[1]
-    node_sig = np.full(n_cap, -1, np.int64)
-    node_host = np.full(n_cap, -1, np.int64)
-    node_req = np.zeros((n_cap, R), np.float32)
-    compat = np.zeros((C, S), bool)
-    rows_read = np.zeros((C, S), np.int64)
-    jv = np.zeros((C, S), bool)
-    count = ops = 0
-    for i in np.flatnonzero(valid):
-        c, h, a = int(core[i]), int(host[i]), int(assignment[i])
-        target, jid = -1, None
-        if count:
-            sigs = node_sig[:count]
-            ok, jid = joins(c, np.maximum(sigs, 0))
-            ok = ok & (sigs >= 0)
-            ops += count
-            compat[c, sigs[sigs >= 0]] = True
-            if h >= 0:
-                ops += int(ok.sum())
-                nh = node_host[:count]
-                ok &= ((nh == -1) & bool(hib[i])) | (nh == h)
-            cand = np.flatnonzero(ok)
-            if cand.size:
-                totals = node_req[cand] + req[i]
-                cmps, rows, fits = walk(totals[:, None, :] <= limits(c, sigs[cand], jid[cand]))
-                stop = int(fits.argmax()) + 1 if fits.any() else cand.size
-                ops += stop * R + int(cmps[:stop].sum())
-                np.maximum.at(rows_read[c], sigs[cand[:stop]], rows[:stop])
-                if fits.any():
-                    target = int(cand[stop - 1])
-        if target >= 0:
-            if a != target:
-                raise AssertionError(f"work replay: pod {i} fits node {target}, kernel gave {a}")
-            jv[c, node_sig[target]] = True
-            node_req[target] += req[i]
-            node_sig[target] = jid[target]
-            if h >= 0:
-                node_host[target] = h
-        elif a == count:
-            node_sig[a], node_host[a] = open_sig[i], open_host[i]
-            node_req[a] = daemon + req[i]
-            ops += R
-            count += 1
-        elif a != -1:
-            raise AssertionError(f"work replay: pod {i} fits no open node, kernel gave {a}")
-    return ops, compat, rows_read, jv
-
-
-def nbytes(tensors) -> int:
-    return sum(a.numel() * a.element_size() for a in tensors)
-
-
-def v1_work(args, result):
-    """(bytes, ops) pack_first_fit needs on this run: every input read once
-    (the join table and frontiers whole; they are a few hundred bytes at the
-    headline) and every output written once; the replay's operations plus
-    each valid pod's fresh-node walk (R adds, then its open signature's
-    frontier rows)."""
-    valid, open_sig, core, host, hib, open_host, req, join, frontiers, daemon = (
-        a.cpu().numpy() for a in args)
-    F, R = frontiers.shape[1:]
-    ops, _, _, _ = replay_work(
-        (valid, open_sig, core, host, hib, open_host, req, daemon),
-        result.assignment.cpu().numpy(),
-        lambda c, sigs: (join[sigs, c] >= 0, join[sigs, c]),
-        lambda c, sigs, ids: frontiers[ids],
-        (result.node_sig.shape[-1], join.shape[1], join.shape[0]),
-    )
-    cmps, _, _ = walk((daemon + req)[valid][:, None, :] <= frontiers[open_sig[valid]])
-    ops += int(valid.sum()) * R + int(cmps.sum())
-    return nbytes(args) + nbytes(result), ops
-
-
-def v2_work(args, result, F: int, R: int):
-    """(bytes, ops) pack_first_fit_v2 needs on this run: the pod side read
-    once, of the tables only the joinabilities, the frontier rows and the
-    joined ids that the recurrence reads, and every output written once; the
-    replay's operations (the fresh-node fits are an input)."""
-    pod_scal, pod_req, front_j, compat_j, jvals, open_fits, daemon = (
-        a.cpu().numpy() for a in args)
-    C, _, S_pad = front_j.shape
-    ops, compat, rows_read, jv = replay_work(
-        (pod_scal[0] != 0, *pod_scal[1:4], pod_scal[4] != 0, pod_scal[5],
-         np.ascontiguousarray(pod_req.T), daemon[:, 0]),
-        result.assignment.cpu().numpy(),
-        lambda c, sigs: (compat_j[c, 0, sigs] > 0.5, np.rint(jvals[c, 0, sigs]).astype(np.int64)),
-        lambda c, sigs, ids: front_j[c, : F * R, sigs].reshape(-1, F, R),
-        (result.node_sig.shape[-1], C, S_pad),
-    )
-    n_bytes = nbytes((args[0], args[1], args[5], args[6])) + nbytes(result)
-    n_bytes += 4 * (int(compat.sum()) + int(rows_read.sum()) * R + int(jv.sum()))
-    return n_bytes, ops
+def work_args(args, result):
+    """A launch as ``portbench/roofline.py``'s work counts take it: host
+    copies of the inputs, the assignment and the outputs."""
+    outputs = [o.cpu().numpy() for o in result]
+    return [a.cpu().numpy() for a in args], outputs[0], outputs
 
 
 def profile_round(run, card: str) -> None:
@@ -1113,8 +991,8 @@ def diverse_phases(dev, card: str) -> tuple:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     worst = max(worst, compare(plain, results[512]), same)
-    n_bytes, n_ops = v2_work(gpu, results[512], F, R)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    n_bytes, n_ops = roofline.v2_work(*work_args(gpu, results[512]), F, R)
+    bound_ms, bound_by = roofline.bound(n_bytes, n_ops)
     log(f"[v2 parity] full width: pack_first_fit_v2 {ms_v2:.4f} ms at n_max=512 "
         f"({ms_v2 * 1e6 / P:.1f} ns per pod step), {ms_v2_p:.4f} ms at n_max={P}; "
         f"pack_first_fit on the same batch {ms_v1:.4f} ms ({ms_v1 * 1e6 / P:.1f} ns per pod "
@@ -8358,9 +8236,9 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     worst = max(worst, compare(plain, results[512]))
-    n_bytes, n_ops = v1_work(gpu, results[512])
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    bound_p, _ = bound(*v1_work(gpu, results[P]))
+    n_bytes, n_ops = roofline.v1_work(*work_args(gpu, results[512]))
+    bound_ms, bound_by = roofline.bound(n_bytes, n_ops)
+    bound_p, _ = roofline.bound(*roofline.v1_work(*work_args(gpu, results[P])))
     log(f"[parity] kernel {ms_512:.4f} ms at n_max=512 ({ms_512 * 1e6 / P:.1f} ns per pod "
         f"step), {ms_p:.4f} ms at n_max={P} (CUDA events, mean of 20); plain version on "
         f"the card {plain_ms:.1f} ms; "

@@ -17,7 +17,7 @@
 // ``resources.merge``'s order; every set is built in Python's insertion
 // order, so iteration orders agree too.
 //
-// Build (see ``statics_native.py``): g++ -O2 -shared -fPIC -I<python include>
+// Build (see ``statics.py``): g++ -O2 -shared -fPIC -I<python include>
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>

@@ -21,14 +21,19 @@ OR-term — reference: requirements.go:55-75) and split hostname exactly like
 
 from __future__ import annotations
 
+import importlib.util
+import sys
+import sysconfig
 import threading
 import time
+from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from karpenter_tpu_torch.api import labels as lbl
 from karpenter_tpu_torch.api.objects import Pod
-from karpenter_tpu_torch.scheduling import statics_native
 from karpenter_tpu_torch.utils import pod as podutil
+from karpenter_tpu_torch.utils import native_build
 from karpenter_tpu_torch.utils import resources as res
 
 # keys whose per-domain narrowing topology injection consults
@@ -268,7 +273,33 @@ NATIVE_CTX = (
     SUPPORTED_AFFINITY_KEYS, lbl.HOSTNAME, res.AXIS_INDEX, res.CPU, res.MEMORY,
     res.PODS, podutil.WILDCARD_HOST_IP,
 )
-statics_native.start()  # the compile overlaps the rest of the process's start
+# The native statics pass: ``csrc/statics_native.cpp``, a CPython module in
+# C++ whose ``statics_pass`` builds the ``PodStatics`` of a list of pods in
+# one call, the objects ``_build`` gives, from ``NATIVE_CTX``. g++ builds it
+# for this interpreter into ``build/karpenter_tpu_torch/statics-<hash>/`` on
+# a thread started at import, so a first solve never waits for it; until
+# it is loaded, or where it cannot be built, the Python ``_build`` serves.
+_NATIVE_NAME = "_statics_native"
+_INCLUDE = sysconfig.get_paths()["include"]
+_EXT_SUFFIX = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+NATIVE_EXT = native_build.Artifact(
+    "statics", "g++", ("-O2", "-shared", "-fPIC", f"-I{_INCLUDE}"),
+    Path(__file__).resolve().parent / "csrc", {_NATIVE_NAME + _EXT_SUFFIX: "statics_native.cpp"},
+    key_parts=(_EXT_SUFFIX, sys.version), timeout=120)
+
+
+def _load_native() -> ModuleType:
+    if not (Path(_INCLUDE) / "Python.h").exists():
+        raise FileNotFoundError(f"no Python.h under {_INCLUDE}")
+    path = NATIVE_EXT.build() / (_NATIVE_NAME + _EXT_SUFFIX)
+    spec = importlib.util.spec_from_file_location(_NATIVE_NAME, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+NATIVE = native_build.Loader("native statics pass", _load_native, daemon=False)
+NATIVE.get()  # starts the build: it overlaps the rest of the process's start
 
 
 def statics(pod: Pod) -> PodStatics:
@@ -290,7 +321,7 @@ def statics(pod: Pod) -> PodStatics:
         if st.sel_raw == tuple(spec.node_selector.items()):
             st.sel_ref = spec.node_selector
             return st
-    native = statics_native.module()
+    native = NATIVE.get()
     st = native.build(pod, NATIVE_CTX) if native is not None else None
     if st is None:
         st = _build(pod)
@@ -313,7 +344,7 @@ def _pass(pods: Sequence[Pod]) -> Tuple[list, int, int]:
     """``([statics(p) for p in pods], built, native)``: the pods whose
     statics this call built, and those of them the native pass built (the
     whole pass runs in native code once the extension is loaded)."""
-    native = statics_native.module()
+    native = NATIVE.get()
     if native is not None:
         return native.statics_pass(pods, NATIVE_CTX)
     b0 = _built.n

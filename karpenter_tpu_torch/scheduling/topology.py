@@ -1003,22 +1003,6 @@ class Topology:
                 else:
                     plan.set(pod, key, domain)
 
-    def _topology_groups(
-        self, pods: List[Pod], sts: Optional[List[PodStatics]] = None
-    ) -> List[TopologyGroup]:
-        if sts is None:
-            sts = [statics(p) for p in pods]
-        groups: Dict[Tuple, TopologyGroup] = {}
-        for pod, st in zip(pods, sts):
-            for key, constraint in st.spreads:
-                g = groups.get(key)
-                if g is None:
-                    g = groups[key] = TopologyGroup(pod, constraint)
-                    g.pods.pop()  # ctor added the pod; re-add with its st
-                g.pods.append(pod)
-                g.sts.append(st)
-        return list(groups.values())
-
     def _compute_current_topology(
         self,
         constraints: Constraints,

@@ -300,6 +300,17 @@ class InvalidPackError(RuntimeError):
     a host-checked invariant (raised on the card, which has no floor)."""
 
 
+def _virtual_node(constraints, reqs, surviving, pods, requests) -> VirtualNode:
+    """One decoded node: a clone of the solve's constraints holding the
+    node's requirements, its surviving types, its pods and its requests."""
+    node_constraints = constraints.clone()
+    node_constraints.requirements = reqs
+    return VirtualNode(
+        constraints=node_constraints, instance_type_options=surviving, pods=pods,
+        requests=requests,
+    )
+
+
 def _with_hostname(reqs, hostname: str, cache: dict):
     """``reqs.add(NodeSelectorRequirement(HOSTNAME, In, [hostname]))`` with
     the signature-invariant parts (requirements tuple, sorted sets minus the
@@ -1580,12 +1591,10 @@ class TorchScheduler:
             total = totals_l[row]
             scaled = scaled_l[row]
             surviving = uniq_lists[row_of_l[row]]
-            node_constraints = constraints.clone()
             reqs = sig.requirements
             h = host_l[row]
             if h >= 0:
                 reqs = _with_hostname(reqs, batch.hostnames[h], sig_host_cache)
-            node_constraints.requirements = reqs
             requests = {
                 name: scaled[i]
                 for i, name in enumerate(axis_names)
@@ -1599,14 +1608,7 @@ class TorchScheduler:
                 # the replace-never-mutate convention, as uniq_lists shares
                 # them across this round's nodes
                 memo_rows.append((reqs, dict(requests), surviving, list(pods_list)))
-            nodes.append(
-                VirtualNode(
-                    constraints=node_constraints,
-                    instance_type_options=surviving,
-                    pods=pods_list,
-                    requests=requests,
-                )
-            )
+            nodes.append(_virtual_node(constraints, reqs, surviving, pods_list, requests))
         if memo_on:
             # the copies decouple the memo from the result buffers
             self._dec_memo = (
@@ -1663,16 +1665,7 @@ class TorchScheduler:
         ):
             return None
         metrics.SOLVER_DELTA_APPLIED.labels(path="decode").inc()
-        nodes: List[VirtualNode] = []
-        for reqs, requests, surviving, pods_list in rows:
-            node_constraints = constraints.clone()
-            node_constraints.requirements = reqs
-            nodes.append(
-                VirtualNode(
-                    constraints=node_constraints,
-                    instance_type_options=surviving,
-                    pods=list(pods_list),
-                    requests=dict(requests),
-                )
-            )
-        return nodes
+        return [
+            _virtual_node(constraints, reqs, surviving, list(pods_list), dict(requests))
+            for reqs, requests, surviving, pods_list in rows
+        ]

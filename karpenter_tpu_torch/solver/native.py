@@ -3,12 +3,10 @@
 The shared library is compiled from ``csrc/ffd_pack.cpp`` at first use,
 with the host's ``g++`` (``-O3 -shared -fPIC``: no ``-march=native`` and no
 fast math, so the f32 totals and ``<=`` compares are the kernels'), on a
-background thread (``_kick_build``): a first solve never waits out the
-compile. The library lands in
+background thread that the first ``native_available()`` starts: a first
+solve never waits out the compile. ``utils.native_build`` builds it into
 ``build/karpenter_tpu_torch/native-<hash of the source and flags>/`` at the
-root of the checkout (listed in ``.gitignore``); it is compiled to a
-temporary name and renamed into place, so processes sharing the checkout
-never load a half-written file.
+root of the checkout.
 
 ``pack_native`` has ``kernel.pack_reference``'s contract and returns its
 ``PackResult`` over host numpy arrays. A ``device="cpu"`` scheduler's cost
@@ -22,11 +20,6 @@ host code: it counts no kernel launch.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import logging
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
@@ -34,94 +27,45 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.solver.kernel import PackResult
-from karpenter_tpu_torch.solver.pack_kernel import BUILD_ROOT
-
-logger = logging.getLogger("karpenter.solver.native")
+from karpenter_tpu_torch.utils import native_build
 
 SRC = Path(__file__).resolve().parent / "csrc" / "ffd_pack.cpp"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+LIB = native_build.Artifact(
+    "native", "g++", GXX_FLAGS, SRC.parent, {"libffd_pack.so": SRC.name}, timeout=120)
 
 # pack_native calls that reached the library (host code: no kernel launch)
 calls = 0
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None  # guarded-by: _lock
-_load_failed = False  # guarded-by: _lock
-_build_thread: Optional[threading.Thread] = None  # guarded-by: _lock
-
 
 def lib_path() -> Path:
     """Where the library built from ``SRC`` with ``GXX_FLAGS`` lives."""
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode() + b"\0" + SRC.read_bytes())
-    return BUILD_ROOT / f"native-{digest.hexdigest()[:16]}" / "libffd_pack.so"
+    return LIB.directory / "libffd_pack.so"
 
 
-def _build_and_load() -> None:
-    global _lib, _load_failed
-    try:
-        lib_file = lib_path()
-        if not lib_file.exists():
-            lib_file.parent.mkdir(parents=True, exist_ok=True)
-            tmp = lib_file.with_name(f"libffd_pack.{os.getpid()}.tmp.so")
-            subprocess.run(
-                ["g++", *GXX_FLAGS, "-o", str(tmp), str(SRC)],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-            os.replace(tmp, lib_file)
-        lib = ctypes.CDLL(str(lib_file))
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        f32p = ctypes.POINTER(ctypes.c_float)
-        lib.ffd_pack.restype = ctypes.c_int32
-        lib.ffd_pack.argtypes = [
-            u8p, i32p, i32p, i32p, u8p, i32p, f32p, i32p, f32p, f32p,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int32,
-            i32p, i32p, i32p, f32p,
-        ]
-        with _lock:
-            _lib = lib
-    except Exception:
-        logger.exception("native packer unavailable")
-        with _lock:
-            _load_failed = True
+def _load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(LIB.build() / "libffd_pack.so"))
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.ffd_pack.restype = ctypes.c_int32
+    lib.ffd_pack.argtypes = [
+        u8p, i32p, i32p, i32p, u8p, i32p, f32p, i32p, f32p, f32p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+        i32p, i32p, i32p, f32p,
+    ]
+    return lib
 
 
-def _kick_build() -> None:
-    """Start the (one-time) background build; never blocks the caller —
-    a first solve must not wait out a g++ compile."""
-    global _build_thread
-    with _lock:
-        if _lib is not None or _load_failed or (
-            _build_thread is not None and _build_thread.is_alive()
-        ):
-            return
-        _build_thread = threading.Thread(
-            target=_build_and_load, daemon=True, name="ffd-pack-build"
-        )
-        _build_thread.start()
+_loader = native_build.Loader("native packer", _load, daemon=True)
 
 
 def native_available(wait: Optional[float] = None) -> bool:
-    """Non-blocking by default: kicks the background build and reports
+    """Non-blocking by default: starts the background build and reports
     whether the library is loaded NOW. Pass ``wait`` seconds to block for
     the build."""
-    _kick_build()
-    if wait is not None:
-        with _lock:
-            thread = _build_thread
-        if thread is not None:
-            thread.join(timeout=wait)
-    with _lock:
-        return _lib is not None
-
-
-def _ensure_lib() -> Optional[ctypes.CDLL]:
-    _kick_build()
-    with _lock:
-        return _lib
+    return _loader.get(wait) is not None
 
 
 def _host(a, dtype) -> np.ndarray:
@@ -149,7 +93,7 @@ def pack_native(
     when the library is not loaded (yet) or the packer rejects the problem
     (more than 64 resource axes)."""
     global calls
-    lib = _ensure_lib()
+    lib = _loader.get()
     if lib is None:
         raise RuntimeError("native packer unavailable")
 

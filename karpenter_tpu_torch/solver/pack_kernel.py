@@ -11,11 +11,11 @@ per kernel source, all started together, into shared libraries with a plain
 C interface, and loads them with ``ctypes``. Kernels launch on PyTorch's
 current stream.
 
-The build lands in ``build/karpenter_tpu_torch/<hash>/`` at the root of the
-checkout (listed in ``.gitignore``), keyed on the content of every file
-under ``csrc/`` (sources and headers) and the flags, so a fresh checkout
-builds everything it runs and an edited source or header never loads a
-stale library.
+The build (``utils.native_build``) lands in
+``build/karpenter_tpu_torch/kernels-<hash>/`` at the root of the checkout,
+keyed on every ``.cu`` and ``.cuh`` file under ``csrc/`` and the flags, so
+a fresh checkout builds everything it runs and an edited source or header
+never loads a stale library.
 
 ``launch_plan`` is the host's choice of block size, lanes per node slot and
 where the node table lives, shared by both wrappers; the kernels check it
@@ -38,14 +38,8 @@ or the unfused v2 caller by shape, the other kernel when a launch raises
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import fcntl
-import hashlib
 import logging
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -54,6 +48,7 @@ import torch
 
 from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_reference
+from karpenter_tpu_torch.utils import native_build
 
 logger = logging.getLogger("karpenter.solver")
 
@@ -62,11 +57,13 @@ SOURCES = {
     "pack_first_fit": CSRC / "pack_first_fit.cu",
     "pack_first_fit_v2": CSRC / "pack_first_fit_v2.cu",
 }
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "karpenter_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LIBS = native_build.Artifact(
+    "kernels", "nvcc", NVCC_FLAGS, CSRC, {f"lib{n}.so": p.name for n, p in SOURCES.items()},
+    keyed=("*.cu", "*.cuh"))
 MAX_R = 64  # resource axes the kernels' shared-memory staging takes
 
 # Shared memory one block may use on sm_90 (227 KB), and the kernels'
@@ -91,7 +88,6 @@ launches = 0  # guarded-by: launch_count_lock
 launch_count_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _build_lock
-_build_logs: Dict[str, str] = {}  # guarded-by: _build_lock
 _build_lock = threading.Lock()
 
 
@@ -142,91 +138,28 @@ def launch_plan(F: int, R: int, n_cap: int, threads: Optional[int] = None) -> La
     return LaunchPlan(threads, G, in_smem, stage + (nodes if in_smem else 0))
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
-
-
-def build_dir(csrc: Path = CSRC) -> Path:
-    """Where the libraries built from ``csrc`` live: a hash of the flags and
-    of every ``.cu`` and ``.cuh`` file there, by name and content."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(p for p in Path(csrc).iterdir() if p.suffix in (".cu", ".cuh")):
-        data = path.read_bytes()
-        digest.update(f"{path.name}\0{len(data)}\0".encode() + data)
-    return BUILD_ROOT / digest.hexdigest()[:16]
-
-
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile (once per content of the sources) and load every kernel
-    library; returns them by kernel name. A failed build raises. A file
-    lock in the build directory serializes processes: a second process (a
-    sidecar started beside its controller) waits for the first one's
-    build and loads its libraries."""
+    library; returns them by kernel name. A failed build raises. A second
+    process sharing the checkout (a sidecar started beside its controller)
+    waits for the first one's build and loads its libraries."""
     with _build_lock:
-        if _libs:
-            return _libs
-        out_dir = build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        with _dir_lock(out_dir):
-            _build_missing(out_dir)
-        for name in SOURCES:
-            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-            launch = getattr(lib, f"{name}_launch")
-            launch.argtypes = _LAUNCH_ARGTYPES[name]
-            launch.restype = _ci
-            log = out_dir / f"{name}.build.log"
-            _build_logs[name] = log.read_text() if log.exists() else ""
-            _libs[name] = lib
+        if not _libs:
+            out_dir = LIBS.build()
+            for name in SOURCES:
+                lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+                launch = getattr(lib, f"{name}_launch")
+                launch.argtypes = _LAUNCH_ARGTYPES[name]
+                launch.restype = _ci
+                _libs[name] = lib
         return _libs
-
-
-@contextlib.contextmanager
-def _dir_lock(out_dir: Path):
-    fd = os.open(out_dir / ".build.lock", os.O_CREAT | os.O_RDWR)
-    try:
-        fcntl.flock(fd, fcntl.LOCK_EX)
-        yield
-    finally:
-        os.close(fd)  # closing the descriptor releases the lock
-
-
-def _build_missing(out_dir: Path) -> None:
-    """One ``nvcc`` per kernel source whose library is not in ``out_dir``
-    yet, all started together; each library lands by atomic rename."""
-    missing = [n for n in SOURCES if not (out_dir / f"lib{n}.so").exists()]
-    if not missing:
-        return
-    nvcc = _nvcc()
-    procs = {}
-    for name in missing:
-        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        ))
-    failures = []
-    for name, (tmp, proc) in procs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {SOURCES[name].name}:\n{out}{err}")
-            continue
-        (out_dir / f"{name}.build.log").write_text(out + err)
-        os.replace(tmp, out_dir / f"lib{name}.so")
-    if failures:
-        raise RuntimeError("\n".join(failures))
 
 
 def build_log(name: str) -> str:
     """What ``nvcc -Xptxas -v`` reported for one loaded kernel library
     (registers, shared memory, spills)."""
-    return _build_logs.get(name, "")
+    log = LIBS.directory / f"{name}.build.log"
+    return log.read_text() if log.exists() else ""
 
 
 def check_tensors(kernel: str, spec, args) -> Tuple[torch.device, Optional[int]]:

@@ -132,20 +132,6 @@ def requests_for_pods(*pods) -> ResourceList:
     return out
 
 
-def limits_for_pods(*pods) -> ResourceList:
-    out = merge(*(p.resource_limits() for p in pods))
-    out[PODS] = out.get(PODS, 0.0) + float(len(pods))
-    return out
-
-
-def cmp_quantity(lhs: float, rhs: float) -> int:
-    if lhs < rhs:
-        return -1
-    if lhs > rhs:
-        return 1
-    return 0
-
-
 def to_string(rl: Mapping[str, float]) -> str:
     if not rl:
         return "{}"

@@ -1014,11 +1014,11 @@ def test_fresh_round_on_card_builds_every_statics_natively(cuda):
     """A round of 10,000 new pod objects of the benchmark's mix through a
     card scheduler: the native statics pass built every pod's statics."""
     from karpenter_tpu_torch.kube.client import Cluster
-    from karpenter_tpu_torch.scheduling import statics_native
     from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+    from karpenter_tpu_torch.scheduling.statics import NATIVE
     from torch_parity import mix7, portbench
 
-    assert statics_native.module(wait=300) is not None
+    assert NATIVE.get(wait=300) is not None
     prov, catalog, pods = mix7(10000, 4_422_000_004)
     sched = Scheduler(Cluster(), rng=random.Random(1), solver_delta=False)
     sched.solve(prov, catalog, portbench("adapter").fresh(pods, 1))

@@ -1,8 +1,7 @@
 """The host side of the first-fit kernels' launch, which the CPU reaches:
-the launch plan both wrappers share, the build directory's key, and the
-signature-major copy of ``front_j`` that ``pack_first_fit_v2`` walks."""
-
-import shutil
+the launch plan both wrappers share and the signature-major copy of
+``front_j`` that ``pack_first_fit_v2`` walks. The build's key is tested
+with the other artifacts' in ``test_torch_native_build.py``."""
 
 import numpy as np
 import pytest
@@ -60,34 +59,6 @@ def test_plan_rejects_bad_thread_counts(F, threads):
 def test_plan_rejects_staging_past_shared_memory():
     with pytest.raises(ValueError):
         pack_kernel.launch_plan(4, 64, 64, threads=1024)
-
-
-# -- the build's key -----------------------------------------------------------
-
-
-def test_build_dir_keys_on_every_source_and_header(tmp_path):
-    csrc = tmp_path / "csrc"
-    shutil.copytree(pack_kernel.CSRC, csrc)
-    assert {p.name for p in csrc.glob("*.cuh")} and {p.name for p in csrc.glob("*.cu")}
-    assert pack_kernel.build_dir(csrc) == pack_kernel.build_dir()
-    header = csrc / "first_fit.cuh"
-    original = header.read_bytes()
-    header.write_bytes(original + b"\n// an edit\n")
-    edited = pack_kernel.build_dir(csrc)
-    assert edited != pack_kernel.build_dir()
-    assert edited.parent == pack_kernel.BUILD_ROOT
-    header.write_bytes(original)
-    assert pack_kernel.build_dir(csrc) == pack_kernel.build_dir()
-    source = csrc / "pack_first_fit.cu"
-    source.write_bytes(source.read_bytes().replace(b"namespace {", b"namespace  {", 1))
-    assert pack_kernel.build_dir(csrc) != pack_kernel.build_dir()
-
-
-def test_build_dir_ignores_other_files(tmp_path):
-    csrc = tmp_path / "csrc"
-    shutil.copytree(pack_kernel.CSRC, csrc)
-    (csrc / "notes.txt").write_text("not compiled")
-    assert pack_kernel.build_dir(csrc) == pack_kernel.build_dir()
 
 
 # -- the signature-major copy ------------------------------------------------

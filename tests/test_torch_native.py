@@ -1,14 +1,14 @@
 """The port's native packer (``solver/native.py`` over
 ``solver/csrc/ffd_pack.cpp``) against the JAX package's native packer and
-its lax.scan kernel, bit for bit, on real encoded batches; where the port
-builds its library; and its error contract.
+its lax.scan kernel, bit for bit, on real encoded batches, and its error
+contract. Where the port builds its library is tested in
+``test_torch_native_build.py``.
 
 The shapes are those of the reference's own native tests: 60, 300 and
 1,200 diverse pods at n_max 64, 128 and 512, and a saturating 8-slot table.
 """
 
 import random
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -20,8 +20,6 @@ from karpenter_tpu.solver import native as jax_native
 from karpenter_tpu_torch.solver import native
 from karpenter_tpu_torch.solver.kernel import PackResult, pack_reference
 from torch_parity import fresh_router  # noqa: F401
-
-REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -76,17 +74,6 @@ def test_native_matches_reference_native_and_lax_scan(n_pods, n_max, seed):
     assert_same(out, native.pack_native(*tensors, n_max=n_max))
     if n_max == 8:
         assert int(out.n_nodes) == 8 and (out.assignment < 0).any()
-
-
-def test_library_lands_under_build_never_native():
-    path = native.lib_path()
-    assert path.exists()
-    rel = path.relative_to(REPO)
-    assert rel.parts[:2] == ("build", "karpenter_tpu_torch")
-    assert rel.parts[2].startswith("native-") and rel.name == "libffd_pack.so"
-    assert native.SRC.relative_to(REPO).as_posix() == "karpenter_tpu_torch/solver/csrc/ffd_pack.cpp"
-    # the build is keyed on the source and the flags
-    assert path.parent.name != native.BUILD_ROOT.name and "march" not in " ".join(native.GXX_FLAGS)
 
 
 def test_more_than_64_axes_errors_as_the_reference_does():

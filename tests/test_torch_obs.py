@@ -665,10 +665,9 @@ def test_statics_built_counts_new_pod_objects_once():
     built them first (the selection controller's prewarm). ``native`` (and
     ``statics_native``) counts those the native pass built: all of them
     once the extension is loaded, none without it."""
-    from karpenter_tpu_torch.scheduling import statics_native
-    from karpenter_tpu_torch.scheduling.statics import statics
+    from karpenter_tpu_torch.scheduling.statics import NATIVE, statics
 
-    loaded = statics_native.module(wait=300) is not None
+    loaded = NATIVE.get(wait=300) is not None
     prov, catalog, pods = scenario(PORT, "diverse", 160, 42, 16)
     prewarmed = scenario(PORT, "diverse", 160, 43, 16)[2]
     sched = _scheduler(PORT)
@@ -695,9 +694,9 @@ def test_statics_built_is_per_thread_under_many_workers():
     ``built`` is its own pods alone."""
     import sys
 
-    from karpenter_tpu_torch.scheduling import statics_native
+    from karpenter_tpu_torch.scheduling.statics import NATIVE
 
-    loaded = statics_native.module(wait=300) is not None
+    loaded = NATIVE.get(wait=300) is not None
     n_workers, N = 9, 300
     prov, catalog, _ = scenario(PORT, "diverse", N, 42, 16)
     batches = {i: [scenario(PORT, "diverse", N + i, 50 + 11 * r + i, 16)[2]

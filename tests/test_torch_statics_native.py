@@ -36,7 +36,6 @@ from karpenter_tpu_torch.api.objects import (
 )
 from karpenter_tpu_torch.kube.client import Cluster
 from karpenter_tpu_torch.scheduling import statics as S
-from karpenter_tpu_torch.scheduling import statics_native
 from karpenter_tpu_torch.scheduling.scheduler import Scheduler
 from karpenter_tpu_torch.testing.factories import make_pod
 from karpenter_tpu_torch.testing.scenarios import diverse_pods
@@ -48,7 +47,7 @@ MEMOS = ("_requests_memo", "_host_ports_memo")
 
 @pytest.fixture(scope="module")
 def native():
-    mod = statics_native.module(wait=300)
+    mod = S.NATIVE.get(wait=300)
     if mod is None:
         if shutil.which("g++") is None:
             pytest.skip("no C++ compiler to build the native statics pass")
@@ -60,7 +59,7 @@ def native():
 def python_only(native, monkeypatch):
     """The loaded extension hidden for one test: the Python pass serves."""
     def hide():
-        monkeypatch.setattr(statics_native, "_module", None)
+        monkeypatch.setattr(S.NATIVE, "value", None)
 
     return hide
 
