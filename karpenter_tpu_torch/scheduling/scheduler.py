@@ -92,7 +92,9 @@ class Scheduler:
         served from resident state under its ``*_delta_s`` key, each the
         clock of its ``solve.*`` span; inside sort, statics_s and
         statics_built, the per-pod statics pass and the pods it built
-        statics for, absent when the resident sort was reused; inside
+        statics for, absent when the resident sort was reused;
+        validate_native, 1 where the native validate pass gave the plan's
+        verdict, 0 where the Python loop did or the validate memo hit; inside
         pack_fetch_s, pack_begin_s, the begin up to the launch, which
         waits on the card once: the kernel wrapper's bounds check
         (``pack.check``) reads the uploaded ids' range back before the

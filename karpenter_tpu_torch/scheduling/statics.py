@@ -21,13 +21,9 @@ OR-term — reference: requirements.go:55-75) and split hostname exactly like
 
 from __future__ import annotations
 
-import importlib.util
-import sys
-import sysconfig
 import threading
 import time
 from pathlib import Path
-from types import ModuleType
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from karpenter_tpu_torch.api import labels as lbl
@@ -279,26 +275,10 @@ NATIVE_CTX = (
 # for this interpreter into ``build/karpenter_tpu_torch/statics-<hash>/`` on
 # a thread started at import, so a first solve never waits for it; until
 # it is loaded, or where it cannot be built, the Python ``_build`` serves.
-_NATIVE_NAME = "_statics_native"
-_INCLUDE = sysconfig.get_paths()["include"]
-_EXT_SUFFIX = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-NATIVE_EXT = native_build.Artifact(
-    "statics", "g++", ("-O2", "-shared", "-fPIC", f"-I{_INCLUDE}"),
-    Path(__file__).resolve().parent / "csrc", {_NATIVE_NAME + _EXT_SUFFIX: "statics_native.cpp"},
-    key_parts=(_EXT_SUFFIX, sys.version), timeout=120)
-
-
-def _load_native() -> ModuleType:
-    if not (Path(_INCLUDE) / "Python.h").exists():
-        raise FileNotFoundError(f"no Python.h under {_INCLUDE}")
-    path = NATIVE_EXT.build() / (_NATIVE_NAME + _EXT_SUFFIX)
-    spec = importlib.util.spec_from_file_location(_NATIVE_NAME, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-NATIVE = native_build.Loader("native statics pass", _load_native, daemon=False)
+NATIVE_EXT = native_build.extension(
+    "statics", Path(__file__).resolve().parent / "csrc", "statics_native.cpp", "_statics_native")
+NATIVE = native_build.Loader(
+    "native statics pass", lambda: native_build.load_extension(NATIVE_EXT), daemon=False)
 NATIVE.get()  # starts the build: it overlaps the rest of the process's start
 
 

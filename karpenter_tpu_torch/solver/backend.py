@@ -186,6 +186,7 @@ from karpenter_tpu_torch.scheduling.topology import (
     snapshot_selectors,
 )
 from karpenter_tpu_torch.solver import encode as enc
+from karpenter_tpu_torch.solver import validate as val
 from karpenter_tpu_torch.solver import (
     fused, integrity, kernel, native, pack_kernel, pack_kernel_v2, session_stats,
 )
@@ -719,6 +720,7 @@ class TorchScheduler:
                 and vmemo[1] is pods
                 and vmemo[2] == daemon
             )
+            val.last.native = False
             if memo_hit:
                 violation = None
                 prof["validate_delta_s"] = time.perf_counter() - t0
@@ -727,7 +729,9 @@ class TorchScheduler:
                 if violation is None:
                     self._validate_memo = (self._dec_memo, pods, dict(daemon))
                 prof["validate_s"] = time.perf_counter() - t0
+            prof["validate_native"] = int(val.last.native)
             val_sp.set_attribute("memo_hit", memo_hit)
+            val_sp.set_attribute("native", val.last.native)
         if violation:
             # a correctness failure: its source is quarantined at once
             self._quarantine_source("invalid_pack", violation, batch, address=address)
@@ -1460,7 +1464,11 @@ class TorchScheduler:
         most once, every placed pod from THIS batch, and every node's
         recomputed totals (pod requests + daemon overhead) fit at least one
         of its surviving instance types. Returns a description of the first
-        violation, or None."""
+        violation, or None. The native pass (``solver/validate.py``) gives
+        the verdict where it proves the plan passes (``val.last.native``);
+        otherwise the loop below judges the plan and words the violation."""
+        if val.passes(nodes, pods, daemon):
+            return None
         batch_keys = {p.key for p in pods}
         seen: set = set()
         for i, node in enumerate(nodes):

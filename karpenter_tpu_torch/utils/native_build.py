@@ -1,5 +1,6 @@
 """Build and load the port's compiled code: the card kernels (``nvcc``), the
-native packer and the native statics pass (``g++``).
+native packer, and the CPython extensions of the native statics pass and
+the native validate pass (``g++``).
 
 An ``Artifact``'s outputs live in ``BUILD_ROOT/<prefix>-<hash>/`` (git-ignored),
 the hash over its flags, extra key parts and each keyed file's name, length
@@ -16,17 +17,23 @@ import dataclasses
 import fcntl
 import functools
 import hashlib
+import importlib.util
 import logging
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, Optional, Tuple
 
 logger = logging.getLogger("karpenter.native_build")
 
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "karpenter_tpu_torch"
+PY_INCLUDE = sysconfig.get_paths()["include"]
+EXT_SUFFIX = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
 
 
 def find_compiler(name: str) -> str:
@@ -100,6 +107,26 @@ class Artifact:
                 failures.append(f"{self.compiler} failed for {src}:\n{log}")
         if failures:
             raise RuntimeError("\n".join(failures))
+
+
+def extension(prefix: str, csrc: Path, source: str, module: str) -> Artifact:
+    """The CPython extension ``module``, g++-built from ``csrc/source`` for
+    this interpreter (its headers, its suffix and its version in the key)."""
+    return Artifact(
+        prefix, "g++", ("-O2", "-shared", "-fPIC", f"-I{PY_INCLUDE}"), csrc,
+        {module + EXT_SUFFIX: source}, key_parts=(EXT_SUFFIX, sys.version), timeout=120)
+
+
+def load_extension(art: Artifact) -> ModuleType:
+    """Build ``art``, one ``extension``, and import its module."""
+    if not (Path(PY_INCLUDE) / "Python.h").exists():
+        raise FileNotFoundError(f"no Python.h under {PY_INCLUDE}")
+    (out,) = art.outputs
+    name = out[: -len(EXT_SUFFIX)]
+    spec = importlib.util.spec_from_file_location(name, art.build() / out)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Loader:

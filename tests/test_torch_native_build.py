@@ -1,8 +1,8 @@
 """The port's one build-and-load path (``utils/native_build.py``): where each
-of its three artifacts (the card kernels, the native packer, the native
-statics pass) is built and what its key covers, and, with a stub compiler
-on the CPU, the compile step's locking, failures and timeout and the
-background loader's contract."""
+of its four artifacts (the card kernels, the native packer, the native
+statics pass, the native validate pass) is built and what its key covers,
+and, with a stub compiler on the CPU, the compile step's locking, failures
+and timeout and the background loader's contract."""
 
 import dataclasses
 import logging
@@ -17,6 +17,7 @@ import pytest
 
 from karpenter_tpu_torch.scheduling import statics as S
 from karpenter_tpu_torch.solver import native, pack_kernel
+from karpenter_tpu_torch.solver import validate as V
 from karpenter_tpu_torch.utils import native_build
 
 REPO = Path(__file__).resolve().parents[1]
@@ -25,12 +26,14 @@ ARTIFACTS = {
     "kernels": pack_kernel.LIBS,
     "native": native.LIB,
     "statics": S.NATIVE_EXT,
+    "validate": V.NATIVE_EXT,
 }
 # the files each artifact's key covers: every source and header it compiles
 KEYED = {
     "kernels": {"first_fit.cuh", "pack_first_fit.cu", "pack_first_fit_v2.cu"},
     "native": {"ffd_pack.cpp"},
     "statics": {"statics_native.cpp"},
+    "validate": {"validate_native.cpp"},
 }
 
 
@@ -103,6 +106,8 @@ def test_the_g_plus_plus_artifacts_build_where_they_are_keyed():
     assert native.lib_path().exists()
     assert S.NATIVE.get(wait=300) is not None
     assert [p for p in S.NATIVE_EXT.directory.iterdir() if p.name.startswith("_statics_native")]
+    assert V.NATIVE.get(wait=300) is not None
+    assert [p for p in V.NATIVE_EXT.directory.iterdir() if p.name.startswith("_validate_native")]
 
 
 # -- the compile step, with a stub compiler -------------------------------------

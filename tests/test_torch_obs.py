@@ -603,7 +603,7 @@ def test_resident_span_trees_match_the_reference():
         port_spans_sit(t)
     # the resident rounds reuse the sort, the pod table and the verdict
     sort, begin, validate = (port_trees[-1]["children"][i] for i in (0, 3, 6))
-    assert sort["children"] == [] and validate["attrs"] == {"memo_hit": True}
+    assert sort["children"] == [] and validate["attrs"] == {"memo_hit": True, "native": False}
     assert [c["name"] for c in begin["children"]] == [
         "pack.pod_table", "pack.invariants", "pack.launch"]
 

@@ -60,7 +60,8 @@ PORT_ONLY_SPANS = frozenset({
 STAGES = ("solve.sort", "solve.inject", "solve.encode", "solve.pack_begin",
           "solve.pack_fetch", "solve.decode")
 # each new span's attribute keys
-PORT_SPAN_ATTRS = {"solve.statics": ("built", "native", "pods"), "solve.validate": ("memo_hit",),
+PORT_SPAN_ATTRS = {"solve.statics": ("built", "native", "pods"),
+                   "solve.validate": ("memo_hit", "native"),
                    "pack.invariants": ("hit",), "pack.launch": ("n_max",),
                    "pack.split": ("n_max", "rows"),
                    "pack.redispatch": ("n_max", "n_max_first", "n_nodes_first"),
